@@ -1,4 +1,5 @@
-"""Parameter trees between the reference (as numpy) and this package.
+"""Parameter trees and defense states between the reference (as numpy) and
+this package.
 
 The port stores parameters in the reference's layout (fc ``w`` as
 (din, dout), conv ``w`` as HWIO), so conversion is a copy of each leaf with
@@ -23,3 +24,19 @@ def params_from_numpy(tree, device=None):
 def params_to_numpy(tree):
     """Nested dict of tensors -> nested dict of numpy arrays."""
     return tree_util.map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def defense_state_from_numpy(state: dict, device=None) -> dict:
+    """Reputation state (dict of arrays) -> dict of tensors on ``device``.
+
+    ``steps`` stays int32 (``params_from_numpy`` would cast it to f32); the
+    per-worker vectors become f32."""
+    return {k: torch.tensor(np.asarray(v),
+                            dtype=torch.int32 if k == "steps"
+                            else torch.float32, device=device)
+            for k, v in state.items()}
+
+
+def defense_state_to_numpy(state: dict) -> dict:
+    """Reputation state (dict of tensors) -> dict of numpy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in state.items()}

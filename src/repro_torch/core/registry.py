@@ -14,7 +14,7 @@ kernel for a CUDA tensor and the plain path for a CPU one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, ClassVar, Dict, Tuple, Type
+from typing import Callable, ClassVar, Dict, Optional, Tuple, Type
 
 import torch
 
@@ -42,24 +42,58 @@ class RuleParams:
 class AggregatorRule:
     """Base class for registered aggregation rules.
 
-    Subclasses set ``name`` (and ``uses_b`` / ``has_kernel``) and implement
-    ``_reduce_plain`` (and ``_reduce_kernel`` with ``has_kernel = True``).
+    Subclasses set ``name`` (and ``uses_b`` / ``has_kernel`` /
+    ``emits_scores`` / ``fused_gate``) and implement ``_reduce_plain`` (and
+    ``_reduce_kernel`` with ``has_kernel = True``).  The sharded hooks of the
+    reference (``reduce_sharded*``) come with the distributed layouts.
     """
 
     name: ClassVar[str]
     uses_b: ClassVar[bool] = False        # spec.validate checks b's range
     has_kernel: ClassVar[bool] = False    # declares a CUDA _reduce_kernel
+    emits_scores: ClassVar[bool] = False  # informative reduce_with_scores
+    fused_gate: ClassVar[bool] = False    # one-pass reduce_gated_with_scores
 
     def __init__(self, params: RuleParams = RuleParams()):
         self.params = params
         self.backend = resolve_backend(type(self), params.backend)
 
+    def uses_kernel(self, u: torch.Tensor) -> bool:
+        """Whether ``u`` goes to the CUDA kernel: ``backend="pallas"``, or
+        ``"auto"`` on a CUDA tensor."""
+        return self.backend == "pallas" or (self.backend == "auto"
+                                            and u.is_cuda)
+
     def reduce(self, u: torch.Tensor) -> torch.Tensor:
         """Aggregate an (m, ...) worker matrix to (...)."""
-        if self.backend == "pallas" or (self.backend == "auto"
-                                        and u.is_cuda):
+        if self.uses_kernel(u):
             return self._reduce_kernel(u)
         return self._reduce_plain(u)
+
+    def reduce_with_scores(self, u: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Aggregate AND emit (m,) per-worker suspicion scores in [0, 1]
+        (larger = more suspicious).  Rules whose statistics carry a
+        per-worker signal override this and set ``emits_scores``; the
+        default scores are all zero, as in the reference."""
+        return self.reduce(u), torch.zeros((u.shape[0],),
+                                           dtype=torch.float32,
+                                           device=u.device)
+
+    def reduce_gated_with_scores(
+            self, u: torch.Tensor, active: Optional[torch.Tensor]
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The defended aggregation: scores of the RAW submissions, and the
+        aggregate of the gated matrix (``active`` ejected rows replaced by
+        the median row; ``active=None`` = no gate).  This default composes
+        the two passes; rules with ``fused_gate`` override it."""
+        agg, scores = self.reduce_with_scores(u)
+        if active is not None:
+            from repro_torch.core.selection import gate_matrix
+            gated = gate_matrix(u, active)
+            if gated is not u:      # no worker ejected: agg already is it
+                agg = self.reduce(gated)
+        return agg, scores
 
     def _reduce_plain(self, u: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -67,6 +101,41 @@ class AggregatorRule:
     def _reduce_kernel(self, u: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError(
             f"rule {self.name!r} sets has_kernel but lacks _reduce_kernel")
+
+
+# ---------------------------------------------------------------------------
+# Suspicion-score contract: (m,) scores in [0, 1], 0 = conforming, 1 =
+# maximally suspicious.  The normalizers live here so the core import graph
+# stays closed; repro_torch.defense.scores re-exports them.
+# ---------------------------------------------------------------------------
+
+def drop_frequency_scores(drop_counts: torch.Tensor, ncoords,
+                          baseline: float) -> torch.Tensor:
+    """Normalize per-worker drop counts into suspicion scores.
+
+    ``drop_counts[i]`` counts the coordinates where worker i was dropped,
+    out of ``ncoords``; ``baseline`` is the frequency an exchangeable benign
+    worker expects (trmean 2b/m, phocas b/m), so benign workers land near 0
+    and a consistently dropped worker near 1.
+    """
+    ncoords = torch.as_tensor(ncoords, dtype=torch.float32,
+                              device=drop_counts.device)
+    freq = drop_counts / torch.clamp(ncoords, min=1.0)
+    denom = max(1.0 - baseline, 1e-6)
+    return torch.clamp((freq - baseline) / denom, 0.0, 1.0)
+
+
+def distance_ratio_scores(raw: torch.Tensor,
+                          eps: float = 1e-12) -> torch.Tensor:
+    """Normalize nonnegative per-worker distance statistics into suspicion
+    scores: ``1 - median/raw`` maps the median worker to 0 and far outliers
+    toward 1; a median of ~0 gives all-zero scores.  The median of an even
+    count is the midpoint of the two middle values, as ``jnp.median``'s."""
+    s = torch.sort(raw).values
+    n = s.shape[0]
+    med = s[n // 2] if n % 2 else (s[n // 2 - 1] + s[n // 2]) * 0.5
+    out = torch.clamp(1.0 - med / torch.clamp(raw, min=eps), 0.0, 1.0)
+    return torch.where(med <= eps, torch.zeros_like(out), out)
 
 
 def resolve_backend(rule_cls: Type[AggregatorRule], requested: str) -> str:
@@ -134,6 +203,16 @@ def make_rule(name: str, params: RuleParams = RuleParams()) -> AggregatorRule:
 
 def kernel_rules() -> Tuple[str, ...]:
     return tuple(n for n in available_rules() if _RULES[n].has_kernel)
+
+
+def score_rules() -> Tuple[str, ...]:
+    """Rules whose ``reduce_with_scores`` emits informative suspicion."""
+    return tuple(n for n in available_rules() if _RULES[n].emits_scores)
+
+
+def fused_gate_rules() -> Tuple[str, ...]:
+    """Rules whose gated defense hook is a one-pass override."""
+    return tuple(n for n in available_rules() if _RULES[n].fused_gate)
 
 
 # ---------------------------------------------------------------------------

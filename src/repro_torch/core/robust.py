@@ -18,6 +18,7 @@ import torch
 from repro_torch import tree as tree_util
 from repro_torch.core import registry
 from repro_torch.core.attacks import AttackConfig, make_attack
+from repro_torch.core.selection import gate_matrix
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +47,16 @@ class RobustConfig:
 
 def aggregate_matrix(u: torch.Tensor, cfg: RobustConfig,
                      gen: Optional[torch.Generator] = None, *,
-                     step=None) -> torch.Tensor:
+                     active: Optional[torch.Tensor] = None,
+                     with_scores: bool = False, step=None):
     """Aggregate an (m, d) worker matrix, injecting the configured attack.
 
     ``gen`` draws the random attacks' noise; ``step`` reaches step-aware
-    attacks (without it they assume their worst-case phase).
+    attacks (without it they assume their worst-case phase).  ``active``
+    applies the reputation gate after the attack; ``with_scores=True``
+    returns ``(agg, scores)``.  Scores observe the RAW submissions while the
+    aggregate uses the gated matrix: scoring gated rows would make an
+    ejected worker look conforming at once, and it would flap back in.
     """
     attack = make_attack(cfg.attack)
     uf = u.to(getattr(torch, cfg.agg_dtype))
@@ -58,7 +64,12 @@ def aggregate_matrix(u: torch.Tensor, cfg: RobustConfig,
         if gen is None:
             raise ValueError("attack configured but no generator supplied")
         uf = attack(gen, uf, step)
-    return cfg.rule_obj().reduce(uf)
+    rule = cfg.rule_obj()
+    if with_scores:
+        return rule.reduce_gated_with_scores(uf, active)
+    if active is not None:
+        uf = gate_matrix(uf, active)
+    return rule.reduce(uf)
 
 
 def flatten_stacked(stacked) -> torch.Tensor:
@@ -80,11 +91,17 @@ def unflatten_like(vec: torch.Tensor, like):
 
 def aggregate_stacked_tree(stacked, cfg: RobustConfig,
                            gen: Optional[torch.Generator] = None, *,
-                           step=None):
+                           active: Optional[torch.Tensor] = None,
+                           with_scores: bool = False, step=None):
     """Aggregate a tree whose leaves are stacked (m, *leaf_shape) tensors.
 
     Flattens to a single (m, D) matrix (so vector-wise rules would see the
-    full gradient geometry), aggregates, and unflattens.
+    full gradient geometry), aggregates, and unflattens.  With
+    ``with_scores=True`` returns ``(tree, scores)``.
     """
-    mat = flatten_stacked(stacked)
-    return unflatten_like(aggregate_matrix(mat, cfg, gen, step=step), stacked)
+    out = aggregate_matrix(flatten_stacked(stacked), cfg, gen, active=active,
+                           with_scores=with_scores, step=step)
+    if with_scores:
+        agg, scores = out
+        return unflatten_like(agg, stacked), scores
+    return unflatten_like(out, stacked)

@@ -40,6 +40,8 @@ class Plan:
     eval_fn: Optional[Callable]
     robust_cfg: RobustConfig          # effective (attack axis injected)
     opt_cfg: OptConfig                # effective (schedule bound)
+    defense_cfg: Any                  # DefenseConfig | None
+    telemetry_path: Optional[str]     # JSONL sink, or None
     num_workers: int
     steps: int
     seed: int
@@ -49,11 +51,16 @@ class Plan:
 
 @dataclasses.dataclass
 class ExperimentResult:
-    """What a topology returns: the trajectory plus the final state."""
+    """What a topology returns: the trajectory plus the final state.
+
+    ``robust_cfg`` is the final effective config: it differs from the
+    spec's when ``defense.adapt_b`` raised b mid-run.
+    """
     spec: Optional[ScenarioSpec]
     history: List[dict]
     params: Any
     opt_state: Any = None
+    defense_state: Optional[dict] = None
     final_metrics: Dict[str, Any] = dataclasses.field(default_factory=dict)
     robust_cfg: Optional[RobustConfig] = None
     wall_time: float = 0.0
@@ -73,7 +80,6 @@ class ExperimentResult:
         return None
 
 
-
 def resolve(spec: ScenarioSpec, *, device=None) -> Plan:
     """Validate ``spec`` and build the runtime bundle on ``device``."""
     spec.validate()
@@ -90,6 +96,9 @@ def resolve(spec: ScenarioSpec, *, device=None) -> Plan:
         opt_cfg = dataclasses.replace(
             opt_cfg, lr=fn(float(spec.opt.lr), **params))
 
+    telemetry = spec.telemetry_path or (
+        spec.defense.telemetry_path if spec.defense is not None else None)
+
     return Plan(
         spec=spec,
         topology=spec.topology,
@@ -98,6 +107,8 @@ def resolve(spec: ScenarioSpec, *, device=None) -> Plan:
         eval_fn=eval_fn,
         robust_cfg=spec.effective_robust(),
         opt_cfg=opt_cfg,
+        defense_cfg=spec.defense,
+        telemetry_path=telemetry or None,
         num_workers=spec.num_workers,
         steps=spec.steps,
         seed=spec.seed,

@@ -1,13 +1,13 @@
 """``ScenarioSpec`` — one frozen, JSON-round-trippable experiment.
 
 Port of ``repro/experiment/spec.py``.  The port reads the reference's JSON
-unchanged (``examples/scenarios/*.json``), so every field is kept.  The axes
-this package does not run yet parse as plain data and are refused by
+unchanged (``examples/scenarios/*.json``), so every field is kept; ``defense``
+parses into :class:`repro_torch.defense.DefenseConfig`.  The axes this package
+does not run yet parse as plain data and are refused by
 :meth:`ScenarioSpec.validate` with ``NotImplementedError`` naming the ROADMAP
-queue item that brings them: ``defense`` (kept as its JSON object),
-``faults`` (a tuple of JSON objects), ``compression``, ``mesh``,
-``checkpoint_path``, ``telemetry_path``, the ``async_ps``/``streaming``/
-``serve`` topologies and ``model.kind == "arch"``.
+queue item that brings them: ``faults`` (a tuple of JSON objects),
+``compression``, ``mesh``, ``checkpoint_path``, the ``async_ps``/
+``streaming``/``serve`` topologies and ``model.kind == "arch"``.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.core.attacks import AttackConfig
 from repro_torch.core.robust import RobustConfig
+from repro_torch.defense.reputation import DefenseConfig
 from repro_torch.optim.optimizers import OptConfig
 
 SCHEDULES = ("", "constant", "cosine_decay", "warmup_cosine")
@@ -75,7 +76,7 @@ class ScenarioSpec:
     data: DataSpec = dataclasses.field(default_factory=DataSpec)
     robust: RobustConfig = dataclasses.field(default_factory=RobustConfig)
     attack: AttackConfig = dataclasses.field(default_factory=AttackConfig)
-    defense: Optional[Dict[str, Any]] = None
+    defense: Optional[DefenseConfig] = None
     opt: OptConfig = dataclasses.field(default_factory=OptConfig)
     schedule: str = ""
     schedule_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -199,7 +200,15 @@ class ScenarioSpec:
                 raise SpecError(str(e)) from None
 
         if self.defense is not None:
-            raise not_ported("the defense loop (spec.defense)", "item 7")
+            if self.robust.rule not in registry.score_rules():
+                raise SpecError(
+                    f"defense needs a score-emitting rule (emits_scores); "
+                    f"{self.robust.rule!r} is not one of "
+                    f"{registry.score_rules()}")
+            if self.defense.adapt_b and not rule_cls.uses_b:
+                raise SpecError(
+                    f"defense.adapt_b tunes the rule's b, but rule "
+                    f"{self.robust.rule!r} does not use one")
         if self.faults:
             raise not_ported("fault injection (spec.faults)", "item 13")
         if self.compression.enabled:
@@ -209,8 +218,6 @@ class ScenarioSpec:
             raise not_ported("device meshes (spec.mesh)", "item 10")
         if self.checkpoint_path:
             raise not_ported("checkpointing (spec.checkpoint_path)", "item 9")
-        if self.telemetry_path:
-            raise not_ported("telemetry (spec.telemetry_path)", "item 14")
 
         if not isinstance(self.opt.lr, (int, float)):
             raise SpecError("spec.opt.lr must be a number; express "
@@ -236,6 +243,7 @@ _NESTED_FIELDS = {
     "data": DataSpec,
     "robust": RobustConfig,
     "attack": AttackConfig,
+    "defense": DefenseConfig,
     "opt": OptConfig,
     "compression": CompressionSpec,
 }

@@ -2,6 +2,7 @@
 
 ``csrc/`` holds the CUDA C++ sources, ``build.py`` compiles them with nvcc at
 first use and loads them with ctypes.  Each kernel package (``trmean``,
-``phocas``) has a ``kernel.py`` wrapper with a launch counter and a ``ref.py``
-plain version; ``ops.py`` is the rules' entry point to both kernels.
+``phocas``) has a ``kernel.py`` with the wrappers of its aggregate kernel and
+its counts variant, each with a launch counter, and a ``ref.py`` with their
+plain versions; ``ops.py`` is the rules' entry point to all four kernels.
 """

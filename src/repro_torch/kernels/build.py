@@ -6,12 +6,13 @@ at the root of the checkout (git-ignored).  The library name carries a hash of
 the sources and flags, so an edited kernel is rebuilt and a stale one is never
 loaded.  ``build_all`` starts one ``nvcc`` per source, all at once.
 
-Libraries are loaded with ``ctypes``.  Every entry point has the signature
-``int fn(const void* u, void* out, int m, long long d, int b, int dtype,
-void* stream)``: it enqueues one launch on ``stream`` and returns
-``cudaGetLastError()``.  :func:`launch` checks the matrix, passes PyTorch's
-current stream and raises on a non-zero code.  There is no fallback: a missing
-``nvcc``, a failed build or a failed launch raises.
+Libraries are loaded with ``ctypes``.  The aggregate entry points have the
+signature ``int fn(const void* u, void* out, int m, long long d, int b, int
+dtype, void* stream)``; the ``*_counts`` ones take a ``void* counts`` (an (m,)
+int32 buffer, zeroed) after ``out``.  Each enqueues one launch on ``stream``
+and returns ``cudaGetLastError()``.  :func:`launch` checks the matrix, passes
+PyTorch's current stream and raises on a non-zero code.  There is no
+fallback: a missing ``nvcc``, a failed build or a failed launch raises.
 
 Nothing here runs at import time; the CPU tests import this module freely.
 """
@@ -29,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("trmean", "phocas")
+SOURCES = ("trmean", "phocas", "trmean_counts", "phocas_counts")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +40,11 @@ MAX_M = 64            # the kernels' largest register bucket (selection.cuh)
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_COUNTS_ARGTYPES = _ARGTYPES[:2] + [ctypes.c_void_p] + _ARGTYPES[2:]
+
+
+def _has_counts(name: str) -> bool:
+    return name.endswith("_counts")
 
 
 class KernelCompileError(RuntimeError):
@@ -105,7 +111,7 @@ class _Kernels:
             path = self.build_all()[name]
             lib = ctypes.CDLL(str(path))
             fn = getattr(lib, f"repro_{name}")
-            fn.argtypes = _ARGTYPES
+            fn.argtypes = _COUNTS_ARGTYPES if _has_counts(name) else _ARGTYPES
             fn.restype = ctypes.c_int
             self.libs[name] = lib
         return lib
@@ -130,8 +136,12 @@ def check_matrix(u: torch.Tensor, b: int) -> None:
         raise ValueError(f"kernels support m <= {MAX_M} workers, got m={m}")
 
 
-def launch(name: str, u: torch.Tensor, b: int) -> torch.Tensor:
-    """Launch ``repro_<name>`` on a CUDA (m, d) matrix; returns (d,) f32."""
+def launch(name: str, u: torch.Tensor, b: int):
+    """Launch ``repro_<name>`` on a CUDA (m, d) matrix.
+
+    Returns the (d,) f32 aggregate, and for a ``*_counts`` kernel also the
+    (m,) drop counts, accumulated in int32 and returned as f32.
+    """
     if u.device.type != "cuda":
         raise ValueError(f"{name} kernel needs a CUDA tensor, got "
                          f"{u.device}")
@@ -139,12 +149,17 @@ def launch(name: str, u: torch.Tensor, b: int) -> torch.Tensor:
         raise ValueError(f"{name} kernel needs a contiguous (m, d) matrix")
     m, d = u.shape
     out = torch.empty((d,), dtype=torch.float32, device=u.device)
+    bufs = [out]
+    if _has_counts(name):
+        bufs.append(torch.zeros((m,), dtype=torch.int32, device=u.device))
     fn = getattr(KERNELS.library(name), f"repro_{name}")
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = fn(u.data_ptr(), out.data_ptr(), m, d, b, DTYPE_CODES[u.dtype],
-                stream)
+        rc = fn(u.data_ptr(), *(x.data_ptr() for x in bufs), m, d, b,
+                DTYPE_CODES[u.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{rc} (m={m}, d={d}, b={b}, dtype={u.dtype})")
-    return out
+    if len(bufs) == 1:
+        return out
+    return out, bufs[1].float()

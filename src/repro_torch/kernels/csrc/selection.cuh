@@ -1,4 +1,5 @@
-// Register-resident selection helpers shared by the trmean and phocas kernels.
+// Register-resident selection helpers shared by the trmean and phocas kernels
+// (K1, K2) and their counts variants (K3, K4).
 //
 // One thread owns one coordinate j of the row-major (m, d) worker matrix.  It
 // loads the m values of column j (neighbouring threads read neighbouring
@@ -130,6 +131,119 @@ __device__ __forceinline__ float window_sum(const float (&v)[MP], int lo,
     if (p >= lo && p < lo + len) s += v[p];
   }
   return s;
+}
+
+// The b-trimmed mean of the sorted column (Definition 7): the mean of
+// sorted[b, m-b), selection.trimmed_mean_of_sorted.
+template <int MP>
+__device__ __forceinline__ float trimmed_mean(const float (&v)[MP], int m,
+                                              int b) {
+  return divide(window_sum<MP>(v, b, m - 2 * b), m - 2 * b);
+}
+
+// Phocas (Definition 8) from the sorted column and its b-trimmed mean
+// `center`: the mean of the m - b values nearest the center.  They form one
+// of the b + 1 contiguous windows sorted[w, w+k), k = m - b.  Each window is
+// scored by its worst distance max(center - sorted[w], sorted[w+k-1] -
+// center) and the strictly smallest score wins, so ties go to the leftmost
+// window: exactly selection.nearest_window_sum.  The window's upper ends
+// sorted[w+k-1] are brought to fixed registers by a log2(MP)-stage barrel
+// shift by the runtime k - 1, so no register array is indexed at run time.
+template <int MP>
+__device__ __forceinline__ float nearest_window_mean(const float (&v)[MP],
+                                                     int m, int b,
+                                                     float center) {
+  const int k = m - b;
+  // hi[w] = v[w + k - 1]: left barrel shift of the sorted column by k - 1.
+  float hi[MP];
+#pragma unroll
+  for (int i = 0; i < MP; ++i) hi[i] = v[i];
+  const int shift = k - 1;
+#pragma unroll
+  for (int s = 0; s < log2_of(MP); ++s) {
+    if (shift & (1 << s)) {
+#pragma unroll
+      for (int i = 0; i < MP; ++i) {
+        hi[i] = (i + (1 << s) < MP) ? hi[i + (1 << s)] : CUDART_INF_F;
+      }
+    }
+  }
+
+  // b <= (m+1)/2 - 1 < MP/2, so windows w = 0..b live in registers [0, MP/2).
+  float best = nan_max(center - v[0], hi[0] - center);
+  int best_w = 0;
+#pragma unroll
+  for (int w = 1; w < MP / 2; ++w) {
+    if (w <= b) {
+      const float width = nan_max(center - v[w], hi[w] - center);
+      if (width < best) {
+        best = width;
+        best_w = w;
+      }
+    }
+  }
+  return divide(window_sum<MP>(v, best_w, k), k);
+}
+
+// Per-worker drop counts of one block (K3, K4).  For each real worker
+// i < m, its stable-argsort rank among the m real keys of the column, by the
+// pairwise predicate of core/selection.py::stable_ranks: workers j < m with
+// key[j] < key[i], or key[j] == key[i] and j < i.  The padding registers
+// (j >= m) never enter a rank.  The worker is dropped at this coordinate if
+// its rank r has r < lo or r >= hi.  A warp ballot per worker and __popc
+// count the warp's drops, and lane 0 adds them to the block's shared tally.
+// All 32 lanes of every warp must call this together: threads past the last
+// coordinate pass live = false, which forces their vote to 0.  The early
+// exits test m, the same in every thread, so the warp never diverges.
+template <int MP>
+__device__ __forceinline__ void tally_drops(const float (&key)[MP], int m,
+                                            bool live, int lo, int hi,
+                                            int* tally) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < MP; ++i) {
+    if (i >= m) break;
+    int r = 0;
+#pragma unroll
+    for (int j = 0; j < MP; ++j) {
+      if (j >= m) break;
+      r += key[j] < key[i] ? 1 : 0;
+      if (j < i) r += key[j] == key[i] ? 1 : 0;
+    }
+    const unsigned votes =
+        __ballot_sync(0xffffffffu, live && (r < lo || r >= hi));
+    if (lane == 0 && votes != 0u) atomicAdd(&tally[i], __popc(votes));
+  }
+}
+
+// Zero the block's (MP,) shared tally before any warp adds to it.
+template <int MP>
+__device__ __forceinline__ void zero_tally(int* tally) {
+  if (threadIdx.x < MP) tally[threadIdx.x] = 0;
+  __syncthreads();
+}
+
+// Add the block's tally to the (m,) int32 counts in device memory: one
+// integer atomicAdd per worker and block, so the counts do not depend on the
+// order in which blocks finish.
+template <int MP>
+__device__ __forceinline__ void flush_tally(const int* tally, int m,
+                                            int* __restrict__ counts) {
+  __syncthreads();
+  if (threadIdx.x < m && tally[threadIdx.x] != 0) {
+    atomicAdd(&counts[threadIdx.x], tally[threadIdx.x]);
+  }
+}
+
+// The coordinate a thread loads: its own, or for the threads past the last
+// coordinate of the last block, the last coordinate, so that every lane
+// stays in the warp for the ballots without reading out of bounds.
+__device__ __forceinline__ long long clamped_coordinate(long long d,
+                                                        bool* live) {
+  const long long j =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  *live = j < d;
+  return *live ? j : d - 1;
 }
 
 }  // namespace repro_torch

@@ -32,8 +32,7 @@ __global__ void __launch_bounds__(kThreads)
   float v[MP];
   load_column<MP>(u, m, d, j, v);
   sort_network<MP>(v);
-  const int kept = m - 2 * b;
-  out[j] = divide(window_sum<MP>(v, b, kept), kept);
+  out[j] = trimmed_mean<MP>(v, m, b);
 }
 
 }  // namespace repro_torch

@@ -1,0 +1,176 @@
+"""repro_torch's counts kernels K3/K4 (plain versions, on the CPU) against
+the JAX reference.
+
+The wrappers ``phocas_counts_hopper`` / ``trmean_counts_hopper`` take their
+plain versions for a CPU tensor.  They are held to the reference's Pallas
+counts kernels (interpret mode) on finite, moderate inputs, and to its XLA
+selection path (``selection.trim_family(with_scores=True)``) on rows at
++-1e20 and NaN, where the reference's extraction variants subtract the
+dropped values from a total (ROADMAP queue 3).  Aggregates agree at atol
+1e-4, with the boundary-tie allowance of ``tests/test_kernels.py`` for
+phocas; counts agree exactly.  Inputs come from a numpy seed.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_kernels import _assert_phocas_close
+
+from repro.core import selection as rsel
+from repro.kernels.phocas.kernel import phocas_counts_pallas
+from repro.kernels.phocas.ops import phocas_with_counts as rphocas_wc
+from repro.kernels.trmean.kernel import trmean_counts_pallas
+from repro.kernels.trmean.ops import trmean_with_counts as rtrmean_wc
+from repro_torch.kernels import build
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.phocas.kernel import phocas_counts_hopper
+from repro_torch.kernels.phocas.ref import phocas_counts_ref, phocas_ref
+from repro_torch.kernels.trmean.kernel import trmean_counts_hopper
+from repro_torch.kernels.trmean.ref import trmean_counts_ref, trmean_ref
+
+ATOL = 1e-4
+PORT = {"phocas": (phocas_counts_hopper, phocas_counts_ref, phocas_ref),
+        "trmean": (trmean_counts_hopper, trmean_counts_ref, trmean_ref)}
+PALLAS = {"phocas": phocas_counts_pallas, "trmean": trmean_counts_pallas}
+
+
+def _matrix(m, d, seed):
+    return (10.0 * np.random.default_rng(seed).standard_normal((m, d))
+            ).astype(np.float32)
+
+
+def _check_agg(name, u, b, got, want):
+    if name == "phocas":
+        _assert_phocas_close(jnp.asarray(u), b, got, want, atol=ATOL)
+    else:
+        np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("m,b", [(8, 2), (8, 3), (20, 2), (20, 9)])
+@pytest.mark.parametrize("name", ["phocas", "trmean"])
+def test_counts_match_pallas_interpret(name, m, b):
+    u = _matrix(m, 600, 31 * m + b)
+    want_agg, want_counts = PALLAS[name](jnp.asarray(u), b)
+    wrapper, ref, _ = PORT[name]
+    for agg, counts in (wrapper(torch.tensor(u), b),
+                        ref(torch.tensor(u), b)):
+        assert agg.dtype == counts.dtype == torch.float32
+        assert counts.shape == (m,)
+        _check_agg(name, u, b, agg.numpy(), np.asarray(want_agg))
+        np.testing.assert_array_equal(counts.numpy(),
+                                      np.asarray(want_counts))
+
+
+def _adversarial(kind, m=20, d=96):
+    rng = np.random.default_rng(17)
+    u = (3.0 + rng.uniform(-1.0, 1.0, (m, d))).astype(np.float32)
+    u[:, 40:48] = 2.5                                 # exact ties
+    if kind == "pm1e20":
+        u[3, :6] = -1e20
+        u[9, 6:12] = 1e20
+    elif kind == "nan":
+        u[5, :7] = np.nan
+        u[11, 3:5] = np.nan
+    elif kind == "inf":
+        u[5, :5] = np.inf
+        u[6, 5:9] = -np.inf
+    return u
+
+
+@pytest.mark.parametrize("kind", ["pm1e20", "nan", "inf"])
+@pytest.mark.parametrize("name", ["phocas", "trmean"])
+def test_counts_match_xla_path_on_adversarial_rows(name, kind):
+    u = _adversarial(kind)
+    wrapper, ref, agg_ref = PORT[name]
+    for b in (1, 2, 6, 9):
+        want_agg, want_counts, _ = rsel.trim_family(
+            jnp.asarray(u), b, name, with_scores=True)
+        for agg, counts in (wrapper(torch.tensor(u), b),
+                            ref(torch.tensor(u), b)):
+            np.testing.assert_allclose(agg.numpy(), np.asarray(want_agg),
+                                       atol=ATOL, err_msg=f"b={b}")
+            np.testing.assert_array_equal(counts.numpy(),
+                                          np.asarray(want_counts),
+                                          err_msg=f"b={b}")
+            # the aggregate is K1/K2's, bit for bit
+            np.testing.assert_array_equal(
+                agg.numpy(), agg_ref(torch.tensor(u), b).numpy())
+        if b >= 2:      # at most two adversarial values per coordinate
+            assert np.all(np.abs(np.asarray(want_agg) - 3.0) < 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_low_precision_inputs(dtype):
+    u = torch.tensor(_matrix(16, 512, 3)).to(dtype)
+    ref_u = jnp.asarray(u.float().numpy())
+    for name, (wrapper, _, _) in PORT.items():
+        agg, counts = wrapper(u, 3)
+        assert agg.dtype == counts.dtype == torch.float32
+        want_agg, want_counts, _ = rsel.trim_family(ref_u, 3, name,
+                                                    with_scores=True)
+        np.testing.assert_allclose(agg.numpy(), want_agg, atol=1e-2)
+        np.testing.assert_array_equal(counts.numpy(), want_counts)
+
+
+@pytest.mark.parametrize("name", ["phocas", "trmean"])
+def test_with_counts_b0_is_the_mean_and_no_counts(name, monkeypatch):
+    """b = 0 gives the plain mean and zero counts without reaching the
+    wrapper, as the reference's ``*_with_counts`` do."""
+    def unreachable(u, b):
+        raise AssertionError("b = 0 reached the counts wrapper")
+
+    monkeypatch.setattr(tops, f"{name}_counts_hopper", unreachable)
+    u = _matrix(8, 33, 5)
+    fn = {"phocas": tops.phocas_with_counts,
+          "trmean": tops.trmean_with_counts}[name]
+    agg, counts = fn(torch.tensor(u), 0)
+    ragg, rcounts = {"phocas": rphocas_wc, "trmean": rtrmean_wc}[name](
+        jnp.asarray(u), 0)
+    np.testing.assert_allclose(agg.numpy(), np.asarray(ragg), atol=1e-6)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(rcounts))
+    assert agg.dtype == counts.dtype == torch.float32
+
+
+@pytest.mark.parametrize("name", ["phocas", "trmean"])
+def test_with_counts_facade_matches_reference_ops(name):
+    u = _matrix(20, 300, 9)
+    fn = {"phocas": tops.phocas_with_counts,
+          "trmean": tops.trmean_with_counts}[name]
+    rfn = {"phocas": rphocas_wc, "trmean": rtrmean_wc}[name]
+    for b in (1, 4, 9):
+        agg, counts = fn(torch.tensor(u), b)
+        ragg, rcounts = rfn(jnp.asarray(u), b)
+        _check_agg(name, u, b, agg.numpy(), np.asarray(ragg))
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(rcounts))
+
+
+def test_counts_wrappers_refuse_what_the_kernels_do_not_take():
+    for wrapper in (phocas_counts_hopper, trmean_counts_hopper):
+        with pytest.raises(ValueError, match="m <= 64"):
+            wrapper(torch.zeros((65, 4)), 2)
+        with pytest.raises(ValueError, match="out of range"):
+            wrapper(torch.zeros((8, 4)), 4)
+        with pytest.raises(ValueError, match="dtype|take"):
+            wrapper(torch.zeros((5, 4), dtype=torch.float64), 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        build.launch("phocas_counts", torch.zeros((5, 4)), 1)
+
+
+def test_plain_cpu_path_never_counts_as_a_launch():
+    before = (phocas_counts_hopper.launches, trmean_counts_hopper.launches)
+    t = torch.tensor(_matrix(8, 16, 1))
+    phocas_counts_hopper(t, 2)
+    trmean_counts_hopper(t, 2)
+    assert (phocas_counts_hopper.launches,
+            trmean_counts_hopper.launches) == before
+
+
+def test_every_source_has_its_entry_point():
+    """Each CUDA source defines the extern "C" entry point build.py binds,
+    with the counts pointer exactly where the counts signature has it."""
+    for name in build.SOURCES:
+        text = (build.CSRC / f"{name}.cu").read_text()
+        head = f'extern "C" int repro_{name}(const void* u, void* out, '
+        assert head in text, name
+        has_counts = "void* counts" in text.split(head)[1].split(")")[0]
+        assert has_counts == name.endswith("_counts"), name

@@ -4,7 +4,8 @@ Five ``sync_ps`` steps of the MLP at m=8 under ``signflip`` run in both
 packages from the same initial parameters on the same batches (exported from
 the reference as numpy); per-step losses and final parameters agree at
 rtol 1e-4.  The checked-in scenario JSONs parse unchanged and run on the CPU,
-and axes the port does not run yet raise ``NotImplementedError``.
+axes the port does not run yet raise ``NotImplementedError``, and the defense
+axis refuses a rule that emits no scores, as in the reference.
 """
 import dataclasses
 import os
@@ -21,6 +22,7 @@ from repro.defense.reputation import DefenseConfig
 from repro.faults.spec import FaultSpec
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.experiment import ScenarioSpec as TSpec
+from repro_torch.experiment import SpecError
 from repro_torch.experiment import resolve as tresolve
 from repro_torch.experiment import run_experiment as trun
 from repro_torch.experiment.topologies import SyncPS
@@ -89,7 +91,6 @@ def _port_spec(**overrides):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(defense=DefenseConfig()), "item 7"),
     (dict(faults=(FaultSpec(kind="crash", workers=(1,)),)), "item 13"),
     (dict(mesh="8x1"), "item 10"),
     (dict(checkpoint_path="ck.npz"), "item 9"),
@@ -99,6 +100,15 @@ def _port_spec(**overrides):
 def test_unported_axes_raise(overrides, item):
     spec = _port_spec(**overrides)
     with pytest.raises(NotImplementedError, match=item):
+        trun(spec, device="cpu")
+
+
+def test_defense_needs_a_score_rule():
+    """The defense axis is ported; as in the reference, it refuses a rule
+    that emits no suspicion scores."""
+    spec = _port_spec(defense=DefenseConfig(),
+                      robust=RobustConfig(rule="mean", b=2))
+    with pytest.raises(SpecError, match="score-emitting"):
         trun(spec, device="cpu")
 
 
