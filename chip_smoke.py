@@ -6,27 +6,39 @@
 Phases, each of which fails the run (non-zero exit) on any wrong result:
 
 1. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   with nvcc for sm_90a and print the build time and ptxas's register report;
+   (K1-K4, and K5 ``krum_gram.cu``) with nvcc for sm_90a, one nvcc each in
+   parallel, and print the build time and ptxas's register report;
 2. kernels: hold each kernel against its plain PyTorch version on the card at
-   the paper models' widths, (20, 118,282) and (20, 2,430,826), for
-   b in {0, 2, 6, 8, 9}, on adversarial matrices (exact duplicates, rows at
-   +-1e20, NaN/+-inf entries, bitflip-corrupted rows), with max|diff| <= 1e-4
-   (phocas mismatches allowed only at a boundary distance tie) and, for the
-   counts kernels K3/K4, drop counts equal as integers; time each kernel and
-   its plain version at the main-path shapes beside its bound;
-3. training: run the paper's MNIST MLP (784-128-128-10, m=20, 32 samples per
-   worker, SGD lr 0.1, phocas b=8 under bitflip q=8) and CIFAR-10 CNN
-   (32x32x3, m=20, SGD lr 0.02, trmean b=6 under gaussian q=6) through
-   ``run_experiment`` on the card, check finite, decreasing losses and one
-   kernel launch per step; then the same models defended
-   (``DefenseConfig()``: MLP phocas b=8 under signflip q=8, CNN trmean b=6
-   under gaussian q=6), checking that every Byzantine worker ends ejected,
-   one counts-kernel launch per step and one aggregate launch per step that
-   began with a worker ejected; and check on small runs that the kernel path
-   agrees with the plain path, plain and defended;
-4. trace: for both models, plain and defended, the untraced step time and
-   one torch.profiler run giving the device's busy share and its top
-   kernels;
+   the paper models' widths, (20, 118,282) and (20, 2,430,826), on
+   adversarial matrices (exact duplicates, rows at +-1e20, NaN/+-inf
+   entries, bitflip-corrupted rows): K1-K4 for b in {0, 2, 6, 8, 9} with
+   max|diff| <= 1e-4 (phocas mismatches allowed only at a boundary distance
+   tie) and, for the counts kernels K3/K4, drop counts equal as integers;
+   K5 also on Gaussian rows at scale 10 and at m in {5, 64, 100}, with NaN
+   and inf at the same places, finite entries within 1e-6 * max + 1e-3,
+   symmetric and bitwise repeatable output.  Time each kernel and its plain
+   version at the main-path shapes beside its bound, and K5 beside
+   ``torch.mm(u, u.T)`` (TF32 off);
+3. training through ``run_experiment`` on the card, checking finite,
+   decreasing losses and the kernel launches of every run:
+   - the paper's MNIST MLP (784-128-128-10, m=20, 32 samples per worker,
+     SGD lr 0.1, phocas b=8 under bitflip q=8) and CIFAR-10 CNN (32x32x3,
+     m=20, SGD lr 0.02, trmean b=6 under gaussian q=6), one kernel launch
+     per step; then the same models defended (``DefenseConfig()``: MLP
+     phocas b=8 under signflip q=8, CNN trmean b=6 under gaussian q=6),
+     checking that every Byzantine worker ends ejected, one counts-kernel
+     launch per step and one aggregate launch per step that began with a
+     worker ejected; small runs where the kernel path must agree with the
+     plain path, plain and defended;
+   - the Fig. 2 classic-attack baselines under gaussian q=6: MLP krum (30
+     steps), CNN multikrum (20 steps, lr 0.02) and MLP krum defended (30
+     steps, every Byzantine worker ejected), one K5 launch per step each;
+     small m=8 krum and multikrum runs whose kernel and plain paths select
+     the same workers every step; one short run each of geomedian, mediam
+     and mom, which have no kernel;
+4. trace: for both models, plain and defended, and the CNN multikrum cell,
+   the untraced step time and one torch.profiler run giving the device's
+   busy share and its top kernels;
 5. report: the card's name and power limit, one JSON line describing every
    kernel, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -67,7 +79,15 @@ KERNEL_META = {
         "source": "src/repro_torch/kernels/csrc/trmean_counts.cu",
         "replaces": "src/repro/kernels/trmean/kernel.py:130",
         "shape": SHAPES[1], "b": 6, "compares": lambda m: m * (m - 1)},
+    # K5 does m(m+1)/2 multiply-adds (two operations each) per coordinate
+    # and writes an (m, m) f32 matrix; its numbers are at the CNN width.
+    "krum_gram": {
+        "source": "src/repro_torch/kernels/csrc/krum_gram.cu",
+        "replaces": "src/repro/kernels/krum/kernel.py:36",
+        "shape": SHAPES[1], "b": None, "compares": lambda m: m * (m + 1)},
 }
+TRIM_KERNELS = ("phocas", "trmean", "phocas_counts", "trmean_counts")
+GRAM_MS = (5, 64, 100)          # worker counts beyond the main path's m
 
 
 def wrappers() -> dict:
@@ -78,10 +98,13 @@ def wrappers() -> dict:
     from repro_torch.kernels.trmean.kernel import (trmean_counts_hopper,
                                                    trmean_hopper)
     from repro_torch.kernels.trmean.ref import trmean_counts_ref, trmean_ref
+    from repro_torch.kernels.krum.kernel import pairwise_sq_dists_hopper
+    from repro_torch.kernels.krum.ref import pairwise_sq_dists_ref
     return {"phocas": (phocas_hopper, phocas_ref),
             "trmean": (trmean_hopper, trmean_ref),
             "phocas_counts": (phocas_counts_hopper, phocas_counts_ref),
-            "trmean_counts": (trmean_counts_hopper, trmean_counts_ref)}
+            "trmean_counts": (trmean_counts_hopper, trmean_counts_ref),
+            "krum_gram": (pairwise_sq_dists_hopper, pairwise_sq_dists_ref)}
 
 
 class SmokeError(AssertionError):
@@ -168,9 +191,13 @@ def time_ms(fn, *, reps: int = 15) -> float:
 
 def bound_ms(kname: str, m: int, d: int, elem_bytes: int) -> tuple:
     """Least time for the function: each input read once and each output
-    written once (the (d,) f32 aggregate, and m counts for K3/K4) at the
-    card's memory rate, or its compares at the card's f32 rate."""
-    out_bytes = d * 4 + (m * 4 if kname.endswith("_counts") else 0)
+    written once (the (d,) f32 aggregate, and m counts for K3/K4; the
+    (m, m) f32 distances for K5) at the card's memory rate, or its compares
+    (K5: multiply-adds, two operations each) at the card's f32 rate."""
+    if kname == "krum_gram":
+        out_bytes = m * m * 4
+    else:
+        out_bytes = d * 4 + (m * 4 if kname.endswith("_counts") else 0)
     t_bytes = (m * d * elem_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = KERNEL_META[kname]["compares"](m) * d / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -189,7 +216,7 @@ def compare_kernel(kname: str, u: torch.Tensor, b: int, got,
 
 
 def kernel_phase(gen: torch.Generator) -> dict:
-    pairs = wrappers()
+    pairs = {k: v for k, v in wrappers().items() if k in TRIM_KERNELS}
     report = {k: {"max_abs_err": 0.0} for k in pairs}
     for m, d in SHAPES:
         for mname, u in adversarial_matrices(m, d, gen):
@@ -237,6 +264,95 @@ def kernel_phase(gen: torch.Generator) -> dict:
     return report
 
 
+def compare_gram(tag: str, u: torch.Tensor, got: torch.Tensor,
+                 want: torch.Tensor) -> float:
+    """K5 against its plain version: NaN and +-inf at the same places, an
+    exactly symmetric output, and finite entries within the reference's
+    bound for the Gram form, 1e-6 * max + 1e-3 (the two sum the products in
+    another order).  Two stated exceptions: the max is taken over the finite
+    n_i + n_j as well as over the distances, since the Gram form's rounding
+    scales with the squared norms (on Gaussian rows at scale 10 the two are
+    equal; on rows around 3 the norms are ~5x the distances); and the
+    diagonal is held to exactly 0 in the kernel (its n_i is its own G_ii)
+    where the plain version's n_i + n_i - 2 G_ii keeps the difference of two
+    roundings of one sum.  Returns max |diff| off the diagonal."""
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+        check(torch.equal(f(got), f(want)),
+              f"krum_gram {tag}: non-finite entries differ ({f.__name__})")
+    check(torch.equal(torch.nan_to_num(got), torch.nan_to_num(got.T)),
+          f"krum_gram {tag}: output not symmetric")
+    m = got.shape[0]
+    diag = torch.diagonal(got)
+    fin_diag = torch.isfinite(torch.diagonal(want))
+    check(bool((diag[fin_diag] == 0).all()),
+          f"krum_gram {tag}: a finite row's own distance is not 0")
+    off = ~torch.eye(m, dtype=torch.bool, device=got.device)
+    fin = torch.isfinite(want) & off
+    if not fin.any():
+        return 0.0
+    uf = u.float()
+    sq = (uf * uf).sum(dim=1)
+    pair = sq[:, None] + sq[None, :]
+    scale = max(want[fin].abs().max().item(),
+                pair[torch.isfinite(pair) & fin].abs().max().item())
+    err = (got[fin] - want[fin]).abs().max().item()
+    tol = 1e-6 * scale + 1e-3
+    check(err <= tol, f"krum_gram {tag}: max|diff| {err} > {tol}")
+    return err
+
+
+def gram_phase(gen: torch.Generator) -> dict:
+    """K5 against its plain version at the paper's widths on the adversarial
+    matrices and Gaussian rows at scale 10, at more worker counts, and in
+    bf16/f16; then its time beside its bound, its plain version and the
+    library's ``torch.mm(u, u.T)`` (TF32 off), which the port never calls."""
+    kernel, ref = wrappers()["krum_gram"]
+    report = {"max_abs_err": 0.0}
+
+    def run(tag, u):
+        got = kernel(u)
+        want = ref(u)
+        torch.cuda.synchronize()
+        report["max_abs_err"] = max(report["max_abs_err"],
+                                    compare_gram(tag, u, got, want))
+        check(torch.equal(kernel(u).view(torch.int32), got.view(torch.int32)),
+              f"krum_gram {tag}: not bitwise repeatable")
+
+    for m, d in SHAPES:
+        mats = adversarial_matrices(m, d, gen)
+        mats.append(("gauss10", 10.0 * mats[0][1]))
+        for mname, u in mats:
+            run(f"({m}, {d}) {mname}", u)
+        for dtype in (torch.bfloat16, torch.float16):
+            run(f"({m}, {d}) {dtype}", mats[-1][1].to(dtype))
+        print(f"krum_gram == plain at ({m}, {d}) on gauss/duplicates/pm1e20/"
+              f"nan_inf/bitflip/gauss10, f32 (+bf16/f16): ok")
+    for m in GRAM_MS:
+        d = SHAPES[0][1]
+        u = 10.0 * torch.randn((m, d), generator=gen, device="cuda")
+        run(f"({m}, {d}) gauss10", u)
+        u[m // 2, ::7] = float("nan")
+        u[m - 1, 3::11] = float("inf")
+        u[0] = 1e20
+        run(f"({m}, {d}) nonfinite", u)
+    print(f"krum_gram == plain for m in {list(GRAM_MS)} at d={SHAPES[0][1]:,}"
+          f": ok; max|kernel - plain| = {report['max_abs_err']:.3e} "
+          f"(limit 1e-6 * max + 1e-3)")
+    for m, d in SHAPES:
+        u = adversarial_matrices(m, d, gen)[0][1]
+        bnd, bound_by = bound_ms("krum_gram", m, d, 4)
+        k_ms = time_ms(lambda: kernel(u))
+        p_ms = time_ms(lambda: ref(u))
+        lib_ms = time_ms(lambda: torch.mm(u, u.T))
+        print(f"  krum_gram     m={m} d={d:>9,}: kernel {k_ms:.4f} ms  plain "
+              f"{p_ms:.4f} ms  torch.mm {lib_ms:.4f} ms  bound "
+              f"{bnd * 1e3:.2f} us ({bound_by})  {bnd / k_ms:.1%} of bound")
+        if (m, d) == KERNEL_META["krum_gram"]["shape"]:
+            report.update(ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
+                          bound_by=bound_by, library_ms=lib_ms)
+    return report
+
+
 # ---------------------------------------------------------------------------
 # phase 3: training through run_experiment
 # ---------------------------------------------------------------------------
@@ -275,6 +391,22 @@ def paper_spec(kind: str, steps: int, defended: bool = False):
                         steps=steps, log_every=1)
 
 
+def vector_spec(kind: str, rule: str, steps: int, defended: bool = False):
+    """The Fig. 2 classic-attack baselines at full width: ``rule`` (krum,
+    multikrum, ...) under gaussian q = 6 (the paper's q for gaussian), on
+    the MLP at lr 0.1 or the CNN at lr 0.02 (as the trmean cell, for the
+    reason given in ``paper_spec``)."""
+    import dataclasses
+
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust import RobustConfig
+    spec = paper_spec(kind, steps, defended)
+    return dataclasses.replace(
+        spec, name=f"chip-smoke-{kind}-{rule}",
+        robust=RobustConfig(rule=rule, b=6, q=6),
+        attack=AttackConfig(name="gaussian", num_byzantine=6))
+
+
 def launch_counts(run) -> tuple:
     """Run ``run()`` with every kernel's count set to 0 just before; return
     its result and the counts read just after."""
@@ -286,23 +418,24 @@ def launch_counts(run) -> tuple:
     return out, {k: w.launches for k, w in ws.items()}
 
 
-def train_run(kind: str, steps: int, defended: bool):
-    """One full-width run through run_experiment; checks its losses and
-    prints its outcome.  Returns (result, launch counts)."""
+def train_run(kind: str, steps: int, defended: bool, spec=None):
+    """One full-width run through run_experiment (``spec``, by default the
+    paper cell of ``paper_spec``); checks its losses and prints its outcome.
+    Returns (result, launch counts)."""
     from repro_torch.experiment import run_experiment
     from repro_torch.tree import leaves
-    spec = paper_spec(kind, steps, defended)
+    spec = spec or paper_spec(kind, steps, defended)
     t0 = time.perf_counter()
     res, counts = launch_counts(lambda: run_experiment(spec))
     wall = time.perf_counter() - t0
-    tag = f"{kind}{' defended' if defended else ''}"
+    tag = f"{kind} {spec.robust.rule}{' defended' if defended else ''}"
     losses = [r["loss"] for r in res.history]
     d = sum(x.numel() for x in leaves(res.params))
     walls = [r["wall"] for r in res.history]
     step_ms = sorted(1e3 * (b - a) for a, b in zip(walls[1:], walls[2:]))
     print(f"{tag}: d={d:,} m=20 rule={spec.robust.rule} b={spec.robust.b} "
-          f"attack={spec.attack.name} q={spec.attack.num_byzantine} "
-          f"steps={steps}")
+          f"q={spec.robust.q} attack={spec.attack.name} "
+          f"q_atk={spec.attack.num_byzantine} steps={steps}")
     print(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f}  eval "
           f"{res.history[0]['eval']:.4f} -> {res.final_eval:.4f}  "
           f"step {step_ms[len(step_ms) // 2]:.2f} ms (median, host clock, "
@@ -316,13 +449,11 @@ def train_run(kind: str, steps: int, defended: bool):
     return res, counts
 
 
-def defended_checks(kind: str, res, counts: dict) -> None:
-    """Every Byzantine worker (the first q) ends ejected; one counts-kernel
-    launch per step; one aggregate-kernel launch per step that began with a
-    worker ejected (the gate short-circuits while all are active)."""
+def ejection_report(kind: str, res) -> int:
+    """Print the defense's outcome and check that every Byzantine worker
+    (the first q) ends ejected; returns the count of gated steps."""
     spec = res.spec
-    m, q, steps = spec.num_workers, spec.attack.num_byzantine, spec.steps
-    rule = spec.robust.rule
+    m, q = spec.num_workers, spec.attack.num_byzantine
     active = res.defense_state["active"].tolist()
     n_active = [r["n_active"] for r in res.history]
     gated = sum(1 for n in n_active[:-1] if n < m)
@@ -333,6 +464,16 @@ def defended_checks(kind: str, res, counts: dict) -> None:
           f"{gated} gated steps, benign workers ejected: {benign_out}")
     check(all(a == 0 for a in active[:q]),
           f"{kind} defended: Byzantine workers not all ejected: {active}")
+    return gated
+
+
+def defended_checks(kind: str, res, counts: dict) -> None:
+    """Every Byzantine worker (the first q) ends ejected; one counts-kernel
+    launch per step; one aggregate-kernel launch per step that began with a
+    worker ejected (the gate short-circuits while all are active)."""
+    spec = res.spec
+    steps, rule = spec.steps, spec.robust.rule
+    gated = ejection_report(kind, res)
     want = {k: 0 for k in counts}
     want[f"{rule}_counts"] = steps
     want[rule] = gated
@@ -426,6 +567,140 @@ def train_phase() -> dict:
     return launches
 
 
+class Recording:
+    """Record, while active, every Krum score vector the rules compute
+    (``aggregators._nearest_sums``, behind the raw and the gated scores on
+    both backends) and every aggregate ``robust.aggregate_matrix`` returns,
+    so that two runs can be compared selection by selection."""
+
+    def __init__(self):
+        self.scores, self.aggs = [], []
+
+    def __enter__(self):
+        from repro_torch.core import aggregators, robust
+        self._saved = (aggregators._nearest_sums, robust.aggregate_matrix)
+        nearest, aggregate = self._saved
+
+        def rec_nearest(d2, k):
+            out = nearest(d2, k)
+            self.scores.append(out.detach().cpu())
+            return out
+
+        def rec_aggregate(*args, **kw):
+            out = aggregate(*args, **kw)
+            agg = out[0] if isinstance(out, tuple) else out
+            self.aggs.append(agg.detach().cpu())
+            return out
+
+        aggregators._nearest_sums = rec_nearest
+        robust.aggregate_matrix = rec_aggregate
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import aggregators, robust
+        aggregators._nearest_sums, robust.aggregate_matrix = self._saved
+
+    def selections(self, rule: str, k: int) -> list:
+        from repro_torch.core.aggregators import lowest_scores
+        if rule == "krum":
+            return [int(torch.argmin(s)) for s in self.scores]
+        return [lowest_scores(s, k).tolist() for s in self.scores]
+
+
+def small_vector_runs(rule: str) -> None:
+    """m = 8 runs of ``rule`` on the kernel and the plain backend, plain and
+    defended: every step selects the same workers, and the aggregates agree
+    within 1e-5 (the distances are summed in another order)."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust import RobustConfig
+    from repro_torch.defense import read_jsonl
+    from repro_torch.experiment import (DataSpec, ModelSpec, ScenarioSpec,
+                                        run_experiment)
+    for defended in (False, True):
+        recs, tel, counts = {}, {}, {}
+        for backend in ("pallas", "xla"):
+            if defended:
+                path = os.path.join(REPO, "build", "chip_smoke",
+                                    f"{rule}-{backend}.jsonl")
+                if os.path.exists(path):
+                    os.remove(path)
+                spec = small_defended_spec(rule, backend, path)
+            else:
+                spec = ScenarioSpec(
+                    model=ModelSpec(kind="mlp"),
+                    data=DataSpec(dim=16, batch_per_worker=4),
+                    robust=RobustConfig(rule=rule, q=2, backend=backend),
+                    attack=AttackConfig(name="signflip", num_byzantine=2),
+                    num_workers=8, steps=5, log_every=1)
+            with Recording() as rec:
+                _, counts[backend] = launch_counts(
+                    lambda: run_experiment(spec))
+            recs[backend] = rec
+            if defended:
+                tel[backend] = [r for r in read_jsonl(path)
+                                if r["kind"] == "train"]
+        tag = f"{rule}{' defended' if defended else ''}"
+        steps = spec.steps
+        check(counts["pallas"]["krum_gram"] == steps
+              and sum(counts["pallas"].values()) == steps,
+              f"small {tag}: kernel path launches {counts['pallas']}")
+        check(sum(counts["xla"].values()) == 0,
+              f"small {tag}: plain path launches {counts['xla']}")
+        ka, pa = recs["pallas"], recs["xla"]
+        sel = ka.selections(rule, 8 - 2 - 2)
+        check(len(ka.scores) == len(pa.scores) == steps * (1 + defended),
+              f"small {tag}: {len(ka.scores)}/{len(pa.scores)} score vectors")
+        check(sel == pa.selections(rule, 8 - 2 - 2),
+              f"small {tag}: selections differ: {sel} vs "
+              f"{pa.selections(rule, 4)}")
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(ka.aggs, pa.aggs))
+        check(len(ka.aggs) == len(pa.aggs) == steps and err <= 1e-5,
+              f"small {tag}: aggregates differ by {err}")
+        if defended:
+            a, b = tel["pallas"], tel["xla"]
+            for key in ("active", "q_hat"):
+                check([r[key] for r in a] == [r[key] for r in b],
+                      f"small {tag}: {key} differs between the paths")
+            for key in ("suspicion", "reputation"):
+                d = max(abs(x - y) for ra, rb in zip(a, b)
+                        for x, y in zip(ra[key], rb[key]))
+                check(d <= 1e-5, f"small {tag}: {key} differs by {d}")
+        print(f"small run ({tag}, m=8, signflip q=2, {steps} steps): kernel "
+              f"path == plain path, selections {sel[:3]}... equal, "
+              f"aggregates max diff {err:.2e}; kernel launches "
+              f"{counts['pallas']['krum_gram']}")
+
+
+def vector_phase() -> dict:
+    """The vector-wise rules at full width through run_experiment: MLP krum
+    and CNN multikrum under gaussian q = 6, MLP krum defended; one K5 launch
+    per step in each.  Then the small kernel-vs-plain runs, and one short
+    run of each rule that has no kernel (geomedian, mediam, mom)."""
+    launches = {}
+    for kind, rule, steps, defended in (("mlp", "krum", 30, False),
+                                        ("cnn", "multikrum", 20, False),
+                                        ("mlp", "krum", 30, True)):
+        res, counts = train_run(kind, steps, defended,
+                                vector_spec(kind, rule, steps, defended))
+        want = {k: 0 for k in counts}
+        want["krum_gram"] = steps
+        check(counts == want, f"{kind} {rule}: launches {counts}, expected "
+                              f"{want}")
+        if defended:
+            ejection_report(kind, res)
+        elif kind == "mlp":
+            launches["krum_gram"] = counts["krum_gram"]
+    for rule in ("krum", "multikrum"):
+        small_vector_runs(rule)
+    for rule in ("geomedian", "mediam", "mom"):
+        _, counts = train_run("mlp", 5, False,
+                              vector_spec("mlp", rule, 5))
+        check(sum(counts.values()) == 0,
+              f"{rule} launched kernels: {counts}")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 4: where a step's time goes
 # ---------------------------------------------------------------------------
@@ -441,11 +716,15 @@ def trace_phase(steps: int = 8, defended_steps: int = 16) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.experiment import run_experiment
-    for kind, defended, n in (("mlp", False, steps), ("cnn", False, steps),
-                              ("mlp", True, defended_steps),
-                              ("cnn", True, defended_steps)):
-        spec = dataclasses.replace(paper_spec(kind, n, defended), log_every=n)
-        tag = f"{kind}{' defended' if defended else ''}"
+    for kind, defended, n, rule in (
+            ("mlp", False, steps, None), ("cnn", False, steps, None),
+            ("mlp", True, defended_steps, None),
+            ("cnn", True, defended_steps, None),
+            ("cnn", False, steps, "multikrum")):
+        spec = (vector_spec(kind, rule, n) if rule else
+                paper_spec(kind, n, defended))
+        spec = dataclasses.replace(spec, log_every=n)
+        tag = f"{kind} {spec.robust.rule}{' defended' if defended else ''}"
         run_experiment(spec)                                 # warm-up
         step_ms = run_experiment(spec).wall_time / n * 1e3
         with profile(activities=[ProfilerActivity.CPU,
@@ -461,6 +740,11 @@ def trace_phase(steps: int = 8, defended_steps: int = 16) -> None:
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
             print(f"    {e.self_device_time_total / busy / 1e6:6.1%}  "
                   f"n={e.count:4d}  {e.key[:100]}")
+        for e in kernels:              # the port's own kernels, wherever
+            if "repro_torch::" in e.key:  # they rank
+                print(f"    port kernel {e.self_device_time_total / busy / 1e6:6.1%}"
+                      f" of busy, {e.self_device_time_total / 1e3 / n:.4f} ms"
+                      f"/step  n={e.count:4d}  {e.key[:60]}")
 
 
 # ---------------------------------------------------------------------------
@@ -496,7 +780,9 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = kernel_phase(gen)
+    report["krum_gram"] = gram_phase(gen)
     launches = train_phase()
+    launches.update(vector_phase())
     trace_phase()
 
     smi = subprocess.run(
@@ -512,7 +798,7 @@ def main() -> int:
             "replaces": meta["replaces"], "launches": launches[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

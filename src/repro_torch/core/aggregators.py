@@ -1,20 +1,28 @@
-"""The coordinate-wise aggregation rules (the paper's core contribution).
+"""The built-in aggregation rules (the paper's core contribution and its
+baselines).
 
-Port of the coordinate-wise half of ``repro/core/aggregators.py``.  Every
-rule consumes a worker-gradient matrix ``u`` of shape ``(m, ...)`` and
-returns the aggregate of shape ``(...)`` in f32:
+Port of ``repro/core/aggregators.py``.  Every rule consumes a worker-gradient
+matrix ``u`` of shape ``(m, ...)`` and returns the aggregate of shape
+``(...)`` in f32:
 
 * ``mean``   — plain averaging, NOT resilient (Proposition 1);
 * ``median`` — coordinate-wise median;
 * ``trmean`` — Definition 7, b-trimmed coordinate-wise mean;
 * ``phocas`` — Definition 8, mean of the (m-b) values nearest the b-trimmed
-  mean, per coordinate.
+  mean, per coordinate;
+* ``krum`` / ``multikrum`` — Definition 3 / Blanchard et al. baselines, over
+  the full gradient vector;
+* ``geomedian`` — the geometric median by Weiszfeld iterations.
 
 trmean and phocas have CUDA kernels (``repro_torch.kernels``), reached through
 ``backend="pallas"``, or ``"auto"`` on a CUDA tensor.  They also emit the
 defense's suspicion scores: how often the trim dropped each worker, from the
 counts kernels on the kernel backend and from ``selection.trim_family`` on the
-plain one.
+plain one.  krum and multikrum take their pairwise distances from the Krum
+Gram kernel on the kernel backend, for the plain and the defended hooks alike;
+the Weiszfeld loop is plain PyTorch, as in the reference, where it lies
+outside any Pallas kernel.  The sharded hooks of the reference come with the
+distributed layouts (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -23,8 +31,10 @@ from typing import Optional
 import torch
 
 from repro_torch.core import selection
-from repro_torch.core.registry import (AggregatorRule, drop_frequency_scores,
-                                       register_rule)
+from repro_torch.core.registry import (AggregatorRule, distance_ratio_scores,
+                                       drop_frequency_scores, register_rule)
+from repro_torch.core.selection import vector_median
+from repro_torch.kernels.krum.ref import pairwise_sq_dists_ref
 
 
 def mean(u: torch.Tensor) -> torch.Tensor:
@@ -82,10 +92,156 @@ def fused_trim_family_scores(mat: torch.Tensor, b: int, kind: str,
         mat, b, baseline)
 
 
+# ---------------------------------------------------------------------------
+# Vector-wise (classic) rules: the Krum family and the geometric median
+# ---------------------------------------------------------------------------
+
+def _flat(u: torch.Tensor) -> torch.Tensor:
+    return u.reshape(u.shape[0], -1).float()
+
+
+def _pairwise_sq_dists(u: torch.Tensor) -> torch.Tensor:
+    """(m, m) squared Euclidean distances via the Gram matrix, in f32."""
+    return pairwise_sq_dists_ref(u.reshape(u.shape[0], -1))
+
+
+def _krum_k(m: int, q: int) -> int:
+    k = m - q - 2
+    if k <= 0:
+        raise ValueError(f"Krum requires m - q - 2 > 0 (m={m}, q={q})")
+    return k
+
+
+def _inf_diag(m: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.diag(torch.full((m,), torch.inf, dtype=like.dtype,
+                                 device=like.device))
+
+
+def _nearest_sums(d2: torch.Tensor, k: int) -> torch.Tensor:
+    """Each row's k smallest entries summed, after a sort that puts NaN
+    last (as ``jnp.sort`` does)."""
+    return torch.sort(d2, dim=1).values[:, :k].sum(dim=1)
+
+
+def krum_scores_from_d2(d2: torch.Tensor, q: int) -> torch.Tensor:
+    """(m,) Krum scores from (m, m) squared distances: the sum of each
+    worker's m - q - 2 smallest distances to the others."""
+    m = d2.shape[0]
+    return _nearest_sums(d2 + _inf_diag(m, d2), _krum_k(m, q))
+
+
+def lowest_scores(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k lowest scores, the lower index first on ties and NaN
+    last: the order of the reference's ``jax.lax.top_k(-scores, k)``.  A
+    stable sort, since ``torch.topk``'s order on ties is not specified."""
+    return torch.sort(scores, stable=True).indices[:k]
+
+
+def krum_scores(u: torch.Tensor, q: int) -> torch.Tensor:
+    """Per-worker Krum score: sum of squared distances to the m-q-2 nearest
+    others."""
+    return krum_scores_from_d2(_pairwise_sq_dists(u), q)
+
+
+def krum(u: torch.Tensor, q: int) -> torch.Tensor:
+    """Krum (Definition 3): the candidate with minimal score.  NOT
+    dimensional-Byzantine resilient (Proposition 3); a baseline."""
+    return _flat(u)[torch.argmin(krum_scores(u, q))].reshape(u.shape[1:])
+
+
+def multikrum(u: torch.Tensor, q: int, k: Optional[int] = None
+              ) -> torch.Tensor:
+    """Multi-Krum: the mean of the k lowest-score candidates (Blanchard et
+    al.); k = m - q - 2 by default."""
+    if k is None:
+        k = u.shape[0] - q - 2
+    idx = lowest_scores(krum_scores(u, q), k)
+    return _flat(u)[idx].mean(dim=0).reshape(u.shape[1:])
+
+
+def krum_gated_scores(mat: torch.Tensor, active: torch.Tensor, q: int,
+                      d2: Optional[torch.Tensor] = None):
+    """Raw AND reputation-gated Krum score sums from one distance matrix.
+
+    The single-device form of the reference's
+    ``krum_gated_scores_sharded``.  The gated matrix replaces ejected rows by
+    the raw median row ``med``, so its distances follow from the raw ones
+    and each row's distance ``e_i = ||mat_i - med||^2`` to the median::
+
+        d2_A(i, j) = a_i a_j d2(i, j) + a_i (1 - a_j) e_i
+                                      + (1 - a_i) a_j e_j
+
+    an O(m d) correction in place of a second O(m^2 d) pass.  ``d2`` is the
+    raw (m, m) distance matrix when the caller has it (the Gram kernel's).
+    """
+    m = mat.shape[0]
+    k = _krum_k(m, q)
+    if d2 is None:
+        d2 = _pairwise_sq_dists(mat)
+    med = selection.matrix_median(mat)
+    e = ((mat - med[None]) ** 2).sum(dim=1)
+    a = active.to(d2.dtype)
+    d2_gated = (a[:, None] * a[None, :] * d2
+                + a[:, None] * (1.0 - a[None, :]) * e[:, None]
+                + (1.0 - a[:, None]) * a[None, :] * e[None, :])
+    inf_diag = _inf_diag(m, d2)
+    return (_nearest_sums(d2 + inf_diag, k),
+            _nearest_sums(d2_gated + inf_diag, k))
+
+
+# Pre-Weiszfeld row clipping: rows whose norm exceeds this multiple of the
+# median row norm are rescaled onto that cap.  Under the omniscient attack's
+# 1e20 rows the unclipped fixed point cannot localize in a few iterations;
+# benign rows share the median's norm scale, so clean runs are unchanged.
+WEISZFELD_CLIP_FACTOR = 4.0
+
+
+def clip_rows_to_norm_quantile(mat: torch.Tensor,
+                               factor: float = WEISZFELD_CLIP_FACTOR,
+                               eps: float = 1e-12) -> torch.Tensor:
+    """Rescale the rows of an (m, d) matrix so that no row's norm exceeds
+    ``factor`` x the median row norm.  The median is ``jnp.median``'s: a
+    NaN norm makes it NaN and leaves every row unclipped, as in the
+    reference; so does a zero median, which carries no scale."""
+    norms = torch.sqrt((mat * mat).sum(dim=1))
+    cap = factor * vector_median(norms)
+    scale = torch.where(
+        cap > 0.0, torch.clamp(cap / torch.clamp(norms, min=eps), max=1.0),
+        torch.ones_like(norms))
+    return mat * scale[:, None]
+
+
+def geomedian_weiszfeld(mat: torch.Tensor, iters: int = 8, eps: float = 1e-8,
+                        with_dists: bool = False):
+    """Weiszfeld iterations on an (m, d) f32 matrix, from the mean, after
+    the rows are norm-clipped (:func:`clip_rows_to_norm_quantile`).
+
+    The single-device form of the reference's ``geomedian_sharded``.  With
+    ``with_dists=True`` also returns each worker's distance to the final
+    iterate (the inverse Weiszfeld weight, the rule's suspicion statistic).
+    """
+    mat = clip_rows_to_norm_quantile(mat)
+    z = mat.mean(dim=0)
+    for _ in range(iters):
+        d2 = ((mat - z[None]) ** 2).sum(dim=1)
+        w = 1.0 / torch.clamp(torch.sqrt(d2), min=eps)
+        z = (mat * w[:, None]).sum(dim=0) / w.sum()
+    if not with_dists:
+        return z
+    return z, torch.sqrt(((mat - z[None]) ** 2).sum(dim=1))
+
+
+def geomedian(u: torch.Tensor, iters: int = 8,
+              eps: float = 1e-8) -> torch.Tensor:
+    """Geometric median via Weiszfeld iterations (Chen et al. family)."""
+    return geomedian_weiszfeld(_flat(u), iters, eps).reshape(u.shape[1:])
+
+
 @register_rule
 class MeanRule(AggregatorRule):
     """Plain averaging — NOT Byzantine resilient (Proposition 1)."""
     name = "mean"
+    resilience = "none"
 
     def _reduce_plain(self, u):
         return mean(u)
@@ -95,6 +251,7 @@ class MeanRule(AggregatorRule):
 class MedianRule(AggregatorRule):
     """Coordinate-wise median — dimensional resilient."""
     name = "median"
+    resilience = "dimensional"
 
     def _reduce_plain(self, u):
         return median(u)
@@ -103,13 +260,15 @@ class MedianRule(AggregatorRule):
 class _TrimFamilyRule(AggregatorRule):
     """Score and gate plumbing shared by trmean and phocas.
 
-    Subclasses set ``trim_kind`` and ``_baseline(m)``, the drop frequency an
-    exchangeable benign worker expects.  On the kernel backend the counts
+    Subclasses set ``trim_kind`` (a ``selection.trim_family`` kind) and
+    ``_baseline(m)``, the drop frequency an exchangeable benign worker
+    expects.  On the kernel backend the counts
     come from the counts kernel and a gated aggregate, once a worker is
     ejected, from a second kernel launch (the base-class composition); on
     the plain backend one ``selection.trim_family`` pass gives both.
     """
     trim_kind = ""
+    resilience = "dimensional"
     uses_b = True
     has_kernel = True
     emits_scores = True
@@ -170,3 +329,109 @@ class PhocasRule(_TrimFamilyRule):
     def _baseline(self, m: int) -> float:
         # each coordinate drops the b farthest of m values
         return float(self.params.b) / m
+
+
+class _KrumFamilyRule(AggregatorRule):
+    """Distance plumbing shared by krum and multikrum: on the kernel backend
+    every hook, plain and defended, takes its (m, m) distances from the
+    Gram kernel, so a step launches it once."""
+    coordinate_wise = False
+    resilience = "classic"
+    uses_q = True
+    has_kernel = True
+    emits_scores = True
+    fused_gate = True
+
+    def _d2(self, mat: torch.Tensor) -> torch.Tensor:
+        if self.uses_kernel(mat):
+            from repro_torch.kernels import ops
+            return ops.pairwise_sq_dists(mat)
+        return _pairwise_sq_dists(mat)
+
+    def _select(self, mat: torch.Tensor, scores: torch.Tensor):
+        """The aggregate of the (m, d) ``mat`` the rule picks by ``scores``."""
+        raise NotImplementedError
+
+    def reduce_with_scores(self, u):
+        mat = _flat(u)
+        raw = krum_scores_from_d2(self._d2(mat), self.params.q)
+        return (self._select(mat, raw).reshape(u.shape[1:]),
+                distance_ratio_scores(raw))
+
+    def reduce_gated_with_scores(self, u, active):
+        if active is None:
+            return self.reduce_with_scores(u)
+        mat = _flat(u)
+        raw, gated = krum_gated_scores(mat, active, self.params.q,
+                                       d2=self._d2(mat))
+        agg = self._select(selection.gate_matrix(mat, active), gated)
+        return agg.reshape(u.shape[1:]), distance_ratio_scores(raw)
+
+
+@register_rule
+class KrumRule(_KrumFamilyRule):
+    """Krum (Definition 3) — classic resilience only (Proposition 3)."""
+    name = "krum"
+
+    def _select(self, mat, scores):
+        return mat[torch.argmin(scores)]
+
+    def _reduce_plain(self, u):
+        return krum(u, self.params.q)
+
+    def _reduce_kernel(self, u):
+        from repro_torch.kernels import ops
+        return ops.krum(u.reshape(u.shape[0], -1),
+                        self.params.q).reshape(u.shape[1:])
+
+
+@register_rule
+class MultikrumRule(_KrumFamilyRule):
+    """Multi-Krum: the mean of the k lowest-score candidates."""
+    name = "multikrum"
+
+    def _k(self, m: int) -> int:
+        k = self.params.multikrum_k
+        return m - self.params.q - 2 if k is None else k
+
+    def _select(self, mat, scores):
+        return mat[lowest_scores(scores, self._k(mat.shape[0]))].mean(dim=0)
+
+    def _reduce_plain(self, u):
+        return multikrum(u, self.params.q, self.params.multikrum_k)
+
+    def _reduce_kernel(self, u):
+        from repro_torch.kernels import ops
+        return ops.multikrum(u.reshape(u.shape[0], -1), self.params.q,
+                             self.params.multikrum_k).reshape(u.shape[1:])
+
+
+@register_rule
+class GeomedianRule(AggregatorRule):
+    """Geometric median (Weiszfeld) — Chen et al. family baseline."""
+    name = "geomedian"
+    coordinate_wise = False
+    resilience = "classic"
+    emits_scores = True
+    fused_gate = True
+
+    def _reduce_plain(self, u):
+        return geomedian(u, iters=self.params.geomedian_iters)
+
+    def reduce_with_scores(self, u):
+        # Weiszfeld weight = 1/distance: far (down-weighted) = suspicious.
+        z, dists = geomedian_weiszfeld(_flat(u),
+                                       self.params.geomedian_iters,
+                                       with_dists=True)
+        return z.reshape(u.shape[1:]), distance_ratio_scores(dists)
+
+    def reduce_gated_with_scores(self, u, active):
+        """One Weiszfeld run: the center of the gated matrix, and the RAW
+        rows' distances to it as the scores."""
+        if active is None:
+            return self.reduce_with_scores(u)
+        mat = _flat(u)
+        z = geomedian_weiszfeld(selection.gate_matrix(mat, active),
+                                self.params.geomedian_iters)
+        d2 = ((mat - z[None]) ** 2).sum(dim=1)
+        return z.reshape(u.shape[1:]), distance_ratio_scores(torch.sqrt(d2))

@@ -4,8 +4,8 @@ Port of ``repro/core/registry.py``.  A rule is an :class:`AggregatorRule`
 subclass decorated with :func:`register_rule`; an attack is a factory
 ``AttackConfig -> (gen, u, step=None) -> u_tilde`` decorated with
 :func:`register_attack`.  Built-ins register when ``repro_torch.core
-.aggregators`` / ``repro_torch.core.attacks`` import; every lookup triggers
-those imports.
+.aggregators`` / ``repro_torch.core.attacks`` / the ``repro_torch.core.rules``
+plugin package import; every lookup triggers those imports.
 
 Backend strings keep the reference's names: ``"pallas"`` means the
 hand-written CUDA kernel, ``"xla"`` the plain PyTorch path, and ``"auto"`` the
@@ -18,38 +18,44 @@ from typing import Callable, ClassVar, Dict, Optional, Tuple, Type
 
 import torch
 
+from repro_torch.core.selection import gate_matrix, vector_median
+
 BACKENDS = ("auto", "pallas", "xla")
 
-# Reference rules this slice does not port yet, with the ROADMAP queue item
-# that brings each.
+# Reference rules not ported yet, with the ROADMAP queue item that brings
+# each.
 UNPORTED_RULES = {
-    "krum": "ROADMAP queue 1 item 8",
-    "multikrum": "ROADMAP queue 1 item 8",
-    "geomedian": "ROADMAP queue 1 item 8",
-    "mediam": "ROADMAP queue 1 item 8",
-    "mom": "ROADMAP queue 1 item 8",
     "signvote": "ROADMAP queue 1 item 13",
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class RuleParams:
-    """The per-rule parameters the ported rules consume."""
+    """The union of per-rule parameters a registered rule may consume; each
+    rule reads only the fields its metadata declares (``uses_b`` /
+    ``uses_q`` / ...)."""
     b: int = 0                            # trim count (trmean/phocas family)
+    q: int = 0                            # assumed Byzantine count (Krum)
+    multikrum_k: Optional[int] = None     # Multi-Krum selection size (m-q-2)
+    geomedian_iters: int = 8              # Weiszfeld iteration count
     backend: str = "auto"                 # auto | pallas | xla
 
 
 class AggregatorRule:
     """Base class for registered aggregation rules.
 
-    Subclasses set ``name`` (and ``uses_b`` / ``has_kernel`` /
-    ``emits_scores`` / ``fused_gate``) and implement ``_reduce_plain`` (and
+    Subclasses set ``name`` (and ``coordinate_wise`` / ``resilience`` /
+    ``uses_b`` / ``uses_q`` / ``has_kernel`` / ``emits_scores`` /
+    ``fused_gate``) and implement ``_reduce_plain`` (and
     ``_reduce_kernel`` with ``has_kernel = True``).  The sharded hooks of the
     reference (``reduce_sharded*``) come with the distributed layouts.
     """
 
     name: ClassVar[str]
+    coordinate_wise: ClassVar[bool] = True
+    resilience: ClassVar[str] = "none"    # dimensional | classic | none
     uses_b: ClassVar[bool] = False        # spec.validate checks b's range
+    uses_q: ClassVar[bool] = False        # spec.validate checks q's range
     has_kernel: ClassVar[bool] = False    # declares a CUDA _reduce_kernel
     emits_scores: ClassVar[bool] = False  # informative reduce_with_scores
     fused_gate: ClassVar[bool] = False    # one-pass reduce_gated_with_scores
@@ -89,7 +95,6 @@ class AggregatorRule:
         the two passes; rules with ``fused_gate`` override it."""
         agg, scores = self.reduce_with_scores(u)
         if active is not None:
-            from repro_torch.core.selection import gate_matrix
             gated = gate_matrix(u, active)
             if gated is not u:      # no worker ejected: agg already is it
                 agg = self.reduce(gated)
@@ -129,11 +134,9 @@ def distance_ratio_scores(raw: torch.Tensor,
                           eps: float = 1e-12) -> torch.Tensor:
     """Normalize nonnegative per-worker distance statistics into suspicion
     scores: ``1 - median/raw`` maps the median worker to 0 and far outliers
-    toward 1; a median of ~0 gives all-zero scores.  The median of an even
-    count is the midpoint of the two middle values, as ``jnp.median``'s."""
-    s = torch.sort(raw).values
-    n = s.shape[0]
-    med = s[n // 2] if n % 2 else (s[n // 2 - 1] + s[n // 2]) * 0.5
+    toward 1; a median of ~0 gives all-zero scores.  The median is
+    ``jnp.median``'s: a NaN statistic makes every score NaN, as there."""
+    med = vector_median(raw)
     out = torch.clamp(1.0 - med / torch.clamp(raw, min=eps), 0.0, 1.0)
     return torch.where(med <= eps, torch.zeros_like(out), out)
 
@@ -177,6 +180,7 @@ def _ensure_builtins() -> None:
     # Deferred: these modules import this one for the decorators.
     import repro_torch.core.aggregators  # noqa: F401
     import repro_torch.core.attacks      # noqa: F401
+    import repro_torch.core.rules        # noqa: F401  (single-file plugins)
 
 
 def available_rules() -> Tuple[str, ...]:
@@ -199,6 +203,21 @@ def get_rule(name: str) -> Type[AggregatorRule]:
 
 def make_rule(name: str, params: RuleParams = RuleParams()) -> AggregatorRule:
     return get_rule(name)(params)
+
+
+def coordinate_wise_rules() -> Tuple[str, ...]:
+    return tuple(n for n in available_rules() if _RULES[n].coordinate_wise)
+
+
+def vector_wise_rules() -> Tuple[str, ...]:
+    return tuple(n for n in available_rules()
+                 if not _RULES[n].coordinate_wise)
+
+
+def robust_rules() -> Tuple[str, ...]:
+    """Rules with any resilience claim (classic or dimensional)."""
+    return tuple(n for n in available_rules()
+                 if _RULES[n].resilience != "none")
 
 
 def kernel_rules() -> Tuple[str, ...]:

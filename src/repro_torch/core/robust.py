@@ -39,7 +39,10 @@ class RobustConfig:
     attack: AttackConfig = dataclasses.field(default_factory=AttackConfig)
 
     def rule_params(self) -> registry.RuleParams:
-        return registry.RuleParams(b=self.b, backend=self.backend)
+        return registry.RuleParams(b=self.b, q=self.q,
+                                   multikrum_k=self.multikrum_k,
+                                   geomedian_iters=self.geomedian_iters,
+                                   backend=self.backend)
 
     def rule_obj(self) -> registry.AggregatorRule:
         return registry.make_rule(self.rule, self.rule_params())

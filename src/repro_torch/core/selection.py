@@ -65,6 +65,17 @@ def stable_ranks(keys: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return list(ranks.unbind(0))
 
 
+def vector_median(x: torch.Tensor) -> torch.Tensor:
+    """Median of a 1-D tensor with ``jnp.median``'s semantics: NaN if any
+    entry is NaN (``torch.sort`` alone would put NaN last and return a
+    finite median), and for an even count the midpoint of the two middle
+    values, computed as ``(lo + hi) * 0.5``."""
+    s = torch.sort(x).values
+    n = s.shape[0]
+    med = s[n // 2] if n % 2 else (s[n // 2 - 1] + s[n // 2]) * 0.5
+    return torch.where(torch.isnan(x).any(), torch.nan, med)
+
+
 def median_of_sorted(srows: Sequence[torch.Tensor]) -> torch.Tensor:
     """Coordinate-wise median from an already-sorted row list."""
     m = len(srows)
@@ -141,7 +152,12 @@ def validate_b(m: int, b: int) -> None:
         raise ValueError(f"b={b} out of range [0, ceil(m/2)-1] for m={m}")
 
 
-_KINDS = ("trmean", "phocas")
+# Center of each trim-family rule, as a function of the sorted block.
+_CENTERS = {
+    "trmean": trimmed_mean_of_sorted,                    # Definition 7
+    "phocas": trimmed_mean_of_sorted,                    # Definition 8
+    "mediam": lambda srows, b: median_of_sorted(srows),  # Xie et al. 2018
+}
 
 
 def _gate_rows(rows: List[torch.Tensor], med: torch.Tensor,
@@ -154,7 +170,7 @@ def _gate_rows(rows: List[torch.Tensor], med: torch.Tensor,
 def trim_family(u: torch.Tensor, b: int, kind: str, *,
                 active: Optional[torch.Tensor] = None,
                 with_scores: bool = False):
-    """One shared selection pass behind trmean and phocas.
+    """One shared selection pass behind trmean, phocas and mediam.
 
     From one sorted block of the raw (m, *shape) matrix: the rule's center
     and aggregate, with ``with_scores`` the per-worker drop counts of the
@@ -166,7 +182,7 @@ def trim_family(u: torch.Tensor, b: int, kind: str, *,
     ``with_scores``.  As in the reference, b = 0 is the plain mean in worker
     order, and still gated.
     """
-    if kind not in _KINDS:
+    if kind not in _CENTERS:
         raise ValueError(f"unknown trim-family rule kind {kind!r}")
     m = u.shape[0]
     validate_b(m, b)
@@ -181,7 +197,7 @@ def trim_family(u: torch.Tensor, b: int, kind: str, *,
         return sum(rows[1:], start=rows[0]) / m, counts, ncoords_of(u)
 
     srows = sorted_rows(rows)
-    center = trimmed_mean_of_sorted(srows, b)
+    center = _CENTERS[kind](srows, b)
     if with_scores:
         keys = rows if kind == "trmean" else [
             (r - center).abs() for r in rows]
@@ -192,7 +208,7 @@ def trim_family(u: torch.Tensor, b: int, kind: str, *,
         # block; then re-sort and re-center.
         rows = _gate_rows(rows, median_of_sorted(srows), active)
         srows = sorted_rows(rows)
-        center = trimmed_mean_of_sorted(srows, b)
+        center = _CENTERS[kind](srows, b)
     if kind == "trmean":
         return center, counts, ncoords_of(u)
     total, _ = nearest_window_sum(srows, center, b)

@@ -185,6 +185,10 @@ class ScenarioSpec:
             raise SpecError(
                 f"rule {self.robust.rule!r} needs 0 <= b <= (m+1)//2-1 = "
                 f"{bmax} for m={m} workers, got b={self.robust.b}")
+        if rule_cls.uses_q and not 0 <= self.robust.q <= m - 3:
+            raise SpecError(
+                f"rule {self.robust.rule!r} needs 0 <= q <= m-3 = {m - 3} "
+                f"(Krum selection needs m-q-2 > 0), got q={self.robust.q}")
 
         if (self.attack.name not in ("none", "")
                 and self.robust.attack.name not in ("none", "")):
@@ -205,10 +209,11 @@ class ScenarioSpec:
                     f"defense needs a score-emitting rule (emits_scores); "
                     f"{self.robust.rule!r} is not one of "
                     f"{registry.score_rules()}")
-            if self.defense.adapt_b and not rule_cls.uses_b:
+            if self.defense.adapt_b and not (rule_cls.uses_b
+                                             or rule_cls.uses_q):
                 raise SpecError(
-                    f"defense.adapt_b tunes the rule's b, but rule "
-                    f"{self.robust.rule!r} does not use one")
+                    f"defense.adapt_b tunes the rule's b/q, but rule "
+                    f"{self.robust.rule!r} consumes neither")
         if self.faults:
             raise not_ported("fault injection (spec.faults)", "item 13")
         if self.compression.enabled:

@@ -3,8 +3,8 @@
 Port of ``repro/experiment/topologies.py::SyncPS`` without mesh, faults,
 compression or checkpoints (the spec refuses those before a run starts): the
 plain loop, and the defended one, which threads the reputation state, writes
-the ``"train"`` telemetry records and, with ``defense.adapt_b``, raises b to
-the detector's q̂.
+the ``"train"`` telemetry records and, with ``defense.adapt_b``, raises b (or
+q) to the detector's q̂.
 """
 from __future__ import annotations
 
@@ -55,9 +55,12 @@ class SyncPS(Topology):
         attack_gen = torch.Generator(device=plan.device).manual_seed(
             plan.seed + 1)
 
-        # adapt_b: once q̂ > b for adapt_patience consecutive steps, re-build
-        # the step with b = q̂ (capped at the largest valid b).
+        # adapt_b: once q̂ exceeds the rule's b (or, for a rule that uses q
+        # and not b, its q) for adapt_patience consecutive steps, re-build
+        # the step with b = q̂ (capped at the largest valid b) and, for a
+        # rule that uses q, q = max(q̂, q) (capped at m - 3).
         adapt = dcfg is not None and dcfg.adapt_b
+        rule_meta = registry.get_rule(robust_cfg.rule)
         bmax = (m + 1) // 2 - 1
         pending = 0
 
@@ -92,20 +95,25 @@ class SyncPS(Topology):
 
                 if adapt:
                     q_hat = int(metrics["q_hat"])
-                    pending = pending + 1 if q_hat > robust_cfg.b else 0
+                    current = (robust_cfg.b if rule_meta.uses_b
+                               else robust_cfg.q)
+                    pending = pending + 1 if q_hat > current else 0
                     if pending >= dcfg.adapt_patience:
                         pending = 0
-                        new_b = min(q_hat, bmax)
-                        # q̂ beyond the cap leaves b saturated: nothing to
+                        new_b = (min(q_hat, bmax) if rule_meta.uses_b
+                                 else robust_cfg.b)
+                        new_q = (min(max(q_hat, robust_cfg.q), m - 3)
+                                 if rule_meta.uses_q else robust_cfg.q)
+                        # q̂ beyond the cap leaves b/q saturated: nothing to
                         # re-build.
-                        if new_b != robust_cfg.b:
-                            robust_cfg = dataclasses.replace(robust_cfg,
-                                                             b=new_b)
+                        if new_b != robust_cfg.b or new_q != robust_cfg.q:
+                            robust_cfg = dataclasses.replace(
+                                robust_cfg, b=new_b, q=new_q)
                             step_fn = build_step(robust_cfg)
                             history.append(
                                 {"step": step, "adapted_b": new_b,
-                                 "adapted_q": robust_cfg.q, "q_hat": q_hat})
-                            tel.log("adapt", step, b=new_b, q=robust_cfg.q,
+                                 "adapted_q": new_q, "q_hat": q_hat})
+                            tel.log("adapt", step, b=new_b, q=new_q,
                                     q_hat=q_hat)
         wall = time.time() - t0
 

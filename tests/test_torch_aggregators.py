@@ -205,8 +205,8 @@ def test_backend_resolution():
     with pytest.raises(ValueError, match="unknown backend"):
         make_rule("phocas", RuleParams(backend="tpu"))
     assert make_rule("phocas", RuleParams(backend="auto")).backend == "auto"
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        make_rule("krum")
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        make_rule("signvote")
 
 
 def test_plain_cpu_path_never_counts_as_a_launch():

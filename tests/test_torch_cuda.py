@@ -6,12 +6,18 @@ tests/test_torch_cuda.py`` (``--noconftest`` because ``tests/conftest.py``
 imports JAX).  Each kernel divides as PyTorch's CUDA division by a scalar
 does, so it equals its plain version bit for bit, adversarial rows included;
 the counts kernels' drop counts equal their plain versions' as integers.
+The Krum Gram kernel sums its products in another order than the plain
+version's ``torch.mm`` (TF32 off), so it is held at the reference's bound for
+the Gram form, atol 1e-6 * max + 1e-3, with NaN and inf at the same places,
+and the exceptions ``chip_smoke.py::compare_gram`` states.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.registry import RuleParams, make_rule
+from repro_torch.kernels.krum.kernel import pairwise_sq_dists_hopper
+from repro_torch.kernels.krum.ref import pairwise_sq_dists_ref
 from repro_torch.kernels.phocas.kernel import (phocas_counts_hopper,
                                                phocas_hopper)
 from repro_torch.kernels.phocas.ref import phocas_counts_ref, phocas_ref
@@ -28,6 +34,7 @@ COUNTS_PAIRS = ((trmean_counts_hopper, trmean_counts_ref),
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -144,3 +151,77 @@ def test_defended_aggregation_launches_the_kernels_on_cuda(cuda, rule):
         want_agg, want_scores = plain_rule.reduce_gated_with_scores(u, active)
         _assert_same(agg, want_agg)
         assert torch.equal(scores, want_scores)
+
+
+def _assert_gram_close(u, got, want):
+    """The bound of ``chip_smoke.py::compare_gram``: its max over the
+    distances and the finite n_i + n_j (the Gram form's rounding scales with
+    the squared norms), and a kernel diagonal of exactly 0 on finite rows."""
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    fin_diag = torch.isfinite(torch.diagonal(want))
+    assert (torch.diagonal(got)[fin_diag] == 0).all()
+    off = ~torch.eye(got.shape[0], dtype=torch.bool, device=got.device)
+    fin = torch.isfinite(want) & off
+    if fin.any():
+        sq = (u.float() * u.float()).sum(dim=1)
+        pair = sq[:, None] + sq[None, :]
+        scale = max(want[fin].abs().max().item(),
+                    pair[torch.isfinite(pair) & fin].abs().max().item())
+        assert (got[fin] - want[fin]).abs().max().item() <= 1e-6 * scale + 1e-3
+    # one value per pair: exactly symmetric
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(got.T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 5, 20, 31, 32, 33, 64, 100])
+def test_gram_kernel_equals_plain_version(cuda, m):
+    for name, u in _matrices(m, 3001, cuda).items():
+        for x in (10.0 * u, u.to(torch.bfloat16), u.to(torch.float16)):
+            if name == "big" and x.dtype != torch.float32:
+                continue
+            n = pairwise_sq_dists_hopper.launches
+            got = pairwise_sq_dists_hopper(x)
+            torch.cuda.synchronize()
+            assert pairwise_sq_dists_hopper.launches == n + 1
+            _assert_gram_close(x, got, pairwise_sq_dists_ref(x))
+            again = pairwise_sq_dists_hopper(x)         # bitwise repeatable
+            assert torch.equal(again.view(torch.int32),
+                               got.view(torch.int32)), name
+
+
+@pytest.mark.cuda
+def test_gram_kernel_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="contiguous"):
+        pairwise_sq_dists_hopper(torch.zeros((16, 8), device=cuda).t())
+    with pytest.raises(ValueError, match="dtype|take"):
+        pairwise_sq_dists_hopper(torch.zeros((4, 8), dtype=torch.float64,
+                                             device=cuda))
+    with pytest.raises(ValueError, match=r"\(m, d\)"):
+        pairwise_sq_dists_hopper(torch.zeros((4, 8, 2), device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["krum", "multikrum"])
+def test_auto_backend_launches_the_gram_kernel_on_cuda(cuda, rule):
+    """One Gram launch per aggregation, plain or defended; the plain
+    backend picks the same workers."""
+    u = _matrices(20, 777, cuda)["gauss"].reshape(20, 7, 111).clone()
+    u[:4] *= -5.0
+    kernel_rule = make_rule(rule, RuleParams(q=4, backend="auto"))
+    plain_rule = make_rule(rule, RuleParams(q=4, backend="xla"))
+    n = pairwise_sq_dists_hopper.launches
+    got = kernel_rule.reduce(u)
+    assert pairwise_sq_dists_hopper.launches == n + 1
+    assert got.shape == (7, 111)
+    torch.testing.assert_close(got, plain_rule.reduce(u), rtol=0, atol=1e-5)
+    assert pairwise_sq_dists_hopper.launches == n + 1
+    for active in (None, torch.ones(20, device=cuda),
+                   torch.tensor([0.0] * 3 + [1.0] * 17, device=cuda)):
+        n = pairwise_sq_dists_hopper.launches
+        agg, scores = kernel_rule.reduce_gated_with_scores(u, active)
+        assert pairwise_sq_dists_hopper.launches == n + 1
+        want_agg, want_scores = plain_rule.reduce_gated_with_scores(u, active)
+        torch.testing.assert_close(agg, want_agg, rtol=0, atol=1e-5)
+        torch.testing.assert_close(scores, want_scores, rtol=0, atol=1e-4)

@@ -183,8 +183,9 @@ def test_distance_ratio_scores_match_reference(m):
 
 
 def test_score_rule_metadata():
-    assert treg.score_rules() == ("phocas", "trmean")
-    assert treg.fused_gate_rules() == ("phocas", "trmean")
+    want = ("geomedian", "krum", "mediam", "multikrum", "phocas", "trmean")
+    assert treg.score_rules() == want
+    assert treg.fused_gate_rules() == want
     assert set(treg.score_rules()) <= set(rreg.score_rules())
     assert not treg.get_rule("mean").emits_scores
     u = torch.tensor(_rng(0).standard_normal((8, 16)).astype(np.float32))

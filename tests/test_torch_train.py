@@ -95,7 +95,7 @@ def _port_spec(**overrides):
     (dict(mesh="8x1"), "item 10"),
     (dict(checkpoint_path="ck.npz"), "item 9"),
     (dict(topology="async_ps"), "item 9"),
-    (dict(robust=RobustConfig(rule="krum", q=1)), "item 8"),
+    (dict(robust=RobustConfig(rule="signvote")), "item 13"),
 ])
 def test_unported_axes_raise(overrides, item):
     spec = _port_spec(**overrides)
