@@ -6,8 +6,9 @@
 Phases, each of which fails the run (non-zero exit) on any wrong result:
 
 1. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (K1-K4, and K5 ``krum_gram.cu``) with nvcc for sm_90a, one nvcc each in
-   parallel, and print the build time and ptxas's register report;
+   (K1-K4, K5 ``krum_gram.cu`` and K6 ``flash_attn.cu``) with nvcc for
+   sm_90a, one nvcc each in parallel, and print the build time and ptxas's
+   register report;
 2. kernels: hold each kernel against its plain PyTorch version on the card at
    the paper models' widths, (20, 118,282) and (20, 2,430,826), on
    adversarial matrices (exact duplicates, rows at +-1e20, NaN/+-inf
@@ -39,7 +40,22 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
 4. trace: for both models, plain and defended, and the CNN multikrum cell,
    the untraced step time and one torch.profiler run giving the device's
    busy share and its top kernels;
-5. report: the card's name and power limit, one JSON line describing every
+5. flash attention: K6 against its plain version on the card (bf16 within
+   3e-2 at granite-8b's prefill (8, 512, 32/8, 128), at (1, 4096, 32/8,
+   128), at a gemma2-like (1, 2048, 8/4, 256, window 1024, cap 50) and at a
+   ragged S = 96; f32 at hd 64 within 2e-3), each call repeated bit for
+   bit; timed beside its bound, its plain version and, at the granite
+   shapes, ``scaled_dot_product_attention`` (which the port never calls);
+6. serving: ``run_experiment`` of ``examples/scenarios/serve_gaussian.json``
+   with granite-8b at full width (36 layers, bf16, random weights from the
+   seed), k = 3 replicas (one corrupted), phocas b = 1, 8 slots, 16 requests
+   of 512-token prompts and 32 new tokens; then the same requests through a
+   single-replica engine on the honest parameters.  Checks: K6 launches =
+   36 x 3 x prefill groups, one K3 launch per decode step and prefill
+   group, every request's robust tokens equal to the single replica's, and
+   exactly the corrupted replica ejected; then a shorter traced serving run
+   for the device's busy share and K6's share of the prefill time;
+7. report: the card's name and power limit, one JSON line describing every
    kernel, and as the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN convolutions throughout.  Without a CUDA
@@ -58,6 +74,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12       # H100 SXM bf16/f16 tensor cores, dense
 SHAPES = ((20, 118_282), (20, 2_430_826))   # MLP and CNN worker matrices
 BS = (0, 2, 6, 8, 9)
 ATOL = 1e-4
@@ -85,6 +102,10 @@ KERNEL_META = {
         "source": "src/repro_torch/kernels/csrc/krum_gram.cu",
         "replaces": "src/repro/kernels/krum/kernel.py:36",
         "shape": SHAPES[1], "b": None, "compares": lambda m: m * (m + 1)},
+    # K6's numbers are at granite-8b's prefill shape (flash_phase).
+    "flash_attn": {
+        "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flashattn/kernel.py:80"},
 }
 TRIM_KERNELS = ("phocas", "trmean", "phocas_counts", "trmean_counts")
 GRAM_MS = (5, 64, 100)          # worker counts beyond the main path's m
@@ -100,11 +121,14 @@ def wrappers() -> dict:
     from repro_torch.kernels.trmean.ref import trmean_counts_ref, trmean_ref
     from repro_torch.kernels.krum.kernel import pairwise_sq_dists_hopper
     from repro_torch.kernels.krum.ref import pairwise_sq_dists_ref
+    from repro_torch.kernels.flashattn.kernel import flash_attention_hopper
+    from repro_torch.kernels.flashattn.ref import flash_attention_ref
     return {"phocas": (phocas_hopper, phocas_ref),
             "trmean": (trmean_hopper, trmean_ref),
             "phocas_counts": (phocas_counts_hopper, phocas_counts_ref),
             "trmean_counts": (trmean_counts_hopper, trmean_counts_ref),
-            "krum_gram": (pairwise_sq_dists_hopper, pairwise_sq_dists_ref)}
+            "krum_gram": (pairwise_sq_dists_hopper, pairwise_sq_dists_ref),
+            "flash_attn": (flash_attention_hopper, flash_attention_ref)}
 
 
 class SmokeError(AssertionError):
@@ -748,6 +772,288 @@ def trace_phase(steps: int = 8, defended_steps: int = 16) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: flash attention against its plain version
+# ---------------------------------------------------------------------------
+
+# (name, B, S, H, Kv, hd, dtype, window, cap); S == T, causal.
+FLASH_CASES = (
+    ("granite_prefill", 8, 512, 32, 8, 128, torch.bfloat16, None, None),
+    ("granite_4k", 1, 4096, 32, 8, 128, torch.bfloat16, None, None),
+    ("gemma2_like", 1, 2048, 8, 4, 256, torch.bfloat16, 1024, 50.0),
+    ("ragged96", 2, 96, 4, 2, 64, torch.bfloat16, None, None),
+    ("granite_prefill_hd64_f32", 8, 512, 32, 8, 64, torch.float32, None,
+     None),
+    ("ragged96_f32", 2, 96, 4, 2, 64, torch.float32, None, None),
+)
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
+
+
+def flash_bound_ms(B, S, H, Kv, hd, dtype, window) -> tuple:
+    """Least time for one call: q, k, v read once and o written once at the
+    card's memory rate, or 4 * hd operations per unmasked (query, key) pair
+    and head at the tensor cores' bf16 rate (f32: the f32 rate, as the
+    kernel runs f32 outside the tensor cores)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * B * S * H * hd + 2 * B * S * Kv * hd) * es
+    w = window or S
+    pairs = sum(min(i + 1, w) for i in range(S))
+    ops = 4 * hd * B * H * pairs
+    rate = BF16_TC_OPS_PER_S if dtype != torch.float32 else F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), nbytes, ops
+
+
+def flash_phase(gen: torch.Generator) -> dict:
+    """K6 against its plain version on every case, a bitwise repeat of
+    each call, then the time of the kernel, the plain version and (granite
+    shapes) SDPA with GQA, the yardstick the port never calls."""
+    import torch.nn.functional as F
+    kernel, ref = wrappers()["flash_attn"]
+    report = {"max_abs_err": 0.0}
+    print("flash attention (causal, S == T; CUDA events, median of 15, L2 "
+          "flushed):")
+    for name, B, S, H, Kv, hd, dtype, window, cap in FLASH_CASES:
+        q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, S, Kv, hd), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, S, Kv, hd), generator=gen, device="cuda").to(dtype)
+        kw = dict(causal=True, window=window, cap=cap)
+        got = kernel(q, k, v, **kw)
+        want = ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()),
+              f"flash {name}: non-finite output")
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= FLASH_TOL[dtype],
+              f"flash {name}: max|kernel - plain| {err} > {FLASH_TOL[dtype]}")
+        check(torch.equal(kernel(q, k, v, **kw), got),
+              f"flash {name}: not bitwise repeatable")
+        if dtype == torch.bfloat16:
+            report["max_abs_err"] = max(report["max_abs_err"], err)
+        bnd, bound_by, nbytes, ops = flash_bound_ms(B, S, H, Kv, hd, dtype,
+                                                    window)
+        k_ms = time_ms(lambda: kernel(q, k, v, **kw))
+        p_ms = time_ms(lambda: ref(q, k, v, **kw), reps=5)
+        line = (f"  {name:25s} ({B}, {S}, {H}/{Kv}, {hd}) {str(dtype)[6:]}"
+                f" window={window} cap={cap}: max|diff| {err:.3e} (limit "
+                f"{FLASH_TOL[dtype]}), repeat bitwise; kernel {k_ms:.4f} ms "
+                f" plain {p_ms:.3f} ms  bound {bnd * 1e3:.2f} us "
+                f"({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} "
+                f"GFLOP)  {bnd / k_ms:.1%} of bound")
+        lib_ms = None
+        if name.startswith("granite") and dtype == torch.bfloat16:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                enable_gqa=True)
+            torch.cuda.synchronize()
+            sd_err = (sd.transpose(1, 2).float() - want.float()).abs().max()
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+            line += (f"  sdpa {lib_ms:.4f} ms (max|sdpa - plain| "
+                     f"{sd_err.item():.3e})")
+        print(line)
+        if name == "granite_prefill":
+            report.update(ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
+                          bound_by=bound_by, library_ms=lib_ms)
+    print(f"flash == plain on {len(FLASH_CASES)} cases (bf16 within 3e-2, "
+          f"f32 within 2e-3), bitwise repeatable: ok")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serving granite-8b at full width
+# ---------------------------------------------------------------------------
+
+SERVE_PARAMS = {"replicas": 3, "max_slots": 8, "max_seq_len": 640,
+                "block_tokens": 16, "num_requests": 16, "arrival_rate": 2.0,
+                "prompt_len": 512, "max_new_tokens": 32}
+
+
+def serve_spec(**overrides):
+    """``examples/scenarios/serve_gaussian.json`` with granite-8b at full
+    width and the serving load of SERVE_PARAMS (phocas b = 1, gaussian
+    corrupting one replica, as the scenario has them)."""
+    import dataclasses
+
+    from repro_torch.experiment import ScenarioSpec
+    spec = ScenarioSpec.load(os.path.join(REPO, "examples", "scenarios",
+                                          "serve_gaussian.json"))
+    return dataclasses.replace(
+        spec, name="chip-smoke-serve-granite-8b",
+        model=dataclasses.replace(spec.model, arch="granite-8b"),
+        topology_params={**SERVE_PARAMS, **overrides})
+
+
+def serve_outcome(tag: str, m: dict) -> None:
+    print(f"  {tag}: completed {m['completed']:.0f}, tokens "
+          f"{m['tokens']:.0f}, {m['tokens_per_sec']:.1f} tokens/s, latency "
+          f"p50 {m['latency_p50_ms']:.1f} ms p99 {m['latency_p99_ms']:.1f} "
+          f"ms, TTFT p50 {m['ttft_p50_ms']:.1f} ms, engine steps "
+          f"{m['engine_steps']:.0f}"
+          + (f", ejected replicas {m['ejected_replicas']:.0f}"
+             if "ejected_replicas" in m else ""))
+
+
+def serve_phase() -> dict:
+    """The robust run through run_experiment, then the same arrivals
+    through a single-replica engine on the honest parameters, whose prefill
+    and decode calls it counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.experiment import run_experiment
+    from repro_torch.experiment.topologies import (drive_arrivals,
+                                                   poisson_arrivals)
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import RobustDecoder, ServeEngine, make_replicas
+    from repro_torch.tree import leaves
+    spec = serve_spec()
+    tp = spec.topology_params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, counts = launch_counts(lambda: run_experiment(spec))
+    wall = time.perf_counter() - t0
+    m = res.final_metrics
+    honest = res.params[0]
+    n_params = sum(x.numel() for x in leaves(honest))
+    cfg = get_arch(spec.model.arch)
+    print(f"serving {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}, "
+          f"{n_params / 1e9:.2f} B parameters): "
+          f"k=3 phocas b=1, replica 2 corrupted, 8 slots, "
+          f"{tp['num_requests']} requests x {tp['max_new_tokens']} new "
+          f"tokens, prompts of {tp['prompt_len']}, arrival rate "
+          f"{tp['arrival_rate']}/step; run {wall:.1f} s incl. init, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB; launches {counts}")
+    serve_outcome("robust", m)
+    active = res.defense_state["active"].tolist()
+    robust = {r.rid: r.generated for r in res.requests}
+    res.params = None                       # frees the corrupted replica
+    check(m["completed"] == tp["num_requests"],
+          f"serve: {m['completed']} of {tp['num_requests']} completed")
+    check(active == [1.0, 1.0, 0.0] and m["ejected_replicas"] == 1,
+          f"serve: active {active}, expected only replica 2 ejected")
+
+    calls = {"prefill": 0, "decode": 0}
+    engine = ServeEngine(build_model(cfg), honest,
+                         max_slots=tp["max_slots"],
+                         max_seq_len=tp["max_seq_len"],
+                         block_tokens=tp["block_tokens"])
+    for name in calls:
+        inner = getattr(engine, f"_{name}_fn")
+
+        def counted(*a, _inner=inner, _name=name):
+            calls[_name] += 1
+            return _inner(*a)
+        setattr(engine, f"_{name}_fn", counted)
+    due, prompts = poisson_arrivals(spec.seed, tp["num_requests"],
+                                    tp["arrival_rate"], tp["prompt_len"],
+                                    engine.model.cfg.vocab_size)
+    t0 = time.perf_counter()
+    _, single_counts = launch_counts(lambda: drive_arrivals(
+        engine, due, prompts, tp["max_new_tokens"], spec.steps,
+        spec.record_every()))
+    s_wall = time.perf_counter() - t0
+    single = {r.rid: r.generated for r in engine.scheduler.completed}
+    s_tokens = sum(len(g) for g in single.values())
+    print(f"  single replica (same arrivals, honest parameters): "
+          f"{s_tokens / s_wall:.1f} tokens/s, {engine.steps_run} engine "
+          f"steps, {calls['prefill']} prefill groups, {calls['decode']} "
+          f"decode steps; launches {single_counts}")
+    check(engine.steps_run == m["engine_steps"],
+          f"serve: single engine ran {engine.steps_run} steps, robust "
+          f"{m['engine_steps']}")
+    groups, decodes = calls["prefill"], calls["decode"]
+    layers = engine.model.cfg.num_layers
+    check(single_counts["flash_attn"] == layers * groups,
+          f"serve single: K6 launches {single_counts['flash_attn']} != "
+          f"{layers} x {groups}")
+    check(counts["flash_attn"] == layers * 3 * groups,
+          f"serve: K6 launches {counts['flash_attn']} != {layers} x 3 x "
+          f"{groups}")
+    check(counts["phocas_counts"] == decodes + groups,
+          f"serve: K3 launches {counts['phocas_counts']} != {decodes} decode "
+          f"steps + {groups} prefill groups")
+    check(0 < counts["phocas"] <= decodes + groups,
+          f"serve: K1 launches {counts['phocas']} (gated steps)")
+    same = sum(robust[rid] == single[rid] for rid in single)
+    check(sorted(robust) == sorted(single) and same == len(single),
+          f"serve: robust tokens equal single-replica tokens for {same} of "
+          f"{len(single)} requests")
+    print(f"  robust tokens == single-replica tokens for all {same} "
+          f"requests; K6 launches {counts['flash_attn']} = {layers} x 3 x "
+          f"{groups} prefill groups; K3 {counts['phocas_counts']} = {decodes} decode "
+          f"steps + {groups} groups; K1 {counts['phocas']} (gated); only "
+          f"replica 2 ejected: ok")
+    # The reference's serve budget compares these two: one all-slots decode
+    # call with k = 3 replicas against a single replica.
+    single_ms = engine.time_decode_step(iters=10)
+    triple = ServeEngine(engine.model, make_replicas(honest, 3),
+                         max_slots=tp["max_slots"],
+                         max_seq_len=tp["max_seq_len"],
+                         block_tokens=tp["block_tokens"],
+                         decoder=RobustDecoder(rule="phocas", k=3, b=1,
+                                               device=engine.device))
+    triple_ms = triple.time_decode_step(iters=10)
+    print(f"  decode step over all {tp['max_slots']} slots (median of 10, "
+          f"host clock, synchronized): single {single_ms:.2f} ms, k=3 "
+          f"phocas {triple_ms:.2f} ms = {triple_ms / single_ms:.2f}x")
+    del engine, triple, honest
+    torch.cuda.empty_cache()
+    return {"flash_attn": counts["flash_attn"]}
+
+
+def serve_trace_phase() -> None:
+    """One shorter robust serving run (8 requests x 8 new tokens) with the
+    engine's spans on, under torch.profiler: the device's busy share of the
+    run, its top kernels, and K6's share of the device time inside the
+    prefill spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.experiment import run_experiment
+    from repro_torch.obs import ObsConfig
+    spec = serve_spec(num_requests=8, max_new_tokens=8)
+    obs = ObsConfig(enabled=True, trace=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = run_experiment(spec, obs=obs)
+    traced = res.wall_time
+    events = prof.key_averages()
+    # The spans appear on the device timeline too, as ranges around the
+    # kernels they launched: kernels are the device events that are not.
+    span_names = ("prefill", "decode")
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in span_names]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    check(busy > 0, "serve trace: the profiler saw no device time")
+    serve_outcome("traced robust run (8 requests x 8 new tokens)",
+                  res.final_metrics)
+    launches = sum(e.count for e in kernels)
+    steps = res.final_metrics["engine_steps"]
+    print(f"  serve trace: serving loop {traced * 1e3:.1f} ms (host clock, "
+          f"spans synchronized), kernels busy {busy * 1e3:.1f} ms = "
+          f"{busy / traced:.1%} of it; {launches} kernel launches in "
+          f"{steps:.0f} engine steps")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.self_device_time_total / busy / 1e6:6.1%}  "
+              f"n={e.count:5d}  {e.key[:100]}")
+    flash = sum(e.self_device_time_total for e in kernels
+                if "flash_fwd" in e.key) / 1e6
+    spans = {e.key: e.device_time_total / 1e6 for e in events
+             if e.key in span_names}
+    pre = spans.get("prefill", 0.0)
+    print(f"  device time in spans (first to last kernel, idle gaps "
+          f"included): prefill {pre * 1e3:.1f} ms, decode "
+          f"{spans.get('decode', 0.0) * 1e3:.1f} ms; K6 {flash * 1e3:.2f} ms"
+          + (f" = {flash / pre:.1%} of the prefill's device time"
+             if pre > 0 else " (the profiler gave the prefill spans no "
+                             "device time)"))
+    check(flash > 0, "serve trace: no K6 time in the trace")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -784,6 +1090,9 @@ def main() -> int:
     launches = train_phase()
     launches.update(vector_phase())
     trace_phase()
+    report["flash_attn"] = flash_phase(gen)
+    launches.update(serve_phase())
+    serve_trace_phase()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,0 +1,17 @@
+"""granite-8b [dense] — llama-arch code model. [arXiv:2405.04324]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-8b",
+    family="dense",
+    num_layers=36,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=14336,
+    vocab_size=49152,
+    window_pattern=(),            # full attention -> long_500k skipped
+    rope_theta=10_000.0,
+    citation="arXiv:2405.04324",
+)

@@ -26,6 +26,26 @@ def params_to_numpy(tree):
     return tree_util.map(lambda x: x.detach().cpu().numpy(), tree)
 
 
+def lm_params_from_numpy(tree, device=None, dtype=None):
+    """An LM parameter tree (nested dict of arrays, the reference's
+    ``lm.init`` layout) -> the same keys and shapes as tensors on
+    ``device``, in ``dtype`` (default: each array's own float dtype; pass
+    ``torch.bfloat16`` for the reference's bf16 leaves, which numpy holds as
+    float32 or ml_dtypes)."""
+    def one(x):
+        arr = np.asarray(x)
+        if arr.dtype.kind != "f" or arr.dtype.itemsize < 4:
+            arr = arr.astype(np.float32)
+        t = torch.tensor(arr, device=device)
+        return t if dtype is None else t.to(dtype)
+    return tree_util.map(one, tree)
+
+
+def lm_params_to_numpy(tree):
+    """An LM parameter tree of tensors -> nested dict of f32 numpy arrays."""
+    return tree_util.map(lambda x: x.detach().float().cpu().numpy(), tree)
+
+
 def defense_state_from_numpy(state: dict, device=None) -> dict:
     """Reputation state (dict of arrays) -> dict of tensors on ``device``.
 

@@ -47,6 +47,10 @@ class Plan:
     seed: int
     record_every: int                 # history/eval cadence
     device: torch.device
+    topology_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # Observability switches (repro_torch.obs.ObsConfig | None): a property
+    # of the invocation, not of the spec.
+    obs: Any = None
 
 
 @dataclasses.dataclass
@@ -64,6 +68,9 @@ class ExperimentResult:
     final_metrics: Dict[str, Any] = dataclasses.field(default_factory=dict)
     robust_cfg: Optional[RobustConfig] = None
     wall_time: float = 0.0
+    # The completed requests of a ``serve`` run, with their tokens (the
+    # reference keeps them inside its engine).
+    requests: List[Any] = dataclasses.field(default_factory=list)
 
     @property
     def final_loss(self) -> Optional[float]:
@@ -80,7 +87,7 @@ class ExperimentResult:
         return None
 
 
-def resolve(spec: ScenarioSpec, *, device=None) -> Plan:
+def resolve(spec: ScenarioSpec, *, device=None, obs: Any = None) -> Plan:
     """Validate ``spec`` and build the runtime bundle on ``device``."""
     spec.validate()
     dev = resolve_device(device)
@@ -114,25 +121,35 @@ def resolve(spec: ScenarioSpec, *, device=None) -> Plan:
         seed=spec.seed,
         record_every=spec.record_every(),
         device=dev,
+        topology_params=dict(spec.topology_params),
+        obs=obs,
     )
 
 
-def run_experiment(spec: ScenarioSpec, *, device=None,
+def run_experiment(spec: ScenarioSpec, *, device=None, obs: Any = None,
                    resume: Optional[str] = None) -> ExperimentResult:
-    """THE training entry point: validate + resolve ``spec`` on ``device``
-    (default ``cuda``), dispatch to its topology plugin, return the
-    :class:`ExperimentResult`."""
+    """THE entry point: validate + resolve ``spec`` on ``device`` (default
+    ``cuda``), dispatch to its topology plugin, return the
+    :class:`ExperimentResult`.  ``obs`` (a ``repro_torch.obs.ObsConfig`` or
+    None) arms the metrics registry and span tracer for this run."""
     if resume:
         raise not_ported("resume from a checkpoint", "item 9")
-    plan = resolve(spec, device=device)
+    plan = resolve(spec, device=device, obs=obs)
     return make_topology(plan.topology).run(plan)
 
 
 def _build_model_and_data(spec: ScenarioSpec, device: torch.device):
-    """(model, batch_fn, eval_fn) for the spec's model × data cell."""
+    """(model, batch_fn, eval_fn) for the spec's model × data cell.  An arch
+    model has no batch function yet: the token stream comes with LM
+    training (ROADMAP queue 1 item 11), and the serve topology makes its
+    own prompts."""
     from repro_torch.data.pipeline import ClassificationData
 
     m, ds = spec.model, spec.data
+    if m.kind == "arch":
+        from repro_torch.configs import get_arch
+        from repro_torch.models.registry import build_model
+        return build_model(get_arch(m.arch), remat=m.remat), None, None
     global_batch = spec.num_workers * ds.batch_per_worker
     data = ClassificationData(num_classes=ds.num_classes, dim=ds.dim,
                               noise=ds.noise, seed=ds.seed, device=device)

@@ -7,7 +7,8 @@ does not run yet parse as plain data and are refused by
 :meth:`ScenarioSpec.validate` with ``NotImplementedError`` naming the ROADMAP
 queue item that brings them: ``faults`` (a tuple of JSON objects),
 ``compression``, ``mesh``, ``checkpoint_path``, the ``async_ps``/
-``streaming``/``serve`` topologies and ``model.kind == "arch"``.
+``streaming`` topologies and LM training (an arch model on ``sync_ps``).
+An arch model runs on the ``serve`` topology.
 """
 from __future__ import annotations
 
@@ -151,12 +152,25 @@ class ScenarioSpec:
             raise SpecError("data.batch_per_worker must be >= 1, got "
                             f"{self.data.batch_per_worker}")
 
-        if self.model.kind == "arch":
-            raise not_ported("model.kind='arch' (the LM zoo)", "item 11")
-        if self.model.kind not in ("mlp", "cnn"):
+        if self.model.kind not in ("mlp", "cnn", "arch"):
             raise SpecError(f"model.kind {self.model.kind!r} unknown; "
                             "valid: mlp | cnn | arch")
-        if self.data.kind != "classification":
+        if self.data.kind not in ("classification", "tokens"):
+            raise SpecError(f"data.kind {self.data.kind!r} unknown; "
+                            "valid: classification | tokens")
+        if self.model.kind == "arch":
+            if not self.model.arch:
+                raise SpecError("model.kind='arch' needs model.arch "
+                                "(see repro_torch.configs.list_archs())")
+            if self.data.kind != "tokens":
+                raise SpecError("arch models train on data.kind='tokens', "
+                                f"got {self.data.kind!r}")
+            from repro_torch.configs import get_arch
+            try:
+                get_arch(self.model.arch)
+            except KeyError as e:
+                raise SpecError(str(e)) from None
+        elif self.data.kind != "classification":
             raise SpecError(f"model.kind={self.model.kind!r} trains on "
                             "data.kind='classification', got "
                             f"{self.data.kind!r}")

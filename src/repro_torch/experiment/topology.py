@@ -3,8 +3,8 @@
 Port of ``repro/experiment/topology.py``.  A topology is the training-loop
 shape; subclass :class:`Topology`, implement ``run``, decorate with
 :func:`register_topology`.  This package has the paper's synchronous
-parameter server only; the other reference topologies raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+parameter server and the serving topology; the other reference topologies
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -15,7 +15,6 @@ from repro_torch.experiment.spec import ScenarioSpec, SpecError
 UNPORTED_TOPOLOGIES = {
     "async_ps": "item 9",
     "streaming": "item 9",
-    "serve": "item 12",
 }
 
 
@@ -36,6 +35,7 @@ class Topology:
             raise SpecError(
                 f"unknown topology_params {unknown} for topology "
                 f"{self.name!r}; valid keys: {sorted(self.param_names)}")
+
 
     def run(self, plan, init_state=None):
         raise NotImplementedError

@@ -15,7 +15,13 @@ PyTorch's current stream and raises on a non-zero code.  The Krum Gram kernel
 has its own signature, ``int repro_krum_gram(const void* u, void* out, void*
 scratch, int m, long long d, int nblocks, int dtype, void* stream)``: no b, an
 (m, m) output, and a scratch buffer of per-block partial sums; it takes any m
-(:func:`check_gram_matrix`, :func:`launch_gram`).  There is no fallback: a
+(:func:`check_gram_matrix`, :func:`launch_gram`).  The flash-attention kernel
+takes ``int repro_flash_attn(const void* q, const void* k, const void* v,
+void* o, int B, int S, int T, int H, int Kv, int hd, long long q_strides[3],
+long long k_strides[3], long long v_strides[3], float scale, int causal, int
+window, float cap, int dtype, void* stream)``, the strides passed as nine
+scalars in elements over (batch, position, head); ``window`` and ``cap`` are
+0 when unset (:func:`launch_flash`).  There is no fallback: a
 missing ``nvcc``, a failed build or a failed launch raises.
 
 Nothing here runs at import time; the CPU tests import this module freely.
@@ -34,7 +40,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("trmean", "phocas", "trmean_counts", "phocas_counts", "krum_gram")
+SOURCES = ("trmean", "phocas", "trmean_counts", "phocas_counts", "krum_gram",
+           "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +58,10 @@ _COUNTS_ARGTYPES = _ARGTYPES[:2] + [ctypes.c_void_p] + _ARGTYPES[2:]
 _GRAM_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p]
+_FLASH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _has_counts(name: str) -> bool:
@@ -60,6 +71,8 @@ def _has_counts(name: str) -> bool:
 def _argtypes(name: str) -> list:
     if name == "krum_gram":
         return _GRAM_ARGTYPES
+    if name == "flash_attn":
+        return _FLASH_ARGTYPES
     return _COUNTS_ARGTYPES if _has_counts(name) else _ARGTYPES
 
 
@@ -193,6 +206,29 @@ def launch_gram(u: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"krum_gram kernel launch failed with CUDA error "
                            f"{rc} (m={m}, d={d}, nblocks={nblocks}, "
                            f"dtype={u.dtype})")
+    return out
+
+
+def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, window, cap, scale: float) -> torch.Tensor:
+    """Launch ``repro_flash_attn`` on CUDA q (B,S,H,hd), k/v (B,T,Kv,hd)
+    (checked by ``flashattn.kernel``); returns a contiguous (B,S,H,hd)
+    output in q's dtype."""
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    fn = KERNELS.library("flash_attn").repro_flash_attn
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, T, H, Kv, hd, *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], float(scale), int(bool(causal)),
+                int(window or 0), float(cap or 0.0), DTYPE_CODES[q.dtype],
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attn kernel launch failed with CUDA error "
+                           f"{rc} (q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                           f"dtype={q.dtype})")
     return out
 
 

@@ -1,5 +1,5 @@
-"""Public entry points of the kernels, the rules' only way to them (the
-reference's ``kernels/{trmean,phocas,krum}/ops.py``)."""
+"""Public entry points of the kernels, the rules' and the models' only way to
+them (the reference's ``kernels/{trmean,phocas,krum,flashattn}/ops.py``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,6 +7,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.aggregators import krum_scores_from_d2, lowest_scores
+from repro_torch.kernels.flashattn.kernel import flash_attention_hopper
 from repro_torch.kernels.krum.kernel import pairwise_sq_dists_hopper
 
 from repro_torch.kernels.phocas.kernel import (phocas_counts_hopper,
@@ -80,3 +81,14 @@ def multikrum(u: torch.Tensor, q: int, k: Optional[int] = None
         k = u.shape[0] - q - 2
     scores = krum_scores_from_d2(pairwise_sq_dists(u), q)
     return u.float()[lowest_scores(scores, k)].mean(dim=0)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    cap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,S,H,hd), k/v: (B,T,Kv,hd) -> (B,S,H,hd) in q's dtype, through
+    the flash-attention kernel.  Unlike the reference's ``ops.py`` nothing is
+    padded: the kernel masks ragged S and T itself."""
+    return flash_attention_hopper(q, k, v, causal=causal, window=window,
+                                  cap=cap, scale=scale)

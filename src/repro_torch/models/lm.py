@@ -1,0 +1,120 @@
+"""Decoder-only language model, the dense-GQA subset of
+``repro/models/lm.py``: training forward and loss, the ring-cache decode
+step, and the paged serving path.
+
+``init(gen, cfg)`` draws the parameters from a ``torch.Generator`` on the
+device they go to; the VLM projector raises ``NotImplementedError`` (ROADMAP
+queue 1 item 11).  Caches are written in place (``models/common.py``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models import common as C
+from repro_torch.models import stack as ST
+
+
+def _refuse_vlm(cfg) -> None:
+    if cfg.num_patches:
+        from repro_torch.experiment.spec import not_ported
+        raise not_ported(f"the VLM projector (arch {cfg.name!r})", "item 11")
+
+
+def init(gen: torch.Generator, cfg) -> dict:
+    _refuse_vlm(cfg)
+    dt = C.dtype_of(cfg)
+    params = {
+        "embed": C.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
+        "stack": ST.init_stack(gen, cfg),
+        "final_norm": C.init_norm(cfg.d_model, dt, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = C.init_linear(gen, cfg.d_model, cfg.vocab_size,
+                                          dt)
+    return params
+
+
+def _embed_tokens(params, cfg, tokens) -> torch.Tensor:
+    return C.embed(params["embed"], tokens) * math.sqrt(cfg.d_model)
+
+
+def _logits(params, cfg, x) -> torch.Tensor:
+    x = C.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["table"].T
+    else:
+        logits = C.linear(params["lm_head"], x)
+    return C.softcap(logits.float(), cfg.final_logit_softcap)
+
+
+def forward(params, cfg, batch, *, remat: str = "none"):
+    """Training/prefill forward: batch['tokens'] (B,S) -> (logits (B,S,V),
+    aux)."""
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, _, aux = ST.stack_fwd(params["stack"], cfg, x, positions=positions,
+                             remat=remat)
+    return _logits(params, cfg, x), aux
+
+
+def loss_fn(params, cfg, batch, *, remat: str = "none") -> torch.Tensor:
+    """Next-token cross-entropy (+ MoE aux, zero here)."""
+    logits, aux = forward(params, cfg, batch, remat=remat)
+    labels = batch["labels"].long()                  # (B,S) next tokens
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    return nll.mean() + aux
+
+
+def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
+    return ST.init_stack_cache(cfg, batch_size, max_len, device)
+
+
+def decode_step(params, cfg, cache, tokens, pos):
+    """One decode step (tokens (B,1), pos an int) or a batched prefill
+    (tokens (B,S0), pos = arange(S0): one pass writes the whole prompt into
+    the cache).  Returns (logits (B,S,V), cache)."""
+    positions = torch.as_tensor(pos, device=tokens.device).long().reshape(-1)
+    x = _embed_tokens(params, cfg, tokens)
+    x, cache, _ = ST.stack_fwd(params["stack"], cfg, x, positions=positions,
+                               cache=cache)
+    return _logits(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged serving path (DESIGN.md §11)
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(cfg, num_blocks: int, block_tokens: int,
+                     device=None) -> dict:
+    """Block-pool KV cache; see stack.init_stack_paged_cache (raises
+    NotImplementedError for architectures the paged path does not cover)."""
+    return ST.init_stack_paged_cache(cfg, num_blocks, block_tokens, device)
+
+
+def decode_step_paged(params, cfg, cache, tokens, positions, block_tables):
+    """One paged decode step with per-request positions.  tokens (B,1),
+    positions (B,), block_tables (B, max_blocks) integer tensors.
+    Returns (logits (B,1,V), cache)."""
+    x = _embed_tokens(params, cfg, tokens)
+    x, cache = ST.stack_fwd_paged(params["stack"], cfg, x,
+                                  positions=positions.long(),
+                                  block_tables=block_tables.long(),
+                                  cache=cache)
+    return _logits(params, cfg, x), cache
+
+
+def prefill_paged(params, cfg, cache, tokens, block_tables):
+    """Batched paged prefill: one forward pass over whole prompts (B,S0)
+    aligned at position 0, k/v written into the block pool.
+    Returns (logits (B,S0,V), cache)."""
+    x = _embed_tokens(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, cache = ST.stack_fwd_paged(params["stack"], cfg, x,
+                                  positions=positions,
+                                  block_tables=block_tables.long(),
+                                  cache=cache, prefill=True)
+    return _logits(params, cfg, x), cache

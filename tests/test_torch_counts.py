@@ -167,9 +167,18 @@ def test_plain_cpu_path_never_counts_as_a_launch():
 
 def test_every_source_has_its_entry_point():
     """Each CUDA source defines the extern "C" entry point build.py binds,
-    with the counts pointer exactly where the counts signature has it."""
+    with the counts pointer exactly where the counts signature has it; the
+    flash-attention kernel's (q, k, v, o, ...) entry point has as many
+    parameters as its ctypes binding."""
     for name in build.SOURCES:
         text = (build.CSRC / f"{name}.cu").read_text()
+        if name == "flash_attn":
+            head = ('extern "C" int repro_flash_attn(const void* q, '
+                    'const void* k, const void* v,')
+            assert head in text, name
+            params = text.split(head)[1].split(")")[0].count(",") + 4
+            assert params == len(build._argtypes(name)), name
+            continue
         head = f'extern "C" int repro_{name}(const void* u, void* out, '
         assert head in text, name
         has_counts = "void* counts" in text.split(head)[1].split(")")[0]

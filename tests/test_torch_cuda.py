@@ -9,13 +9,18 @@ the counts kernels' drop counts equal their plain versions' as integers.
 The Krum Gram kernel sums its products in another order than the plain
 version's ``torch.mm`` (TF32 off), so it is held at the reference's bound for
 the Gram form, atol 1e-6 * max + 1e-3, with NaN and inf at the same places,
-and the exceptions ``chip_smoke.py::compare_gram`` states.
+and the exceptions ``chip_smoke.py::compare_gram`` states.  The
+flash-attention kernel is held to its plain version at the reference's
+tolerances (``tests/test_flashattn.py``): 2e-3 in f32, 3e-2 in bf16 and f16,
+and must repeat bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.registry import RuleParams, make_rule
+from repro_torch.kernels.flashattn.kernel import flash_attention_hopper
+from repro_torch.kernels.flashattn.ref import flash_attention_ref
 from repro_torch.kernels.krum.kernel import pairwise_sq_dists_hopper
 from repro_torch.kernels.krum.ref import pairwise_sq_dists_ref
 from repro_torch.kernels.phocas.kernel import (phocas_counts_hopper,
@@ -225,3 +230,110 @@ def test_auto_backend_launches_the_gram_kernel_on_cuda(cuda, rule):
         want_agg, want_scores = plain_rule.reduce_gated_with_scores(u, active)
         torch.testing.assert_close(agg, want_agg, rtol=0, atol=1e-5)
         torch.testing.assert_close(scores, want_scores, rtol=0, atol=1e-4)
+
+
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+
+
+def _qkv(B, S, T, H, Kv, hd, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        x = rng.standard_normal(shape).astype(np.float32)
+        return torch.tensor(x, device=device).to(dtype)
+
+    return draw(B, S, H, hd), draw(B, T, Kv, hd), draw(B, T, Kv, hd)
+
+
+def _assert_flash(q, k, v, **kw):
+    before = flash_attention_hopper.launches
+    got = flash_attention_hopper(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_hopper.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= FLASH_TOL[q.dtype], err
+    again = flash_attention_hopper(q, k, v, **kw)
+    assert torch.equal(again, got)                 # bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("window,cap", [(None, None), (32, None),
+                                        (None, 50.0), (100, 30.0)])
+def test_flash_kernel_equals_plain_version(cuda, dtype, hd, window, cap):
+    q, k, v = _qkv(2, 200, 200, 4, 2, hd, dtype, cuda)
+    _assert_flash(q, k, v, window=window, cap=cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,Kv,causal", [
+    (1, 96, 96, 2, 1, True),      # ragged: 96 = 64 + 32
+    (2, 1, 1, 4, 4, True),
+    (1, 33, 130, 8, 2, True),     # S < T
+    (1, 130, 70, 4, 2, True),     # S > T
+    (2, 77, 150, 4, 1, False),
+])
+def test_flash_kernel_ragged_and_noncausal(cuda, B, S, T, H, Kv, causal):
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(B, S, T, H, Kv, 64, dtype, cuda, seed=S)
+        _assert_flash(q, k, v, causal=causal)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_takes_strided_views(cuda):
+    """Heads sliced out of a wider tensor: a unit last stride and 16-byte
+    rows are all the kernel needs."""
+    q, k, v = _qkv(2, 80, 80, 6, 3, 64, torch.bfloat16, cuda)
+    _assert_flash(q[:, :, 1:5], k[:, :, 1:3], v[:, :, :2])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = _qkv(1, 64, 64, 4, 2, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_hopper(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="H % Kv"):
+        flash_attention_hopper(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="takes"):
+        flash_attention_hopper(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="dtypes differ"):
+        flash_attention_hopper(q, k.half(), v)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention_hopper(q, k, v, window=0)
+    with pytest.raises(ValueError, match="unit stride"):
+        flash_attention_hopper(q.transpose(2, 3).contiguous().transpose(2, 3),
+                               k, v)
+    flat = torch.zeros(q.numel() + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_hopper(flat[1:].view(q.shape), k, v)
+    with pytest.raises(ValueError, match="is on"):
+        flash_attention_hopper(q, k.cpu(), v)
+
+
+@pytest.mark.cuda
+def test_paged_prefill_launches_the_flash_kernel_per_layer(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    cfg = get_arch("granite-8b-reduced")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    pool = model.init_paged_cache(9, 16, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda)
+    tables = torch.tensor([[1, 2, 3, 0], [4, 5, 6, 0]], device=cuda)
+    before = flash_attention_hopper.launches
+    logits, _ = model.prefill_paged(params, pool, tokens, tables)
+    assert flash_attention_hopper.launches == before + cfg.num_layers
+    from repro_torch import tree as tree_util
+    cpu = tree_util.map(lambda x: x.cpu(), params)
+    want, _ = model.prefill_paged(cpu, model.init_paged_cache(9, 16),
+                                  tokens.cpu(), tables.cpu())
+    assert torch.allclose(logits.cpu(), want, atol=1e-3, rtol=1e-3)
+    before = flash_attention_hopper.launches
+    model.decode_step_paged(params, pool, tokens[:, :1],
+                            torch.tensor([40, 40], device=cuda), tables)
+    assert flash_attention_hopper.launches == before     # Sq = 1: no K6

@@ -59,6 +59,26 @@ def test_no_reference_or_jax_imports(path):
                 f"{path}:{node.lineno} imports {mod}")
 
 
+@pytest.mark.parametrize("path", [p for p in _port_files()
+                                  if not p.endswith("chip_smoke.py")],
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_library_attention_or_compile(path):
+    """The port's attention is its own kernel (K6) or its plain version:
+    no PyTorch fused attention, no torch.compile, no cuDNN call.
+    (chip_smoke.py times SDPA as a yardstick only.)"""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Attribute):
+            continue
+        on_torch = (isinstance(node.value, ast.Name)
+                    and node.value.id == "torch")
+        assert node.attr not in ("scaled_dot_product_attention", "cudnn"), (
+            f"{path}:{node.lineno} uses .{node.attr}")
+        assert not (on_torch and node.attr == "compile"), (
+            f"{path}:{node.lineno} uses torch.compile")
+
+
 def test_run_experiment_needs_a_gpu_by_default(monkeypatch):
     from repro_torch.experiment import ScenarioSpec, run_experiment
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
