@@ -15,6 +15,9 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
    entries, bitflip-corrupted rows): K1-K4 for b in {0, 2, 6, 8, 9} with
    max|diff| <= 1e-4 (phocas mismatches allowed only at a boundary distance
    tie) and, for the counts kernels K3/K4, drop counts equal as integers;
+   K4 also on a tie-heavy matrix (values in {-1, 0, 1}, a constant row
+   block, a row of alternating +-inf) for every b, counts equal as
+   integers and the aggregate bit for bit;
    K5 also on Gaussian rows at scale 10 and at m in {5, 64, 100}, with NaN
    and inf at the same places, finite entries within 1e-6 * max + 1e-3,
    symmetric and bitwise repeatable output.  Time each kernel and its plain
@@ -42,10 +45,12 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
    busy share and its top kernels;
 5. flash attention: K6 against its plain version on the card (bf16 within
    3e-2 at granite-8b's prefill (8, 512, 32/8, 128), at (1, 4096, 32/8,
-   128), at a gemma2-like (1, 2048, 8/4, 256, window 1024, cap 50) and at a
-   ragged S = 96; f32 at hd 64 within 2e-3), each call repeated bit for
-   bit; timed beside its bound, its plain version and, at the granite
-   shapes, ``scaled_dot_product_attention`` (which the port never calls);
+   128), at a tile edge (2, 129, 32/8, 128, window 64), at a gemma2-like
+   (1, 2048, 8/4, 256, window 1024, cap 50) and at a ragged S = 96; f32 at
+   hd 64 within 2e-3), each call repeated bit for bit; timed beside its
+   bound, its plain version and, at the granite shapes,
+   ``scaled_dot_product_attention`` (which the port never calls) with the
+   ratio K6 / SDPA;
 6. serving: ``run_experiment`` of ``examples/scenarios/serve_gaussian.json``
    with granite-8b at full width (36 layers, bf16, random weights from the
    seed), k = 3 replicas (one corrupted), phocas b = 1, 8 slots, 16 requests
@@ -80,7 +85,8 @@ BS = (0, 2, 6, 8, 9)
 ATOL = 1e-4
 # Per kernel: its source, the TPU kernel it replaces, the main-path shape and
 # b its numbers are reported at, and the compares it does per coordinate for
-# m workers (the counts kernels rank every worker against every other).
+# m workers (K3 ranks every worker against every other; K4 counts the keys
+# below its two thresholds and walks the workers once, about 8m).
 KERNEL_META = {
     "phocas": {"source": "src/repro_torch/kernels/csrc/phocas.cu",
                "replaces": "src/repro/kernels/phocas/kernel.py:106",
@@ -95,7 +101,7 @@ KERNEL_META = {
     "trmean_counts": {
         "source": "src/repro_torch/kernels/csrc/trmean_counts.cu",
         "replaces": "src/repro/kernels/trmean/kernel.py:130",
-        "shape": SHAPES[1], "b": 6, "compares": lambda m: m * (m - 1)},
+        "shape": SHAPES[1], "b": 6, "compares": lambda m: 8 * m},
     # K5 does m(m+1)/2 multiply-adds (two operations each) per coordinate
     # and writes an (m, m) f32 matrix; its numbers are at the CNN width.
     "krum_gram": {
@@ -239,6 +245,35 @@ def compare_kernel(kname: str, u: torch.Tensor, b: int, got,
     return compare(kname, u, b, got[0], want[0])
 
 
+def tie_matrix(m: int, d: int, gen: torch.Generator) -> torch.Tensor:
+    """Tie-heavy (m, d) f32 on cuda: values in {-1, 0, 1}, a constant row
+    block and a row of alternating +-inf."""
+    u = torch.randint(-1, 2, (m, d), generator=gen, device=gen.device).float()
+    u[m // 3:m // 3 + max(1, m // 4)] = 0.0
+    u[m - 1, ::2] = float("inf")
+    u[m - 1, 1::2] = float("-inf")
+    return u
+
+
+def tie_phase(gen: torch.Generator) -> None:
+    """K4 against its plain version on the tie-heavy matrix: counts equal as
+    integers and the aggregate equal bit for bit, for every b."""
+    kernel, ref = wrappers()["trmean_counts"]
+    for m, d in SHAPES:
+        u = tie_matrix(m, d, gen)
+        for b in BS:
+            agg, counts = kernel(u, b)
+            want_agg, want_counts = ref(u, b)
+            torch.cuda.synchronize()
+            check(torch.equal(counts, want_counts),
+                  f"trmean_counts ties ({m}, {d}) b={b}: counts "
+                  f"{counts.tolist()} != plain {want_counts.tolist()}")
+            check(torch.equal(agg, want_agg),
+                  f"trmean_counts ties ({m}, {d}) b={b}: aggregate differs")
+    print(f"trmean_counts == plain on the tie-heavy matrix at {list(SHAPES)} "
+          f"for b in {list(BS)}: counts and aggregate equal bit for bit: ok")
+
+
 def kernel_phase(gen: torch.Generator) -> dict:
     pairs = {k: v for k, v in wrappers().items() if k in TRIM_KERNELS}
     report = {k: {"max_abs_err": 0.0} for k in pairs}
@@ -265,11 +300,13 @@ def kernel_phase(gen: torch.Generator) -> dict:
         print(f"kernels == plain at ({m}, {d}) for b in {list(BS)} on "
               f"gauss/duplicates/pm1e20/nan_inf/bitflip, f32 (+bf16/f16 at "
               f"b=8), counts equal: ok")
+    tie_phase(gen)
     for kname in pairs:
         print(f"  {kname}: max|kernel - plain| = "
               f"{report[kname]['max_abs_err']:.3e} (limit {ATOL})")
 
     print("timing (median of 15, L2 flushed before each launch):")
+    times = {}
     for m, d in SHAPES:
         u = adversarial_matrices(m, d, gen)[0][1]
         for b in (2, 6, 8):
@@ -285,6 +322,10 @@ def kernel_phase(gen: torch.Generator) -> dict:
                 if (m, d) == meta["shape"] and b == meta["b"]:
                     report[kname].update(ms=k_ms, plain_ms=p_ms,
                                          bound_ms=bnd, bound_by=bound_by)
+                times[kname, d, b] = k_ms
+    for m, d in SHAPES:
+        print(f"  K4 / K2 at ({m}, {d:,}), b=6: "
+              f"{times['trmean_counts', d, 6] / times['trmean', d, 6]:.2f}")
     return report
 
 
@@ -779,6 +820,7 @@ def trace_phase(steps: int = 8, defended_steps: int = 16) -> None:
 FLASH_CASES = (
     ("granite_prefill", 8, 512, 32, 8, 128, torch.bfloat16, None, None),
     ("granite_4k", 1, 4096, 32, 8, 128, torch.bfloat16, None, None),
+    ("tile_edge", 2, 129, 32, 8, 128, torch.bfloat16, 64, None),
     ("gemma2_like", 1, 2048, 8, 4, 256, torch.bfloat16, 1024, 50.0),
     ("ragged96", 2, 96, 4, 2, 64, torch.bfloat16, None, None),
     ("granite_prefill_hd64_f32", 8, 512, 32, 8, 64, torch.float32, None,
@@ -851,7 +893,7 @@ def flash_phase(gen: torch.Generator) -> dict:
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
             line += (f"  sdpa {lib_ms:.4f} ms (max|sdpa - plain| "
-                     f"{sd_err.item():.3e})")
+                     f"{sd_err.item():.3e}); K6 / SDPA {k_ms / lib_ms:.2f}")
         print(line)
         if name == "granite_prefill":
             report.update(ms=k_ms, plain_ms=p_ms, bound_ms=bnd,

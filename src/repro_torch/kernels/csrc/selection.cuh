@@ -185,7 +185,7 @@ __device__ __forceinline__ float nearest_window_mean(const float (&v)[MP],
   return divide(window_sum<MP>(v, best_w, k), k);
 }
 
-// Per-worker drop counts of one block (K3, K4).  For each real worker
+// Per-worker drop counts of one block (K3).  For each real worker
 // i < m, its stable-argsort rank among the m real keys of the column, by the
 // pairwise predicate of core/selection.py::stable_ranks: workers j < m with
 // key[j] < key[i], or key[j] == key[i] and j < i.  The padding registers
@@ -212,6 +212,60 @@ __device__ __forceinline__ void tally_drops(const float (&key)[MP], int m,
     }
     const unsigned votes =
         __ballot_sync(0xffffffffu, live && (r < lo || r >= hi));
+    if (lane == 0 && votes != 0u) atomicAdd(&tally[i], __popc(votes));
+  }
+}
+
+// Per-worker trmean drop counts of one block (K4) in O(m) per coordinate,
+// the same drops as tally_drops(key, m, live, b, m - b, tally) gives.  With
+// the stable rank r_i = #{j: key_j < key_i} + #{j < i: key_j == key_i} and
+// the sorted column's thresholds lo = sorted[b-1] and hi = sorted[m-b],
+// worker i is dropped
+// - at the bottom (r_i < b) iff key_i < lo, or key_i == lo and
+//   #{j: key_j < lo} + #{j < i: key_j == lo} < b;
+// - at the top (r_i >= m - b) iff key_i > hi, or key_i == hi and
+//   #{j: key_j < hi} + #{j < i: key_j == hi} >= m - b.
+// So two counts over the m real keys and one walk in index order, with
+// running counts of the keys equal to lo and to hi, replace the m(m-1)
+// pairwise compares.  Keys are never NaN (load_column maps NaN to +inf) and
+// +-inf compare exactly; the sorted column's first m registers are the m
+// real keys in order, since the +inf padding sorts after or ties with them.
+// b = 0 drops nothing.  The ballot, tally and early exits are tally_drops's.
+template <int MP>
+__device__ __forceinline__ void tally_trim_drops(const float (&key)[MP],
+                                                 const float (&sorted)[MP],
+                                                 int m, bool live, int b,
+                                                 int* tally) {
+  if (b == 0) return;
+  const int lane = threadIdx.x & 31;
+  float lo = 0.0f;
+  float hi = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MP; ++i) {
+    if (i == b - 1) lo = sorted[i];
+    if (i == m - b) hi = sorted[i];
+  }
+  int below_lo = 0;
+  int below_hi = 0;
+#pragma unroll
+  for (int j = 0; j < MP; ++j) {
+    if (j >= m) break;
+    below_lo += key[j] < lo ? 1 : 0;
+    below_hi += key[j] < hi ? 1 : 0;
+  }
+  int seen_lo = 0;  // keys equal to lo among workers 0 .. i-1
+  int seen_hi = 0;
+#pragma unroll
+  for (int i = 0; i < MP; ++i) {
+    if (i >= m) break;
+    const float x = key[i];
+    const bool at_lo = x == lo;
+    const bool at_hi = x == hi;
+    const bool drop = x < lo || (at_lo && below_lo + seen_lo < b) ||
+                      x > hi || (at_hi && below_hi + seen_hi >= m - b);
+    seen_lo += at_lo ? 1 : 0;
+    seen_hi += at_hi ? 1 : 0;
+    const unsigned votes = __ballot_sync(0xffffffffu, live && drop);
     if (lane == 0 && votes != 0u) atomicAdd(&tally[i], __popc(votes));
   }
 }

@@ -8,21 +8,28 @@
 //
 // Bound: device-memory bytes.  The kernel reads m*d input elements once and
 // writes d f32 outputs and m counts once.  Per coordinate it does the K2
-// register sort plus m*(m-1) rank compares; at m = 20 that stays below the
-// memory time at the card's f32 rate.
+// register sort plus about 8m compares for the counts, far below the memory
+// time at the card's f32 rate.
 //
 // Design: one thread per coordinate, as K2 (see selection.cuh).  The thread
 // keeps the column unsorted in one register array and sorts a copy in
 // another.  The aggregate comes from the sorted copy exactly as in K2, so it
-// equals the plain version bit for bit.  A worker is dropped at this
-// coordinate when the stable rank of its value, among the m real values, is
-// below b or at least m - b: the index-stable tie rule of the reference
-// (ties drop the highest worker index first), never the value-only sorted
-// order.  The drops are counted in int32: a warp ballot and __popc per
-// worker, a shared tally per block, and one atomicAdd per worker and block
-// into the (m,) buffer that the wrapper zeroes.  The TPU's 128-lane counts
-// row, per-block partial counts and extraction variant are TPU layout and
-// are not carried over.
+// equals the plain version bit for bit.  A worker is dropped at this coordinate
+// when the stable rank of its value, among the m real values, is below b or at
+// least m - b: the index-stable tie rule of the reference (ties drop the
+// highest worker index first), never the value-only sorted order.  The drops
+// come in O(m) (tally_trim_drops): the thresholds sorted[b-1] and sorted[m-b]
+// are read off the sorted copy, the keys below each are counted once, and one
+// walk in worker order settles the keys equal to a threshold by their running
+// count.  The pairwise ranks this replaces took m(m-1) compares per coordinate
+// (about 570 at m = 20) with both register arrays live: 3.5x K2's time at the
+// CNN width on an H100.  What remains over K2's time is the walk, issued for
+// every coordinate: per worker a few compares, a ballot and a tally update.
+// The drops are counted in int32: a warp ballot and __popc per worker, a
+// shared tally per block, and one atomicAdd per worker and block into the
+// (m,) buffer that the wrapper zeroes.  The TPU's 128-lane counts row,
+// per-block partial counts and extraction variant are TPU layout and are
+// not carried over.
 #include "selection.cuh"
 
 namespace repro_torch {
@@ -44,7 +51,7 @@ __global__ void __launch_bounds__(kThreads)
   sort_network<MP>(v);
   const float agg = trimmed_mean<MP>(v, m, b);
   if (live) out[j] = agg;
-  tally_drops<MP>(key, m, live, b, m - b, tally);
+  tally_trim_drops<MP>(key, v, m, live, b, tally);
   flush_tally<MP>(tally, m, counts);
 }
 

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis_compat import given, settings, st
 from test_kernels import _assert_phocas_close
 
 from repro.core import selection as rsel
@@ -21,6 +22,7 @@ from repro.kernels.phocas.kernel import phocas_counts_pallas
 from repro.kernels.phocas.ops import phocas_with_counts as rphocas_wc
 from repro.kernels.trmean.kernel import trmean_counts_pallas
 from repro.kernels.trmean.ops import trmean_with_counts as rtrmean_wc
+from repro_torch.core import selection as tsel
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.phocas.kernel import phocas_counts_hopper
@@ -183,3 +185,87 @@ def test_every_source_has_its_entry_point():
         assert head in text, name
         has_counts = "void* counts" in text.split(head)[1].split(")")[0]
         assert has_counts == name.endswith("_counts"), name
+
+
+def _threshold_walk_drops(u: torch.Tensor, b: int) -> torch.Tensor:
+    """K4's counting rule (``csrc/selection.cuh::tally_trim_drops``) as a
+    plain loop over the workers: an (m, d) bool mask of the coordinates at
+    which each worker is dropped.  lo = sorted[b-1] and hi = sorted[m-b];
+    worker i drops below iff key_i < lo, or key_i == lo and the keys below lo
+    plus the earlier workers at lo number fewer than b; above iff key_i > hi,
+    or key_i == hi and the keys below hi plus the earlier workers at hi
+    number at least m - b."""
+    keys = torch.where(torch.isnan(u), torch.inf, u.float())
+    m = keys.shape[0]
+    drops = torch.zeros(keys.shape, dtype=torch.bool)
+    if b == 0:
+        return drops
+    srt = torch.sort(keys, dim=0).values
+    lo, hi = srt[b - 1], srt[m - b]
+    below_lo = (keys < lo).sum(0)
+    below_hi = (keys < hi).sum(0)
+    seen_lo = torch.zeros_like(below_lo)
+    seen_hi = torch.zeros_like(below_hi)
+    for i in range(m):
+        x = keys[i]
+        at_lo, at_hi = x == lo, x == hi
+        drops[i] = ((x < lo) | (at_lo & (below_lo + seen_lo < b))
+                    | (x > hi) | (at_hi & (below_hi + seen_hi >= m - b)))
+        seen_lo += at_lo.long()
+        seen_hi += at_hi.long()
+    return drops
+
+
+@st.composite
+def _tie_heavy(draw):
+    """(u, b): m in 1..64, every valid b, entries from a set of 3 values
+    with +-inf and NaN sprinkled in at a drawn rate.  One width, so the
+    reference's eager ops compile once."""
+    m = draw(st.integers(1, 64))
+    b = draw(st.integers(0, (m + 1) // 2 - 1))
+    d = 32
+    rng = np.random.default_rng(draw(st.integers(0, 2**31 - 1)))
+    values = draw(st.sampled_from([(-1.0, 0.0, 1.0), (2.5, 3.0, 1e20),
+                                   (0.0, -0.0, 7.0)]))
+    u = rng.choice(np.asarray(values, dtype=np.float32), size=(m, d))
+    rate = draw(st.sampled_from([0.0, 0.05, 0.3]))
+    special = np.asarray([np.inf, -np.inf, np.nan], dtype=np.float32)
+    hit = rng.random((m, d)) < rate
+    u[hit] = rng.choice(special, size=int(hit.sum()))
+    return u, b
+
+
+@given(_tie_heavy())
+@settings(max_examples=40, deadline=None)
+def test_threshold_walk_drops_equal_stable_rank_drops(case):
+    """K4's O(m) rule names exactly the workers whose stable rank r has
+    r < b or r >= m - b: against the port's ranks, the reference's ranks
+    and the plain counts."""
+    u, b = case
+    m = u.shape[0]
+    got = _threshold_walk_drops(torch.tensor(u), b)
+    ranks = tsel.stable_ranks(tsel.worker_rows(torch.tensor(u)))
+    want = torch.stack(tsel.trim_drop_masks(ranks, b, "trmean"))
+    assert torch.equal(got, want)
+    rranks = np.stack([np.asarray(r) for r in rsel.stable_ranks(
+        rsel.worker_rows(jnp.asarray(u)))])
+    np.testing.assert_array_equal(
+        got.numpy(), (rranks < b) | (rranks >= m - b))
+    _, counts = trmean_counts_ref(torch.tensor(u), b)
+    assert torch.equal(got.sum(1).float(), counts)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 20, 33, 64])
+def test_threshold_walk_drops_on_fixed_tie_matrices(m):
+    """Every valid b on one tie-heavy matrix per m: values in {-1, 0, 1},
+    a constant row block and a row of alternating +-inf."""
+    rng = np.random.default_rng(m)
+    u = rng.integers(-1, 2, (m, 48)).astype(np.float32)
+    u[m // 3:m // 3 + max(1, m // 4)] = 0.0
+    u[m - 1, ::2] = np.inf
+    u[m - 1, 1::2] = -np.inf
+    rows = tsel.worker_rows(torch.tensor(u))
+    for b in range((m + 1) // 2):
+        want = torch.stack(tsel.trim_drop_masks(tsel.stable_ranks(rows), b,
+                                                "trmean"))
+        assert torch.equal(_threshold_walk_drops(torch.tensor(u), b), want), b

@@ -125,6 +125,36 @@ def test_counts_kernels_equal_plain_versions(cuda, m):
                     assert int(counts.sum()) <= 2 * b * x.shape[1]
 
 
+def _tie_matrix(m, d, device):
+    """Tie-heavy worker matrix: values in {-1, 0, 1}, a constant row block
+    and a row of alternating +-inf."""
+    rng = np.random.default_rng(1000 + m)
+    u = rng.integers(-1, 2, (m, d)).astype(np.float32)
+    u[m // 3:m // 3 + max(1, m // 4)] = 0.0
+    u[m - 1, ::2] = np.inf
+    u[m - 1, 1::2] = -np.inf
+    return torch.tensor(u, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", range(1, 65))
+def test_counts_kernels_equal_plain_versions_on_ties(cuda, m):
+    """The b of test_counts_kernels_equal_plain_versions on the tie-heavy
+    matrix, where K4's O(m) counts settle most drops by the index walk."""
+    bmax = (m + 1) // 2 - 1
+    bs = sorted({0, 1, bmax // 2, bmax} & set(range(bmax + 1)))
+    u = _tie_matrix(m, 3001, cuda)
+    for b in bs:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            x = u.to(dtype)
+            for kernel, ref in COUNTS_PAIRS:
+                agg, counts = kernel(x, b)
+                torch.cuda.synchronize()
+                want_agg, want_counts = ref(x, b)
+                _assert_same(agg, want_agg)
+                assert torch.equal(counts, want_counts), (b, dtype)
+
+
 @pytest.mark.cuda
 def test_counts_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="m <= 64"):
@@ -282,6 +312,36 @@ def test_flash_kernel_ragged_and_noncausal(cuda, B, S, T, H, Kv, causal):
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = _qkv(B, S, T, H, Kv, 64, dtype, cuda, seed=S)
         _assert_flash(q, k, v, causal=causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("S", [127, 128, 129, 255])
+@pytest.mark.parametrize("window", [None, 1, 64, 129])
+def test_flash_kernel_at_tile_edges(cuda, dtype, S, window):
+    """hd 128 around the 128-query and 64-key tiles of the f16/bf16 kernel,
+    with windows that end inside, at and past a tile."""
+    q, k, v = _qkv(2, S, S, 4, 2, 128, dtype, cuda, seed=S)
+    _assert_flash(q, k, v, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_flash_kernel_at_granite_prefill_heads(cuda, dtype):
+    q, k, v = _qkv(1, 512, 512, 32, 8, 128, dtype, cuda)
+    _assert_flash(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,causal,window", [
+    (129, 300, True, 64),         # S < T
+    (300, 129, True, None),       # S > T
+    (77, 250, False, None),
+])
+def test_flash_kernel_ragged_at_hd128(cuda, S, T, causal, window):
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v = _qkv(1, S, T, 8, 2, 128, dtype, cuda, seed=T)
+        _assert_flash(q, k, v, causal=causal, window=window)
 
 
 @pytest.mark.cuda

@@ -104,3 +104,23 @@ def test_chip_smoke_refuses_without_a_gpu():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_flash_tiles_script_substitutes_the_sources_tiles():
+    """tools/flash_tiles.py rebuilds K6 with other MmaTiles constants by
+    text substitution: its template must be the source's own, and without a
+    GPU it refuses to run."""
+    import importlib.util
+    path = os.path.join(REPO, "tools", "flash_tiles.py")
+    spec = importlib.util.spec_from_file_location("flash_tiles", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with open(os.path.join(PKG, "kernels", "csrc", "flash_attn.cu")) as f:
+        src = f.read()
+    assert src.count(mod.TILES) == 1
+    assert (64, 64) in mod.VARIANTS
+    for bq, bk in mod.VARIANTS:
+        assert f"BQ = {bq};" in mod.tiles(bq, bk)
+        assert f"BK = {bk};" in mod.tiles(bq, bk)
+    if not torch.cuda.is_available():
+        assert mod.main() != 0
