@@ -15,14 +15,19 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
    entries, bitflip-corrupted rows): K1-K4 for b in {0, 2, 6, 8, 9} with
    max|diff| <= 1e-4 (phocas mismatches allowed only at a boundary distance
    tie) and, for the counts kernels K3/K4, drop counts equal as integers;
-   K4 also on a tie-heavy matrix (values in {-1, 0, 1}, a constant row
+   K3/K4 also on a tie-heavy matrix (values in {-1, 0, 1}, a constant row
    block, a row of alternating +-inf) for every b, counts equal as
-   integers and the aggregate bit for bit;
+   integers and the aggregate bit for bit; then past the register kernels'
+   m = 64, K1-K4's shared-memory variant at m in {65, 80, 128, 200, 1024}
+   and d = 118,282 on the same matrices, for b in {0, 2,
+   m/4, (m+1)//2 - 1};
    K5 also on Gaussian rows at scale 10 and at m in {5, 64, 100}, with NaN
-   and inf at the same places, finite entries within 1e-6 * max + 1e-3,
-   symmetric and bitwise repeatable output.  Time each kernel and its plain
-   version at the main-path shapes beside its bound, and K5 beside
-   ``torch.mm(u, u.T)`` (TF32 off);
+   and inf at the same places, finite entries within 1e-6 * max + 1e-3 of
+   the plain version evaluated in f64, symmetric and bitwise repeatable
+   output.  Time each kernel and its plain
+   version at the main-path shapes beside its bound, K1 and K3 also at the
+   serving run's logits (3, 8 x 49,152) with b = 1 and K1-K4 at m = 128, and
+   K5 beside ``torch.mm(u, u.T)`` (TF32 off);
 3. training through ``run_experiment`` on the card, checking finite,
    decreasing losses and the kernel launches of every run:
    - the paper's MNIST MLP (784-128-128-10, m=20, 32 samples per worker,
@@ -32,8 +37,10 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
      phocas b=8 under signflip q=8, CNN trmean b=6 under gaussian q=6),
      checking that every Byzantine worker ends ejected, one counts-kernel
      launch per step and one aggregate launch per step that began with a
-     worker ejected; small runs where the kernel path must agree with the
-     plain path, plain and defended;
+     worker ejected; the defended MLP again at m = 96 workers (phocas b = 24
+     under signflip q = 24, 12 steps), whose K3 and K1 launches run the
+     shared-memory variant; small runs where the kernel path must agree
+     with the plain path, plain and defended;
    - the Fig. 2 classic-attack baselines under gaussian q=6: MLP krum (30
      steps), CNN multikrum (20 steps, lr 0.02) and MLP krum defended (30
      steps, every Byzantine worker ejected), one K5 launch per step each;
@@ -85,8 +92,9 @@ BS = (0, 2, 6, 8, 9)
 ATOL = 1e-4
 # Per kernel: its source, the TPU kernel it replaces, the main-path shape and
 # b its numbers are reported at, and the compares it does per coordinate for
-# m workers (K3 ranks every worker against every other; K4 counts the keys
-# below its two thresholds and walks the workers once, about 8m).
+# m workers (K3 takes m distances, counts those below the best window's score
+# and walks the workers once, about 4m; K4 counts the keys below its two
+# thresholds and walks the workers once, about 8m).
 KERNEL_META = {
     "phocas": {"source": "src/repro_torch/kernels/csrc/phocas.cu",
                "replaces": "src/repro/kernels/phocas/kernel.py:106",
@@ -97,7 +105,7 @@ KERNEL_META = {
     "phocas_counts": {
         "source": "src/repro_torch/kernels/csrc/phocas_counts.cu",
         "replaces": "src/repro/kernels/phocas/kernel.py:128",
-        "shape": SHAPES[0], "b": 8, "compares": lambda m: m * (m - 1)},
+        "shape": SHAPES[0], "b": 8, "compares": lambda m: 4 * m},
     "trmean_counts": {
         "source": "src/repro_torch/kernels/csrc/trmean_counts.cu",
         "replaces": "src/repro/kernels/trmean/kernel.py:130",
@@ -115,6 +123,11 @@ KERNEL_META = {
 }
 TRIM_KERNELS = ("phocas", "trmean", "phocas_counts", "trmean_counts")
 GRAM_MS = (5, 64, 100)          # worker counts beyond the main path's m
+# Worker counts past the register kernels' 64, where K1-K4 run their
+# shared-memory variant.
+WIDE_MS = (65, 80, 128, 200, 1024)
+SERVE_LOGITS = (3, 8 * 49_152)   # robust decode: k = 3 replicas x 8 slots'
+                                 # granite-8b logits
 
 
 def wrappers() -> dict:
@@ -201,13 +214,17 @@ def compare(name: str, u: torch.Tensor, b: int, got: torch.Tensor,
 
 def time_ms(fn, *, reps: int = 15) -> float:
     """Median device time of ``fn()`` in ms, with the L2 cache flushed
-    before each launch (the bound counts every byte from device memory)."""
+    before each launch (the bound counts every byte from device memory).
+    A ~60 us spin kernel after the flush keeps the device busy while the
+    host enqueues the start event and ``fn``'s launches, so a slow host
+    (the wrapper's checks and allocations) does not show as device time."""
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
     for _ in range(2):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(100_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -255,23 +272,34 @@ def tie_matrix(m: int, d: int, gen: torch.Generator) -> torch.Tensor:
     return u
 
 
+def tie_check(kname: str, u: torch.Tensor, b: int) -> None:
+    """A kernel against its plain version on a tie-heavy matrix: the
+    aggregate equal bit for bit (NaN where the plain version has NaN) and,
+    for a counts kernel, the counts equal as integers."""
+    kernel, ref = wrappers()[kname]
+    got, want = kernel(u, b), ref(u, b)
+    torch.cuda.synchronize()
+    tag = f"{kname} ties {tuple(u.shape)} b={b}"
+    if kname.endswith("_counts"):
+        check(torch.equal(got[1], want[1]),
+              f"{tag}: counts {got[1].tolist()} != plain {want[1].tolist()}")
+        got, want = got[0], want[0]
+    check(torch.equal(torch.isnan(got), torch.isnan(want))
+          and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)),
+          f"{tag}: aggregate differs")
+
+
 def tie_phase(gen: torch.Generator) -> None:
-    """K4 against its plain version on the tie-heavy matrix: counts equal as
-    integers and the aggregate equal bit for bit, for every b."""
-    kernel, ref = wrappers()["trmean_counts"]
+    """K3 and K4 against their plain versions on the tie-heavy matrix, for
+    every b."""
     for m, d in SHAPES:
         u = tie_matrix(m, d, gen)
         for b in BS:
-            agg, counts = kernel(u, b)
-            want_agg, want_counts = ref(u, b)
-            torch.cuda.synchronize()
-            check(torch.equal(counts, want_counts),
-                  f"trmean_counts ties ({m}, {d}) b={b}: counts "
-                  f"{counts.tolist()} != plain {want_counts.tolist()}")
-            check(torch.equal(agg, want_agg),
-                  f"trmean_counts ties ({m}, {d}) b={b}: aggregate differs")
-    print(f"trmean_counts == plain on the tie-heavy matrix at {list(SHAPES)} "
-          f"for b in {list(BS)}: counts and aggregate equal bit for bit: ok")
+            for kname in ("trmean_counts", "phocas_counts"):
+                tie_check(kname, u, b)
+    print(f"trmean_counts and phocas_counts == plain on the tie-heavy matrix "
+          f"at {list(SHAPES)} for b in {list(BS)}: counts and aggregate equal "
+          f"bit for bit: ok")
 
 
 def kernel_phase(gen: torch.Generator) -> dict:
@@ -325,22 +353,97 @@ def kernel_phase(gen: torch.Generator) -> dict:
                 times[kname, d, b] = k_ms
     for m, d in SHAPES:
         print(f"  K4 / K2 at ({m}, {d:,}), b=6: "
-              f"{times['trmean_counts', d, 6] / times['trmean', d, 6]:.2f}")
+              f"{times['trmean_counts', d, 6] / times['trmean', d, 6]:.2f}; "
+              f"K3 / K1 at b=8: "
+              f"{times['phocas_counts', d, 8] / times['phocas', d, 8]:.2f}")
+    u = torch.randn(SERVE_LOGITS, generator=gen, device=gen.device)
+    for kname in ("phocas", "phocas_counts"):
+        kernel, ref = pairs[kname]
+        bnd, bound_by = bound_ms(kname, *SERVE_LOGITS, 4)
+        k_ms = time_ms(lambda: kernel(u, 1))
+        p_ms = time_ms(lambda: ref(u, 1), reps=5)
+        print(f"  {kname:13s} serving logits {SERVE_LOGITS} b=1: kernel "
+              f"{k_ms:.4f} ms  plain {p_ms:.3f} ms  bound {bnd * 1e3:.2f} us "
+              f"({bound_by})  {bnd / k_ms:.1%} of bound")
     return report
 
 
+def wide_bs(m: int) -> list:
+    bmax = (m + 1) // 2 - 1
+    return sorted({0, 2, m // 4, bmax})
+
+
+def wide_phase(gen: torch.Generator, report: dict) -> None:
+    """K1-K4 past the register kernels' m = 64, on their shared-memory
+    variant: each against its plain version at d = 118,282 on the
+    adversarial matrices and the tie-heavy matrix (there bit for bit) for b
+    in {0, 2, m/4, (m+1)//2 - 1}, counts equal as integers; then each
+    kernel's time beside its bound at m = 128."""
+    pairs = {k: v for k, v in wrappers().items() if k in TRIM_KERNELS}
+    d = SHAPES[0][1]
+    for m in WIDE_MS:
+        names = list(pairs)
+        mats = adversarial_matrices(m, d, gen)
+        for mname, u in mats:
+            for b in wide_bs(m):
+                for kname in names:
+                    kernel, ref = pairs[kname]
+                    got = kernel(u, b)
+                    want = ref(u, b)
+                    torch.cuda.synchronize()
+                    err = compare_kernel(kname, u, b, got, want)
+                    report[kname]["max_abs_err"] = max(
+                        report[kname]["max_abs_err"], err)
+                    if err:
+                        print(f"  {kname} ({m}, {d}) {mname} b={b}: "
+                              f"max|diff| {err:.3e}")
+        del mats
+        x = adversarial_matrices(m, d, gen)[0][1].to(torch.bfloat16)
+        for kname in names:
+            kernel, ref = pairs[kname]
+            err = compare_kernel(kname, x, m // 4, kernel(x, m // 4),
+                                 ref(x, m // 4))
+            report[kname]["max_abs_err"] = max(
+                report[kname]["max_abs_err"], err)
+        u = tie_matrix(m, d, gen)
+        for b in wide_bs(m):
+            for kname in names:
+                tie_check(kname, u, b)
+        print(f"wide variant m={m}: {names} == plain at ({m}, {d:,}) for b "
+              f"in {wide_bs(m)} on gauss/duplicates/pm1e20/nan_inf/bitflip "
+              f"(+bf16 at b={m // 4}), counts equal; on the tie-heavy matrix "
+              f"bit for bit: ok")
+    m = 128
+    u = adversarial_matrices(m, d, gen)[0][1]
+    for kname, (kernel, ref) in pairs.items():
+        b = m // 4
+        bnd, bound_by = bound_ms(kname, m, d, 4)
+        k_ms = time_ms(lambda: kernel(u, b))
+        p_ms = time_ms(lambda: ref(u, b), reps=5)
+        print(f"  {kname:13s} wide m={m} d={d:,} b={b}: kernel {k_ms:.4f} ms "
+              f" plain {p_ms:.3f} ms  bound {bnd * 1e3:.2f} us ({bound_by})  "
+              f"{bnd / k_ms:.1%} of bound")
+
+
 def compare_gram(tag: str, u: torch.Tensor, got: torch.Tensor,
-                 want: torch.Tensor) -> float:
+                 want: torch.Tensor, want64: torch.Tensor) -> tuple:
     """K5 against its plain version: NaN and +-inf at the same places, an
     exactly symmetric output, and finite entries within the reference's
     bound for the Gram form, 1e-6 * max + 1e-3 (the two sum the products in
-    another order).  Two stated exceptions: the max is taken over the finite
-    n_i + n_j as well as over the distances, since the Gram form's rounding
-    scales with the squared norms (on Gaussian rows at scale 10 the two are
-    equal; on rows around 3 the norms are ~5x the distances); and the
-    diagonal is held to exactly 0 in the kernel (its n_i is its own G_ii)
-    where the plain version's n_i + n_i - 2 G_ii keeps the difference of two
-    roundings of one sum.  Returns max |diff| off the diagonal."""
+    another order).  The finite entries are held to the plain version
+    evaluated in f64 (``want64``, the same function on the same inputs):
+    at d = 2,430,826 the f32 plain version's own rounding (``torch.mm``'s
+    long f32 accumulations) reaches the bound by itself, so two f32
+    evaluations cannot be told apart from a wrong kernel there; its
+    distance from f64 is returned beside the kernel's.  Two stated
+    exceptions: the max is taken over the finite n_i + n_j as well as over
+    the distances, since the Gram form's rounding scales with the squared
+    norms (on Gaussian rows at scale 10 the two are equal; on rows around 3
+    the norms are ~5x the distances); and the diagonal is held to exactly 0
+    in the kernel (its n_i is its own G_ii) where the plain version's
+    n_i + n_i - 2 G_ii keeps the difference of two roundings of one sum.
+    Returns max |diff| off the diagonal of the kernel and of the f32 plain
+    version, each against f64."""
     for f in (torch.isnan, torch.isposinf, torch.isneginf):
         check(torch.equal(f(got), f(want)),
               f"krum_gram {tag}: non-finite entries differ ({f.__name__})")
@@ -354,16 +457,19 @@ def compare_gram(tag: str, u: torch.Tensor, got: torch.Tensor,
     off = ~torch.eye(m, dtype=torch.bool, device=got.device)
     fin = torch.isfinite(want) & off
     if not fin.any():
-        return 0.0
+        return 0.0, 0.0
     uf = u.float()
     sq = (uf * uf).sum(dim=1)
     pair = sq[:, None] + sq[None, :]
     scale = max(want[fin].abs().max().item(),
                 pair[torch.isfinite(pair) & fin].abs().max().item())
-    err = (got[fin] - want[fin]).abs().max().item()
+    exact = want64[fin]
+    err = (got[fin].double() - exact).abs().max().item()
+    plain_err = (want[fin].double() - exact).abs().max().item()
     tol = 1e-6 * scale + 1e-3
-    check(err <= tol, f"krum_gram {tag}: max|diff| {err} > {tol}")
-    return err
+    check(err <= tol, f"krum_gram {tag}: max|diff| {err} > {tol} (f32 "
+                      f"plain version: {plain_err})")
+    return err, plain_err
 
 
 def gram_phase(gen: torch.Generator) -> dict:
@@ -373,13 +479,17 @@ def gram_phase(gen: torch.Generator) -> dict:
     library's ``torch.mm(u, u.T)`` (TF32 off), which the port never calls."""
     kernel, ref = wrappers()["krum_gram"]
     report = {"max_abs_err": 0.0}
+    plain_err = 0.0
 
     def run(tag, u):
+        nonlocal plain_err
         got = kernel(u)
         want = ref(u)
+        want64 = ref(u, torch.float64)
         torch.cuda.synchronize()
-        report["max_abs_err"] = max(report["max_abs_err"],
-                                    compare_gram(tag, u, got, want))
+        err, perr = compare_gram(tag, u, got, want, want64)
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+        plain_err = max(plain_err, perr)
         check(torch.equal(kernel(u).view(torch.int32), got.view(torch.int32)),
               f"krum_gram {tag}: not bitwise repeatable")
 
@@ -401,8 +511,9 @@ def gram_phase(gen: torch.Generator) -> dict:
         u[0] = 1e20
         run(f"({m}, {d}) nonfinite", u)
     print(f"krum_gram == plain for m in {list(GRAM_MS)} at d={SHAPES[0][1]:,}"
-          f": ok; max|kernel - plain| = {report['max_abs_err']:.3e} "
-          f"(limit 1e-6 * max + 1e-3)")
+          f": ok; max|kernel - plain in f64| = {report['max_abs_err']:.3e}, "
+          f"max|plain in f32 - plain in f64| = {plain_err:.3e} (limit "
+          f"1e-6 * max + 1e-3)")
     for m, d in SHAPES:
         u = adversarial_matrices(m, d, gen)[0][1]
         bnd, bound_by = bound_ms("krum_gram", m, d, 4)
@@ -472,6 +583,21 @@ def vector_spec(kind: str, rule: str, steps: int, defended: bool = False):
         attack=AttackConfig(name="gaussian", num_byzantine=6))
 
 
+def wide_spec():
+    """The defended MLP cell at m = 96 workers, past the register kernels'
+    64: phocas b = 24 under signflip q = 24 (a quarter of the workers
+    Byzantine, b = q), 12 steps."""
+    import dataclasses
+
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust import RobustConfig
+    spec = paper_spec("mlp", 12, defended=True)
+    return dataclasses.replace(
+        spec, name="chip-smoke-mlp-m96", num_workers=96,
+        robust=RobustConfig(rule="phocas", b=24, q=24),
+        attack=AttackConfig(name="signflip", num_byzantine=24))
+
+
 def launch_counts(run) -> tuple:
     """Run ``run()`` with every kernel's count set to 0 just before; return
     its result and the counts read just after."""
@@ -498,7 +624,8 @@ def train_run(kind: str, steps: int, defended: bool, spec=None):
     d = sum(x.numel() for x in leaves(res.params))
     walls = [r["wall"] for r in res.history]
     step_ms = sorted(1e3 * (b - a) for a, b in zip(walls[1:], walls[2:]))
-    print(f"{tag}: d={d:,} m=20 rule={spec.robust.rule} b={spec.robust.b} "
+    print(f"{tag}: d={d:,} m={spec.num_workers} rule={spec.robust.rule} "
+          f"b={spec.robust.b} "
           f"q={spec.robust.q} attack={spec.attack.name} "
           f"q_atk={spec.attack.num_byzantine} steps={steps}")
     print(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f}  eval "
@@ -578,6 +705,14 @@ def train_phase() -> dict:
         defended_checks(kind, res, counts)
         kname = f"{res.spec.robust.rule}_counts"
         launches[kname] = counts[kname]
+
+    # Past m = 64: the defended MLP at m = 96 runs K3 and K1 on their
+    # shared-memory variant.
+    res, counts = train_run("mlp", 12, True, wide_spec())
+    defended_checks("mlp", res, counts)
+    check(counts["phocas"] > 0, f"mlp m=96: no gated step ran K1 ({counts})")
+    print(f"  m=96 > 64: K3 {counts['phocas_counts']} and K1 "
+          f"{counts['phocas']} launches on the shared-memory variant: ok")
 
     # Small runs: the kernel path agrees with the plain path step by step.
     for rule in ("phocas", "trmean"):
@@ -1128,6 +1263,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = kernel_phase(gen)
+    wide_phase(gen, report)
     report["krum_gram"] = gram_phase(gen)
     launches = train_phase()
     launches.update(vector_phase())

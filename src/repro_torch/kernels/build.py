@@ -14,15 +14,15 @@ and returns ``cudaGetLastError()``.  :func:`launch` checks the matrix, passes
 PyTorch's current stream and raises on a non-zero code.  The Krum Gram kernel
 has its own signature, ``int repro_krum_gram(const void* u, void* out, void*
 scratch, int m, long long d, int nblocks, int dtype, void* stream)``: no b, an
-(m, m) output, and a scratch buffer of per-block partial sums; it takes any m
-(:func:`check_gram_matrix`, :func:`launch_gram`).  The flash-attention kernel
-takes ``int repro_flash_attn(const void* q, const void* k, const void* v,
-void* o, int B, int S, int T, int H, int Kv, int hd, long long q_strides[3],
-long long k_strides[3], long long v_strides[3], float scale, int causal, int
-window, float cap, int dtype, void* stream)``, the strides passed as nine
-scalars in elements over (batch, position, head); ``window`` and ``cap`` are
-0 when unset (:func:`launch_flash`).  There is no fallback: a
-missing ``nvcc``, a failed build or a failed launch raises.
+(m, m) output, and a scratch buffer of per-block partial sums and their
+totals; it takes any m (:func:`check_gram_matrix`, :func:`launch_gram`).  The
+flash-attention kernel takes ``int repro_flash_attn(const void* q, const
+void* k, const void* v, void* o, int B, int S, int T, int H, int Kv, int hd,
+long long q_strides[3], long long k_strides[3], long long v_strides[3], float
+scale, int causal, int window, float cap, int dtype, void* stream)``, the
+strides passed as nine scalars in elements over (batch, position, head);
+``window`` and ``cap`` are 0 when unset (:func:`launch_flash`).  There is no
+fallback: a missing ``nvcc``, a failed build or a failed launch raises.
 
 Nothing here runs at import time; the CPU tests import this module freely.
 """
@@ -47,10 +47,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Kernel dtype codes (csrc/selection.cuh kF32 / kF16 / kBF16).
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-MAX_M = 64            # the kernels' largest register bucket (selection.cuh)
-GRAM_TILE = 64        # columns of one staged tile (krum_gram.cu kGramTile)
-GRAM_BLOCKS_PER_SM = 8
-GRAM_SCRATCH_FLOATS = 1 << 24   # cap on the partial sums' buffer (64 MiB)
+# Worker counts the selection kernels take.  m <= 64 (selection.cuh
+# kRegisterMaxM) runs the register design, larger m the shared-memory
+# variant (selection_wide.cuh).  That variant takes any m whose column,
+# padded to a power of two, fits a block's shared memory with the kernel's
+# other per-column arrays and its (m,) tally (wide_layout): one array for
+# K1/K2, two for K4, three for K3.  Each cap below is the largest power of
+# two that fits.
+MAX_M = {"trmean": 32768, "phocas": 32768, "trmean_counts": 16384,
+         "phocas_counts": 8192}
+GRAM_TILE = 256       # columns of one staged tile (krum_gram.cu kGramTile)
+GRAM_MIN_TILES = 4    # tiles a Gram block walks at least, where d has them
+GRAM_BLOCKS_PER_SM = 2
+# Cap on the scratch buffer, (nblocks + 1) * m * m floats of partial sums and
+# their totals (64 MiB); where even one block's partials and the totals
+# exceed it (m > 2,896), the kernel runs one block.
+GRAM_SCRATCH_FLOATS = 1 << 24
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -150,7 +162,8 @@ KERNELS = _Kernels()
 
 
 def check_gram_matrix(u: torch.Tensor) -> None:
-    """Validate an (m, d) worker matrix for the Krum Gram kernel (any m)."""
+    """Validate an (m, d) worker matrix for a kernel: the Krum Gram kernel
+    takes any m."""
     if u.dim() != 2:
         raise ValueError(f"expected an (m, d) matrix, got shape "
                          f"{tuple(u.shape)}")
@@ -160,14 +173,16 @@ def check_gram_matrix(u: torch.Tensor) -> None:
         raise ValueError(f"kernels take {list(DTYPE_CODES)}, got {u.dtype}")
 
 
-def check_matrix(u: torch.Tensor, b: int) -> None:
-    """Validate an (m, d) worker matrix and trim count for a kernel."""
+def check_matrix(u: torch.Tensor, b: int, name: str) -> None:
+    """Validate an (m, d) worker matrix and trim count for kernel ``name``
+    (a key of ``MAX_M``)."""
     check_gram_matrix(u)
     m, d = u.shape
     if not 0 <= b <= (m + 1) // 2 - 1:
         raise ValueError(f"b={b} out of range for m={m}")
-    if m > MAX_M:
-        raise ValueError(f"kernels support m <= {MAX_M} workers, got m={m}")
+    if m > MAX_M[name]:
+        raise ValueError(f"the {name} kernel takes m <= {MAX_M[name]} "
+                         f"workers, got m={m}")
 
 
 def _check_cuda(name: str, u: torch.Tensor) -> None:
@@ -179,12 +194,16 @@ def _check_cuda(name: str, u: torch.Tensor) -> None:
 
 
 def gram_blocks(m: int, d: int, sms: int) -> int:
-    """Blocks of the Gram kernel's first launch: enough to fill the card,
-    no more than there are 64-column tiles, and few enough that the partial
-    sums (m(m+1)/2 per block) fit ``GRAM_SCRATCH_FLOATS``."""
+    """Blocks of the Gram kernel, sized by the work: each walks at least
+    ``GRAM_MIN_TILES`` 256-column tiles, at most ``GRAM_BLOCKS_PER_SM`` per
+    SM (the cooperative launch needs them all resident; the kernel lowers
+    the count further if the card holds fewer), and few enough that the
+    partial sums and their totals ((nblocks + 1) * m * m floats) fit
+    ``GRAM_SCRATCH_FLOATS``."""
     tiles = -(-d // GRAM_TILE)
-    cap = max(1, GRAM_SCRATCH_FLOATS // (m * (m + 1) // 2))
-    return max(1, min(tiles, GRAM_BLOCKS_PER_SM * sms, cap))
+    cap = max(1, GRAM_SCRATCH_FLOATS // (m * m) - 1)
+    return max(1, min(-(-tiles // GRAM_MIN_TILES), GRAM_BLOCKS_PER_SM * sms,
+                      cap))
 
 
 def launch_gram(u: torch.Tensor) -> torch.Tensor:
@@ -195,8 +214,8 @@ def launch_gram(u: torch.Tensor) -> torch.Tensor:
     sms = torch.cuda.get_device_properties(u.device).multi_processor_count
     nblocks = gram_blocks(m, d, sms)
     out = torch.empty((m, m), dtype=torch.float32, device=u.device)
-    scratch = torch.empty((nblocks * (m * (m + 1) // 2),),
-                          dtype=torch.float32, device=u.device)
+    scratch = torch.empty(((nblocks + 1) * m * m,), dtype=torch.float32,
+                          device=u.device)
     fn = KERNELS.library("krum_gram").repro_krum_gram
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream

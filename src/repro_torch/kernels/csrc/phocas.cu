@@ -16,8 +16,10 @@
 // (selection.cuh nearest_window_mean).  The kept window is summed as a
 // masked sum in ascending order, never as a total minus the dropped values
 // (the TPU extraction variant does that, and a 1e20 row then cancels the
-// kept values in f32).
-#include "selection.cuh"
+// kept values in f32).  For 64 < m the column moves to shared memory, one
+// warp per column (selection_wide.cuh), up to the m whose column still fits a
+// block's shared memory.
+#include "selection_wide.cuh"
 
 namespace repro_torch {
 
@@ -41,13 +43,19 @@ using namespace repro_torch;
 
 // u: row-major (m, d) of `dtype`; out: (d,) f32.  Enqueues one launch on
 // `stream` and returns cudaGetLastError() (0 on success).  The caller has
-// checked 1 <= m <= 64 and 0 <= b <= (m+1)/2 - 1.
+// checked 0 <= b <= (m+1)/2 - 1 and that one column fits a block's shared
+// memory: m <= 64 runs the register kernel, 64 < m the shared-memory variant
+// of selection_wide.cuh.
 extern "C" int repro_phocas(const void* u, void* out, int m, long long d,
                             int b, int dtype, void* stream_ptr) {
-  if (m < 1 || m > 64 || b < 0 || m - 2 * b < 1 || d < 1) {
+  if (m < 1 || b < 0 || m - 2 * b < 1 || d < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (m > kRegisterMaxM) {
+    return launch_wide<kWidePhocas>(u, static_cast<float*>(out),
+                                     nullptr, m, d, b, dtype, stream);
+  }
   const unsigned grid = static_cast<unsigned>((d + kThreads - 1) / kThreads);
   REPRO_DISPATCH_MP_DTYPE(phocas_kernel, m, dtype, grid, stream,
                           static_cast<float*>(out), m, d, b);

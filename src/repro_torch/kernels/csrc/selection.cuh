@@ -23,6 +23,9 @@
 namespace repro_torch {
 
 constexpr int kThreads = 256;
+// Largest register bucket; larger m take the shared-memory variant
+// (selection_wide.cuh).
+constexpr int kRegisterMaxM = 64;
 
 // dtype codes shared with the Python wrappers (kernels/build.py).
 constexpr int kF32 = 0;
@@ -149,10 +152,13 @@ __device__ __forceinline__ float trimmed_mean(const float (&v)[MP], int m,
 // window: exactly selection.nearest_window_sum.  The window's upper ends
 // sorted[w+k-1] are brought to fixed registers by a log2(MP)-stage barrel
 // shift by the runtime k - 1, so no register array is indexed at run time.
+// `width`, where given, receives the winning score: the (m - b)-th smallest
+// distance |v - center|, which K3's counts read (tally_far_drops).
 template <int MP>
 __device__ __forceinline__ float nearest_window_mean(const float (&v)[MP],
                                                      int m, int b,
-                                                     float center) {
+                                                     float center,
+                                                     float* width = nullptr) {
   const int k = m - b;
   // hi[w] = v[w + k - 1]: left barrel shift of the sorted column by k - 1.
   float hi[MP];
@@ -182,42 +188,63 @@ __device__ __forceinline__ float nearest_window_mean(const float (&v)[MP],
       }
     }
   }
+  if (width != nullptr) *width = best;
   return divide(window_sum<MP>(v, best_w, k), k);
 }
 
-// Per-worker drop counts of one block (K3).  For each real worker
-// i < m, its stable-argsort rank among the m real keys of the column, by the
-// pairwise predicate of core/selection.py::stable_ranks: workers j < m with
-// key[j] < key[i], or key[j] == key[i] and j < i.  The padding registers
-// (j >= m) never enter a rank.  The worker is dropped at this coordinate if
-// its rank r has r < lo or r >= hi.  A warp ballot per worker and __popc
-// count the warp's drops, and lane 0 adds them to the block's shared tally.
-// All 32 lanes of every warp must call this together: threads past the last
-// coordinate pass live = false, which forces their vote to 0.  The early
-// exits test m, the same in every thread, so the warp never diverges.
+// Per-worker Phocas drop counts of one block (K3) in O(m) per coordinate.  A
+// worker is dropped when the stable rank of its distance dist_i =
+// |key_i - center| among the m real workers, by the pairwise predicate of
+// core/selection.py::stable_ranks (dist_j < dist_i, or dist_j == dist_i and
+// j < i), is at least m - b.  With W the (m - b)-th smallest distance, the
+// best window's score of nearest_window_mean, that is: dist_i > W, or
+// dist_i == W and #{j: dist_j < W} + #{j < i: dist_j == W} >= m - b.  So one
+// count and one walk in worker order replace the m(m-1) pairwise compares.
+//
+// W equals the best window's score because the center lies inside every
+// window w <= b, so a window's score is its largest distance, and the m - b
+// nearest values form one of the windows; center - v[w] and |v[w] - center|
+// round alike (IEEE subtraction is sign-symmetric).  Keys are never NaN
+// (load_column maps NaN to +inf), so with a finite center no distance is
+// NaN.  A NaN center (the kept window holds +inf and -inf) makes every
+// distance NaN, which the pairwise predicate ranks 0: nobody is dropped.  A
+// center of +inf (the kept window holds +inf, so at least b + 1 keys are
+// +inf) makes those keys' distances NaN, ranked 0, and every other distance
+// +inf; fewer than m - b workers remain to rank among themselves, so no rank
+// reaches m - b (and symmetrically for -inf): such a column drops nobody.
+// The walk gives the same, since every window then scores NaN (inf - inf at
+// one end, or NaN throughout), so W is NaN and no comparison with it holds.
+// `dist` enters as the column and holds the distances on return.  All 32
+// lanes of every warp call this together, as for tally_trim_drops.
 template <int MP>
-__device__ __forceinline__ void tally_drops(const float (&key)[MP], int m,
-                                            bool live, int lo, int hi,
-                                            int* tally) {
+__device__ __forceinline__ void tally_far_drops(float (&dist)[MP], int m,
+                                                bool live, int b,
+                                                float center, float width,
+                                                int* tally) {
+  if (b == 0) return;
   const int lane = threadIdx.x & 31;
+  int below = 0;
+#pragma unroll
+  for (int j = 0; j < MP; ++j) {
+    if (j >= m) break;
+    dist[j] = fabsf(dist[j] - center);
+    below += dist[j] < width ? 1 : 0;
+  }
+  int seen = 0;  // distances equal to W among workers 0 .. i-1
 #pragma unroll
   for (int i = 0; i < MP; ++i) {
     if (i >= m) break;
-    int r = 0;
-#pragma unroll
-    for (int j = 0; j < MP; ++j) {
-      if (j >= m) break;
-      r += key[j] < key[i] ? 1 : 0;
-      if (j < i) r += key[j] == key[i] ? 1 : 0;
-    }
-    const unsigned votes =
-        __ballot_sync(0xffffffffu, live && (r < lo || r >= hi));
+    const float x = dist[i];
+    const bool at = x == width;
+    const bool drop = x > width || (at && below + seen >= m - b);
+    seen += at ? 1 : 0;
+    const unsigned votes = __ballot_sync(0xffffffffu, live && drop);
     if (lane == 0 && votes != 0u) atomicAdd(&tally[i], __popc(votes));
   }
 }
 
 // Per-worker trmean drop counts of one block (K4) in O(m) per coordinate,
-// the same drops as tally_drops(key, m, live, b, m - b, tally) gives.  With
+// the drops of the stable ranks r_i < b or r_i >= m - b.  With
 // the stable rank r_i = #{j: key_j < key_i} + #{j < i: key_j == key_i} and
 // the sorted column's thresholds lo = sorted[b-1] and hi = sorted[m-b],
 // worker i is dropped
@@ -227,10 +254,15 @@ __device__ __forceinline__ void tally_drops(const float (&key)[MP], int m,
 //   #{j: key_j < hi} + #{j < i: key_j == hi} >= m - b.
 // So two counts over the m real keys and one walk in index order, with
 // running counts of the keys equal to lo and to hi, replace the m(m-1)
-// pairwise compares.  Keys are never NaN (load_column maps NaN to +inf) and
-// +-inf compare exactly; the sorted column's first m registers are the m
+// pairwise compares.  A warp ballot per worker and __popc count the warp's
+// drops, and lane 0 adds them to the block's shared tally.  Keys are never
+// NaN (load_column maps NaN to +inf) and +-inf compare exactly; the sorted
+// column's first m registers are the m
 // real keys in order, since the +inf padding sorts after or ties with them.
-// b = 0 drops nothing.  The ballot, tally and early exits are tally_drops's.
+// b = 0 drops nothing.  All 32 lanes of every warp must call this together:
+// threads past the last coordinate pass live = false, which forces their vote
+// to 0.  The early exits test m and b, the same in every thread, so the warp
+// never diverges.
 template <int MP>
 __device__ __forceinline__ void tally_trim_drops(const float (&key)[MP],
                                                  const float (&sorted)[MP],
@@ -303,7 +335,8 @@ __device__ __forceinline__ long long clamped_coordinate(long long d,
 }  // namespace repro_torch
 
 // Instantiate KERNEL<MP, T> for the padded worker count and the input dtype of
-// one launch.  Buckets: m <= 8, 16, 32, 64 (the wrapper rejects m > 64).
+// one launch.  Buckets: m <= 8, 16, 32, kRegisterMaxM (64); larger m take the
+// shared-memory variant (selection_wide.cuh).
 #define REPRO_DISPATCH_MP_DTYPE(KERNEL, m, dtype, grid, stream, ...)          \
   do {                                                                        \
     switch ((dtype) * 8 + ((m) <= 8 ? 0 : (m) <= 16 ? 1 : (m) <= 32 ? 2 : 3)) { \

@@ -29,8 +29,10 @@
 // shared tally per block, and one atomicAdd per worker and block into the
 // (m,) buffer that the wrapper zeroes.  The TPU's 128-lane counts row,
 // per-block partial counts and extraction variant are TPU layout and are
-// not carried over.
-#include "selection.cuh"
+// not carried over.  For 64 < m the column moves to shared memory
+// and the counts come from a sort of (value, worker) pairs
+// (selection_wide.cuh).
+#include "selection_wide.cuh"
 
 namespace repro_torch {
 
@@ -61,15 +63,22 @@ using namespace repro_torch;
 
 // u: row-major (m, d) of `dtype`; out: (d,) f32; counts: (m,) int32, zeroed
 // by the caller.  Enqueues one launch on `stream` and returns
-// cudaGetLastError() (0 on success).  The caller has checked 1 <= m <= 64
-// and 0 <= b <= (m+1)/2 - 1.
+// cudaGetLastError() (0 on success).  The caller has checked 0 <= b <= (m+1)/2
+// - 1 and that the column fits a block's shared memory (kernels/build.py
+// MAX_M): m <= 64 runs the register kernel, 64 < m the shared-memory variant
+// of selection_wide.cuh.
 extern "C" int repro_trmean_counts(const void* u, void* out, void* counts,
                                    int m, long long d, int b, int dtype,
                                    void* stream_ptr) {
-  if (m < 1 || m > 64 || b < 0 || m - 2 * b < 1 || d < 1) {
+  if (m < 1 || b < 0 || m - 2 * b < 1 || d < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (m > kRegisterMaxM) {
+    return launch_wide<kWideTrmeanCounts>(u, static_cast<float*>(out),
+                                           static_cast<int*>(counts), m, d, b,
+                                           dtype, stream);
+  }
   const unsigned grid = static_cast<unsigned>((d + kThreads - 1) / kThreads);
   REPRO_DISPATCH_MP_DTYPE(trmean_counts_kernel, m, dtype, grid, stream,
                           static_cast<float*>(out), static_cast<int*>(counts),

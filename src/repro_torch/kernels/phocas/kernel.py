@@ -17,10 +17,11 @@ from repro_torch.kernels.phocas.ref import phocas_counts_ref, phocas_ref
 def phocas_hopper(u: torch.Tensor, b: int) -> torch.Tensor:
     """(m, d) f32/f16/bf16 -> (d,) f32 Phocas aggregate.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises.  ``phocas_hopper.launches`` counts kernel launches.
+    Any m up to ``build.MAX_M["phocas"]``.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises.
+    ``phocas_hopper.launches`` counts kernel launches.
     """
-    build.check_matrix(u, b)
+    build.check_matrix(u, b, "phocas")
     if u.device.type == "cpu":
         return phocas_ref(u, b)
     out = build.launch("phocas", u, b)
@@ -33,10 +34,11 @@ def phocas_counts_hopper(u: torch.Tensor, b: int):
     the coordinates where each worker was among the b farthest from the
     b-trimmed mean).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises.  ``phocas_counts_hopper.launches`` counts kernel launches.
+    m <= ``build.MAX_M["phocas_counts"]``.  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises.
+    ``phocas_counts_hopper.launches`` counts kernel launches.
     """
-    build.check_matrix(u, b)
+    build.check_matrix(u, b, "phocas_counts")
     if u.device.type == "cpu":
         return phocas_counts_ref(u, b)
     out = build.launch("phocas_counts", u, b)

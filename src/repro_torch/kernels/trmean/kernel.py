@@ -17,10 +17,11 @@ from repro_torch.kernels.trmean.ref import trmean_counts_ref, trmean_ref
 def trmean_hopper(u: torch.Tensor, b: int) -> torch.Tensor:
     """(m, d) f32/f16/bf16 -> (d,) f32 b-trimmed mean.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises.  ``trmean_hopper.launches`` counts kernel launches.
+    Any m up to ``build.MAX_M["trmean"]``.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises.
+    ``trmean_hopper.launches`` counts kernel launches.
     """
-    build.check_matrix(u, b)
+    build.check_matrix(u, b, "trmean")
     if u.device.type == "cpu":
         return trmean_ref(u, b)
     out = build.launch("trmean", u, b)
@@ -33,10 +34,11 @@ def trmean_counts_hopper(u: torch.Tensor, b: int):
     the coordinates where each worker was among the b smallest or b
     largest).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises.  ``trmean_counts_hopper.launches`` counts kernel launches.
+    m <= ``build.MAX_M["trmean_counts"]``.  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises.
+    ``trmean_counts_hopper.launches`` counts kernel launches.
     """
-    build.check_matrix(u, b)
+    build.check_matrix(u, b, "trmean_counts")
     if u.device.type == "cpu":
         return trmean_counts_ref(u, b)
     out = build.launch("trmean_counts", u, b)

@@ -15,6 +15,8 @@ import torch
 from test_kernels import _assert_phocas_close
 
 from repro.core import aggregators as ragg
+from repro.core.registry import RuleParams as RRuleParams
+from repro.core.registry import make_rule as rmake_rule
 from repro.kernels.phocas.kernel import phocas_pallas
 from repro.kernels.phocas.ref import phocas_ref as jphocas_oracle
 from repro.kernels.trmean.kernel import trmean_pallas
@@ -189,10 +191,13 @@ def test_ops_b0_is_the_plain_mean(name, monkeypatch):
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
-    with pytest.raises(ValueError, match="m <= 64"):
-        trmean_hopper(torch.zeros((65, 4)), 2)
-    with pytest.raises(ValueError, match="m <= 64"):
-        phocas_hopper(torch.zeros((65, 4)), 2)
+    for wrapper, name in ((trmean_hopper, "trmean"),
+                          (phocas_hopper, "phocas")):
+        cap = build.MAX_M[name]             # one column in shared memory
+        assert cap >= 4096
+        with pytest.raises(ValueError,
+                           match=f"m <= {cap} workers, got m={cap + 1}"):
+            wrapper(torch.zeros((cap + 1, 2)), 2)
     with pytest.raises(ValueError, match="dtype|take"):
         trmean_hopper(torch.zeros((5, 4), dtype=torch.float64), 1)
     with pytest.raises(ValueError, match="CUDA"):
@@ -215,3 +220,110 @@ def test_plain_cpu_path_never_counts_as_a_launch():
     trmean_hopper(t, 2)
     phocas_hopper(t, 2)
     assert (trmean_hopper.launches, phocas_hopper.launches) == before
+
+
+# Past the register kernels' m = 64: (m, b) with b up to (m+1)//2 - 1.  The
+# reference's phocas network variant takes about a minute to trace in
+# interpret mode at m = 80 and three at m = 128, so phocas meets the
+# reference's Pallas kernels at (80, 2), (80, 10) and (128, 2), (128, 9), and
+# its XLA path at the largest b (the values the Pallas kernels also give on
+# these finite inputs).
+WIDE_CASES = [(80, 2), (80, 10), (80, 39), (128, 2), (128, 9), (128, 63)]
+
+
+def _reference_backend(name, m, b):
+    return "xla" if name == "phocas" and b in (39, 63) else "pallas"
+
+
+@pytest.mark.parametrize("m,b", WIDE_CASES)
+@pytest.mark.parametrize("name", ["trmean", "phocas"])
+def test_wide_m_matches_reference(name, m, b):
+    """``aggregate_matrix`` on ``backend="pallas"`` past m = 64: plain, with
+    scores, and gated (three workers ejected), against the reference's
+    ``aggregate_matrix``; the drop counts behind the scores equal the
+    reference's as integers."""
+    from repro.core.robust import RobustConfig as RRobustConfig
+    from repro.core.robust import aggregate_matrix as raggregate
+    from repro_torch.core.robust import RobustConfig, aggregate_matrix
+    u = _matrix(m, 96, 7 * m + b)
+    cfg = RobustConfig(rule=name, b=b, backend="pallas")
+    rcfg = RRobustConfig(rule=name, b=b,
+                         backend=_reference_backend(name, m, b))
+
+    def close(got, want, tag):
+        if name == "phocas":
+            _assert_phocas_close(jnp.asarray(u), b, got, np.asarray(want),
+                                 atol=ATOL)
+        else:
+            np.testing.assert_allclose(got, np.asarray(want), atol=ATOL,
+                                       err_msg=tag)
+
+    close(aggregate_matrix(torch.tensor(u), cfg).numpy(),
+          raggregate(jnp.asarray(u), rcfg), "plain")
+    active = np.ones(m, np.float32)
+    active[[0, m // 2, m - 1]] = 0.0
+    for act in (None, active):
+        agg, scores = aggregate_matrix(
+            torch.tensor(u), cfg, with_scores=True,
+            active=None if act is None else torch.tensor(act))
+        ragg_, rscores = raggregate(
+            jnp.asarray(u), rcfg, with_scores=True,
+            active=None if act is None else jnp.asarray(act))
+        tag = "gated" if act is not None else "scores"
+        close(agg.numpy(), ragg_, tag)
+        np.testing.assert_allclose(scores.numpy(), np.asarray(rscores),
+                                   atol=1e-6, err_msg=tag)
+    _, counts, _ = make_rule(name, RuleParams(b=b, backend="pallas"))._stats(
+        torch.tensor(u), b)
+    _, rcounts, _ = rmake_rule(name, RRuleParams(
+        b=b, backend=rcfg.backend))._stats(jnp.asarray(u), b)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(rcounts))
+
+
+@pytest.mark.parametrize("name", ["trmean", "phocas"])
+def test_counts_above_128_workers_come_from_the_counts_kernel(name,
+                                                              monkeypatch):
+    """At m = 200, past the reference's 128 counts lanes (where the
+    reference takes its counts from the XLA selection pass), the port's
+    counts still come from the counts kernel's wrapper and the gated
+    aggregate from the aggregate kernel's; aggregates and scores equal the
+    reference's, and the counts equal them as integers."""
+    from repro.core.robust import RobustConfig as RRobustConfig
+    from repro.core.robust import aggregate_matrix as raggregate
+    from repro_torch.core.robust import RobustConfig, aggregate_matrix
+
+    calls = {"counts": [], "agg": []}
+
+    def spy(tag, wrapper):
+        def counted(u, b):
+            calls[tag].append(u.shape[0])
+            return wrapper(u, b)
+        return counted
+
+    monkeypatch.setattr(tops, f"{name}_counts_hopper",
+                        spy("counts", getattr(tops, f"{name}_counts_hopper")))
+    monkeypatch.setattr(tops, f"{name}_hopper",
+                        spy("agg", getattr(tops, f"{name}_hopper")))
+    m, b = 200, 20
+    u = _matrix(m, 64, 5)
+    active = np.ones(m, np.float32)
+    active[:4] = 0.0
+    cfg = RobustConfig(rule=name, b=b, backend="pallas")
+    rcfg = RRobustConfig(rule=name, b=b, backend="pallas")
+    for act in (None, active):
+        agg, scores = aggregate_matrix(
+            torch.tensor(u), cfg, with_scores=True,
+            active=None if act is None else torch.tensor(act))
+        ragg_, rscores = raggregate(
+            jnp.asarray(u), rcfg, with_scores=True,
+            active=None if act is None else jnp.asarray(act))
+        np.testing.assert_allclose(agg.numpy(), np.asarray(ragg_), atol=ATOL)
+        np.testing.assert_allclose(scores.numpy(), np.asarray(rscores),
+                                   atol=1e-6)
+    assert calls == {"counts": [m, m], "agg": [m]}   # agg: the gated step
+    _, counts, _ = make_rule(name, RuleParams(b=b, backend="pallas"))._stats(
+        torch.tensor(u), b)
+    assert calls["counts"] == [m, m, m]
+    _, rcounts, _ = rmake_rule(name, RRuleParams(
+        b=b, backend="pallas"))._stats(jnp.asarray(u), b)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(rcounts))

@@ -148,8 +148,12 @@ def test_with_counts_facade_matches_reference_ops(name):
 
 def test_counts_wrappers_refuse_what_the_kernels_do_not_take():
     for wrapper in (phocas_counts_hopper, trmean_counts_hopper):
-        with pytest.raises(ValueError, match="m <= 64"):
-            wrapper(torch.zeros((65, 4)), 2)
+        cap = build.MAX_M[wrapper.__name__.replace("_hopper", "")]
+        assert cap >= 4096
+        with pytest.raises(ValueError,
+                           match=f"m <= {cap} workers, got m={cap + 1}"):
+            wrapper(torch.zeros((cap + 1, 4)), 2)
+        wrapper(torch.zeros((129, 4)), 2)   # past the reference's 128 lanes
         with pytest.raises(ValueError, match="out of range"):
             wrapper(torch.zeros((8, 4)), 4)
         with pytest.raises(ValueError, match="dtype|take"):
@@ -269,3 +273,172 @@ def test_threshold_walk_drops_on_fixed_tie_matrices(m):
         want = torch.stack(tsel.trim_drop_masks(tsel.stable_ranks(rows), b,
                                                 "trmean"))
         assert torch.equal(_threshold_walk_drops(torch.tensor(u), b), want), b
+
+
+def _far_walk_drops(u: torch.Tensor, b: int) -> torch.Tensor:
+    """K3's counting rule for m <= 64 (``csrc/selection.cuh::
+    tally_far_drops``) as a plain loop over the workers: an (m, d) bool mask
+    of the coordinates at which each worker is dropped.  W is the best
+    window's score of the window search (``nearest_window_mean``); worker i
+    drops iff its distance exceeds W, or equals W while the distances below
+    W plus the earlier workers at W number at least m - b.  A NaN or
+    infinite center makes every window's score, so W, NaN: nobody drops."""
+    keys = torch.where(torch.isnan(u), torch.inf, u.float())
+    m = keys.shape[0]
+    drops = torch.zeros(keys.shape, dtype=torch.bool)
+    if b == 0:
+        return drops
+    srt = torch.sort(keys, dim=0).values
+    center = tsel.trimmed_mean_of_sorted(list(srt), b)
+    k = m - b
+    width = torch.maximum(center - srt[0], srt[k - 1] - center)
+    for w in range(1, b + 1):
+        score = torch.maximum(center - srt[w], srt[w + k - 1] - center)
+        width = torch.where(score < width, score, width)
+    dist = (keys - center).abs()
+    below = (dist < width).sum(0)
+    seen = torch.zeros_like(below)
+    for i in range(m):
+        at = dist[i] == width
+        drops[i] = (dist[i] > width) | (at & (below + seen >= m - b))
+        seen += at.long()
+    return drops
+
+
+def _phocas_rank_drops(u: np.ndarray, b: int):
+    """The plain counts' drops: stable ranks of |row - center| (port), and
+    the reference's ranks of the same distances."""
+    rows = tsel.worker_rows(torch.tensor(u))
+    center = tsel.trimmed_mean_of_sorted(tsel.sorted_rows(rows), b)
+    ranks = tsel.stable_ranks([(r - center).abs() for r in rows])
+    want = torch.stack(tsel.trim_drop_masks(ranks, b, "phocas"))
+    rrows = rsel.worker_rows(jnp.asarray(u))
+    rcenter = jnp.asarray(center.numpy())
+    rranks = np.stack([np.asarray(r) for r in rsel.stable_ranks(
+        [jnp.abs(r - rcenter) for r in rrows])])
+    return want, rranks >= u.shape[0] - b
+
+
+@given(_tie_heavy())
+@settings(max_examples=40, deadline=None)
+def test_far_walk_drops_equal_stable_rank_drops(case):
+    """K3's O(m) rule names exactly the workers whose distance's stable rank
+    r has r >= m - b: against the port's ranks, the reference's ranks and the
+    plain counts, with ties, +-inf, NaN keys and NaN or infinite centers."""
+    u, b = case
+    got = _far_walk_drops(torch.tensor(u), b)
+    want, rwant = _phocas_rank_drops(u, b)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.numpy(), rwant)
+    _, counts = phocas_counts_ref(torch.tensor(u), b)
+    assert torch.equal(got.sum(1).float(), counts)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 20, 33, 64])
+def test_far_walk_drops_on_fixed_tie_matrices(m):
+    """Every valid b on one tie-heavy matrix per m, with a column of
+    alternating +-inf (a NaN center), a column mostly +inf (a center of
+    +inf) and a column of equal distances on both sides of the center."""
+    rng = np.random.default_rng(100 + m)
+    u = rng.integers(-1, 2, (m, 48)).astype(np.float32)
+    u[m // 3:m // 3 + max(1, m // 4)] = 0.0
+    u[m - 1, ::2] = np.inf
+    u[m - 1, 1::2] = -np.inf
+    u[0::2, 0] = np.inf
+    u[1::2, 0] = -np.inf
+    u[: max(1, (3 * m) // 4), 1] = np.inf
+    u[:, 2] = np.where(np.arange(m) % 2 == 0, -1.0, 1.0)
+    for b in range((m + 1) // 2):
+        want, rwant = _phocas_rank_drops(u, b)
+        got = _far_walk_drops(torch.tensor(u), b)
+        assert torch.equal(got, want), b
+        np.testing.assert_array_equal(got.numpy(), rwant)
+
+
+def _wide_sorted_order(keys: np.ndarray, pad: float) -> np.ndarray:
+    """The shared-memory variant's sort (``csrc/selection_wide.cuh``
+    ``warp_bitonic_sort`` with ``pair_before``), column by column: the
+    bitonic network over the padded power of two p on (key, index) pairs,
+    ordered by key with NaN after every number, then by index; padding keys
+    ``pad`` with indices >= m.  Returns the (p, d) worker index at each
+    sorted position."""
+    m, d = keys.shape
+    p = 1 << max(0, (m - 1).bit_length())
+    key = np.full((p, d), pad, dtype=np.float32)
+    key[:m] = keys
+    idx = np.repeat(np.arange(p)[:, None], d, axis=1)
+    t = np.arange(p // 2)
+    k = 2
+    while k <= p:
+        j = k >> 1
+        while j > 0:
+            i = ((t & ~(j - 1)) << 1) | (t & (j - 1))
+            lo, hi = i, i + j
+            up = ((i & k) == 0)[:, None]
+            a, c = key[lo], key[hi]
+            ia, ic = idx[lo], idx[hi]
+
+            def before(x, ix, y, iy):
+                xn, yn = np.isnan(x), np.isnan(y)
+                both = np.where(xn == yn, ix < iy, yn)
+                num = (x < y) | ((x == y) & (ix < iy))
+                return np.where(xn | yn, both, num)
+
+            swap = np.where(up, before(c, ic, a, ia), before(a, ia, c, ic))
+            key[lo], key[hi] = np.where(swap, c, a), np.where(swap, a, c)
+            idx[lo], idx[hi] = np.where(swap, ic, ia), np.where(swap, ia, ic)
+            j >>= 1
+        k <<= 1
+    return idx
+
+
+def _positions(order: np.ndarray, m: int) -> np.ndarray:
+    """(m, d) sorted position of each worker from the (p, d) order."""
+    pos = np.empty((m, order.shape[1]), dtype=np.int64)
+    cols = np.arange(order.shape[1])
+    for q in range(m):
+        pos[order[q], cols] = q
+    return pos
+
+
+@st.composite
+def _wide_case(draw):
+    """(u, b): m in 65..128, every valid b, entries from a set of 3 values
+    with +-inf and NaN sprinkled in at a drawn rate."""
+    m = draw(st.integers(65, 128))
+    b = draw(st.integers(0, (m + 1) // 2 - 1))
+    rng = np.random.default_rng(draw(st.integers(0, 2**31 - 1)))
+    values = draw(st.sampled_from([(-1.0, 0.0, 1.0), (2.5, 3.0, 1e20),
+                                   (0.0, -0.0, 7.0)]))
+    u = rng.choice(np.asarray(values, dtype=np.float32), size=(m, 16))
+    rate = draw(st.sampled_from([0.0, 0.05, 0.3, 0.6]))
+    special = np.asarray([np.inf, -np.inf, np.nan], dtype=np.float32)
+    hit = rng.random((m, 16)) < rate
+    u[hit] = rng.choice(special, size=int(hit.sum()))
+    return u, b
+
+
+@given(_wide_case())
+@settings(max_examples=25, deadline=None)
+def test_wide_pair_sort_positions_are_stable_ranks(case):
+    """Past m = 64 the shared-memory variant's position of a worker in its
+    sorted (key, index) pairs is its stable rank (the plain path's double
+    argsort), so K4's drops (positions < b or >= m - b) and K3's (distance
+    positions >= m - b) equal the plain versions' counts as integers."""
+    u, b = case
+    m = u.shape[0]
+    keys = np.where(np.isnan(u), np.inf, u)
+    pos = _positions(_wide_sorted_order(keys, np.inf), m)
+    ranks = torch.stack(tsel.stable_ranks(tsel.worker_rows(torch.tensor(u))))
+    np.testing.assert_array_equal(pos, ranks.numpy())
+    _, counts = trmean_counts_ref(torch.tensor(u), b)
+    np.testing.assert_array_equal(((pos < b) | (pos >= m - b)).sum(1),
+                                  counts.numpy())
+
+    rows = tsel.worker_rows(torch.tensor(u))
+    center = tsel.trimmed_mean_of_sorted(tsel.sorted_rows(rows), b).numpy()
+    with np.errstate(invalid="ignore"):          # inf - inf in a column
+        dist = np.abs(keys - center)
+    dpos = _positions(_wide_sorted_order(dist, np.nan), m)
+    _, pcounts = phocas_counts_ref(torch.tensor(u), b)
+    np.testing.assert_array_equal((dpos >= m - b).sum(1), pcounts.numpy())

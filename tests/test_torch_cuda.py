@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.core.registry import RuleParams, make_rule
+from repro_torch.kernels import build
 from repro_torch.kernels.flashattn.kernel import flash_attention_hopper
 from repro_torch.kernels.flashattn.ref import flash_attention_ref
 from repro_torch.kernels.krum.kernel import pairwise_sq_dists_hopper
@@ -33,6 +34,16 @@ from repro_torch.kernels.trmean.ref import trmean_counts_ref, trmean_ref
 PAIRS = ((trmean_hopper, trmean_ref), (phocas_hopper, phocas_ref))
 COUNTS_PAIRS = ((trmean_counts_hopper, trmean_counts_ref),
                 (phocas_counts_hopper, phocas_counts_ref))
+# m past the register kernels' 64, where the shared-memory variant runs.
+WIDE_MS = [65, 80, 96, 127, 128, 200, 1024]
+
+
+def _bs(m):
+    """Every b up to m = 64; past it 0, 1, the middle and the largest."""
+    bmax = (m + 1) // 2 - 1
+    if m <= 64:
+        return range(bmax + 1)
+    return sorted({0, 1, bmax // 2, bmax})
 
 
 @pytest.fixture
@@ -66,10 +77,11 @@ def _assert_same(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 2, 3, 8, 9, 16, 20, 33, 64])
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 9, 16, 20, 33, 64, 65, 80, 128,
+                               200, 1024])
 def test_kernels_equal_plain_versions(cuda, m):
     for name, u in _matrices(m, 3001, cuda).items():
-        for b in range((m + 1) // 2):
+        for b in _bs(m):
             for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 x = u.to(dtype) if name != "big" else u
                 for kernel, ref in PAIRS:
@@ -85,8 +97,9 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     u = torch.zeros((8, 16), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         trmean_hopper(u.t().contiguous().t(), 2)
-    with pytest.raises(ValueError, match="m <= 64"):
-        phocas_hopper(torch.zeros((65, 16), device=cuda), 2)
+    cap = build.MAX_M["phocas"]
+    with pytest.raises(ValueError, match=f"m <= {cap} workers, got"):
+        phocas_hopper(torch.zeros((cap + 1, 16), device=cuda), 2)
 
 
 @pytest.mark.cuda
@@ -103,7 +116,7 @@ def test_auto_backend_launches_the_kernel_on_cuda(cuda, rule):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", range(1, 65))
+@pytest.mark.parametrize("m", list(range(1, 65)) + WIDE_MS)
 def test_counts_kernels_equal_plain_versions(cuda, m):
     bmax = (m + 1) // 2 - 1
     bs = sorted({0, 1, bmax // 2, bmax} & set(range(bmax + 1)))
@@ -137,7 +150,7 @@ def _tie_matrix(m, d, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", range(1, 65))
+@pytest.mark.parametrize("m", list(range(1, 65)) + WIDE_MS)
 def test_counts_kernels_equal_plain_versions_on_ties(cuda, m):
     """The b of test_counts_kernels_equal_plain_versions on the tie-heavy
     matrix, where K4's O(m) counts settle most drops by the index walk."""
@@ -157,27 +170,32 @@ def test_counts_kernels_equal_plain_versions_on_ties(cuda, m):
 
 @pytest.mark.cuda
 def test_counts_kernels_reject_what_they_do_not_take(cuda):
-    with pytest.raises(ValueError, match="m <= 64"):
-        phocas_counts_hopper(torch.zeros((65, 16), device=cuda), 2)
-    with pytest.raises(ValueError, match="m <= 64"):
-        trmean_counts_hopper(torch.zeros((65, 16), device=cuda), 2)
+    for kernel, name in ((phocas_counts_hopper, "phocas_counts"),
+                         (trmean_counts_hopper, "trmean_counts")):
+        cap = build.MAX_M[name]
+        with pytest.raises(ValueError,
+                           match=f"m <= {cap} workers, got m={cap + 1}"):
+            kernel(torch.zeros((cap + 1, 16), device=cuda), 2)
     with pytest.raises(ValueError, match="contiguous"):
         trmean_counts_hopper(torch.zeros((16, 8), device=cuda).t(), 2)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [20, 96, 200])
 @pytest.mark.parametrize("rule", ["trmean", "phocas"])
-def test_defended_aggregation_launches_the_kernels_on_cuda(cuda, rule):
-    """One counts launch per defended aggregation; the aggregate kernel runs
-    again only once a worker is ejected; the plain backend agrees."""
-    u = _matrices(20, 777, cuda)["gauss"].reshape(20, 7, 111)
+def test_defended_aggregation_launches_the_kernels_on_cuda(cuda, rule, m):
+    """One counts launch per defended aggregation, past the reference's 128
+    counts lanes too; the aggregate kernel runs again only once a worker is
+    ejected; the plain backend agrees."""
+    u = _matrices(m, 777, cuda)["gauss"].reshape(m, 7, 111)
     counts_k = trmean_counts_hopper if rule == "trmean" else \
         phocas_counts_hopper
     agg_k = trmean_hopper if rule == "trmean" else phocas_hopper
-    kernel_rule = make_rule(rule, RuleParams(b=6, backend="auto"))
-    plain_rule = make_rule(rule, RuleParams(b=6, backend="xla"))
-    for active in (torch.ones(20, device=cuda),
-                   torch.tensor([0.0] * 3 + [1.0] * 17, device=cuda)):
+    b = 6 if m == 20 else m // 4
+    kernel_rule = make_rule(rule, RuleParams(b=b, backend="auto"))
+    plain_rule = make_rule(rule, RuleParams(b=b, backend="xla"))
+    for active in (torch.ones(m, device=cuda),
+                   torch.tensor([0.0] * 3 + [1.0] * (m - 3), device=cuda)):
         n_counts, n_agg = counts_k.launches, agg_k.launches
         agg, scores = kernel_rule.reduce_gated_with_scores(u, active)
         ejected = int((active == 0).sum()) > 0
@@ -210,7 +228,7 @@ def _assert_gram_close(u, got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 2, 5, 20, 31, 32, 33, 64, 100])
+@pytest.mark.parametrize("m", [1, 2, 5, 20, 31, 32, 33, 64, 100, 130])
 def test_gram_kernel_equals_plain_version(cuda, m):
     for name, u in _matrices(m, 3001, cuda).items():
         for x in (10.0 * u, u.to(torch.bfloat16), u.to(torch.float16)):

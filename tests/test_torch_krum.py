@@ -131,11 +131,14 @@ def test_gram_build_signature_and_blocks():
             'void* scratch, int m,') in text
     assert "atomicAdd" not in text
     assert len(build._argtypes("krum_gram")) == 8
-    assert build.gram_blocks(20, 118_282, 132) == 8 * 132
-    assert build.gram_blocks(20, 100, 132) == 2              # two tiles
-    big = build.gram_blocks(3000, 10**7, 132)
-    assert big * 3000 * 3001 // 2 <= build.GRAM_SCRATCH_FLOATS
-    assert big >= 1
+    # 463 tiles of 256 columns, four a block; 9,496 tiles, two blocks an SM
+    assert build.gram_blocks(20, 118_282, 132) == 116
+    assert build.gram_blocks(20, 2_430_826, 132) == 2 * 132
+    assert build.gram_blocks(20, 100, 132) == 1              # one tile
+    # the partials and their totals fit the cap, down to one block
+    big = build.gram_blocks(2000, 10**7, 132)
+    assert big == 3 and (big + 1) * 2000 * 2000 <= build.GRAM_SCRATCH_FLOATS
+    assert build.gram_blocks(3000, 10**7, 132) == 1
 
 
 # ---------------------------------------------------------------------------
