@@ -17,17 +17,25 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
    tie) and, for the counts kernels K3/K4, drop counts equal as integers;
    K3/K4 also on a tie-heavy matrix (values in {-1, 0, 1}, a constant row
    block, a row of alternating +-inf) for every b, counts equal as
-   integers and the aggregate bit for bit; then past the register kernels'
-   m = 64, K1-K4's shared-memory variant at m in {65, 80, 128, 200, 1024}
-   and d = 118,282 on the same matrices, for b in {0, 2,
-   m/4, (m+1)//2 - 1};
+   integers and the aggregate bit for bit; K1-K4 in the register bucket of
+   every m in 1..64 at d = 4,099 (a partial last block) on adversarial and
+   tie-heavy matrices for b in {0, 1, m/4, (m+1)//2 - 1}, the tie-heavy
+   one bit for bit; then past the register kernels' m = 64, K1-K4's
+   shared-memory variants at m in {65, 80, 96, 128, 200, 1024} and K1/K2
+   also at 1,025, past the warp-register sort's 1,024, at d = 118,282 on
+   the same matrices, for b in {0, 2, m/4, (m+1)//2 - 1};
    K5 also on Gaussian rows at scale 10 and at m in {5, 64, 100}, with NaN
    and inf at the same places, finite entries within 1e-6 * max + 1e-3 of
    the plain version evaluated in f64, symmetric and bitwise repeatable
-   output.  Time each kernel and its plain
-   version at the main-path shapes beside its bound, K1 and K3 also at the
-   serving run's logits (3, 8 x 49,152) with b = 1 and K1-K4 at m = 128, and
-   K5 beside ``torch.mm(u, u.T)`` (TF32 off);
+   output; K1 and K3 at the serving run's logits (3, 8 x 49,152) with
+   b = 1 on Gaussian logits and the adversarial matrices.  Time each kernel
+   and its plain version at the main-path shapes beside its bound, K1 and
+   K3 also at the serving logits and K1-K4 at m = 128, and K5 beside
+   ``torch.mm(u, u.T)`` (TF32 off); K1 at each shape its design answers to
+   (``K1_SHAPES``: the CNN width in f32 and bf16, the MLP width, the
+   serving logits, m = 128 and 96), held to its plain version there and
+   timed beside its bound and ``torch.sum(u, 0)``, one library read of the
+   same bytes, as a floor;
 3. training through ``run_experiment`` on the card, checking finite,
    decreasing losses and the kernel launches of every run:
    - the paper's MNIST MLP (784-128-128-10, m=20, 32 samples per worker,
@@ -124,8 +132,19 @@ KERNEL_META = {
 TRIM_KERNELS = ("phocas", "trmean", "phocas_counts", "trmean_counts")
 GRAM_MS = (5, 64, 100)          # worker counts beyond the main path's m
 # Worker counts past the register kernels' 64, where K1-K4 run their
-# shared-memory variant.
-WIDE_MS = (65, 80, 128, 200, 1024)
+# shared-memory variants; K1/K2 sort in one warp's registers up to
+# build.WARP_SORT_MAX_M (1,024) and in shared memory past it (wide_phase
+# also runs them at build.WARP_SORT_MAX_M + 1).
+WIDE_MS = (65, 80, 96, 128, 200, 1024)
+# K1's shapes (m, d, b, dtype): the CNN and MLP widths of the paper's runs,
+# the serving run's logits, and past 64 workers m = 128 and the defended
+# m = 96 run's.
+K1_SHAPES = ((20, 2_430_826, 8, torch.float32),
+             (20, 2_430_826, 8, torch.bfloat16),
+             (20, 118_282, 8, torch.float32),
+             (3, 8 * 49_152, 1, torch.float32),
+             (128, 118_282, 32, torch.float32),
+             (96, 118_282, 24, torch.float32))
 SERVE_LOGITS = (3, 8 * 49_152)   # robust decode: k = 3 replicas x 8 slots'
                                  # granite-8b logits
 
@@ -164,19 +183,20 @@ def check(cond: bool, msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 def adversarial_matrices(m: int, d: int, gen: torch.Generator):
-    """The inputs each kernel is held to, as (name, (m, d) f32 on cuda)."""
+    """The inputs each kernel is held to, as (name, (m, d) f32 on cuda).
+    The special rows are taken modulo m, so any m >= 1 works."""
     from repro_torch.core.attacks import bitflip_attack
     base = 3.0 + torch.randn((m, d), generator=gen, device=gen.device)
     dups = torch.round(2.0 * base) / 2.0          # exact boundary ties
     big = base.clone()
-    big[3] = -1e20
-    big[11] = 1e20
-    big[5, ::7] = -1e20
+    big[3 % m] = -1e20
+    big[11 % m] = 1e20
+    big[5 % m, ::7] = -1e20
     nonfinite = base.clone()
-    nonfinite[2, ::10] = float("nan")
-    nonfinite[7, 1::10] = float("inf")
-    nonfinite[9, 2::10] = float("-inf")
-    nonfinite[4, 3::13] = float("nan")
+    nonfinite[2 % m, ::10] = float("nan")
+    nonfinite[7 % m, 1::10] = float("inf")
+    nonfinite[9 % m, 2::10] = float("-inf")
+    nonfinite[4 % m, 3::13] = float("nan")
     flipped = bitflip_attack(gen, base, 8, num_dims=d)
     return [("gauss", base), ("duplicates", dups), ("pm1e20", big),
             ("nan_inf", nonfinite), ("bitflip", flipped)]
@@ -356,7 +376,34 @@ def kernel_phase(gen: torch.Generator) -> dict:
               f"{times['trmean_counts', d, 6] / times['trmean', d, 6]:.2f}; "
               f"K3 / K1 at b=8: "
               f"{times['phocas_counts', d, 8] / times['phocas', d, 8]:.2f}")
+    serve_logits_phase(gen, pairs, report)
+    return report
+
+
+def serve_logits_phase(gen: torch.Generator, pairs: dict,
+                       report: dict) -> None:
+    """K1 and K3 at the serving run's logits (3, 8 x 49,152) with b = 1, the
+    shape robust decode gives them: each against its plain version on
+    Gaussian logits and the adversarial matrices (counts equal as
+    integers), then both timed beside their plain versions and bounds.  At
+    this d K1's one-wave grid gives each thread a second column."""
     u = torch.randn(SERVE_LOGITS, generator=gen, device=gen.device)
+    mats = [("logits", u)] + adversarial_matrices(*SERVE_LOGITS, gen)
+    for kname in ("phocas", "phocas_counts"):
+        kernel, ref = pairs[kname]
+        for mname, x in mats:
+            got = kernel(x, 1)
+            want = ref(x, 1)
+            torch.cuda.synchronize()
+            err = compare_kernel(kname, x, 1, got, want)
+            report[kname]["max_abs_err"] = max(report[kname]["max_abs_err"],
+                                               err)
+            if err:
+                print(f"  {kname} {SERVE_LOGITS} {mname} b=1: max|diff| "
+                      f"{err:.3e}")
+    print(f"phocas and phocas_counts == plain at the serving logits "
+          f"{SERVE_LOGITS} for b=1 on logits/gauss/duplicates/pm1e20/nan_inf/"
+          f"bitflip, counts equal: ok")
     for kname in ("phocas", "phocas_counts"):
         kernel, ref = pairs[kname]
         bnd, bound_by = bound_ms(kname, *SERVE_LOGITS, 4)
@@ -365,7 +412,55 @@ def kernel_phase(gen: torch.Generator) -> dict:
         print(f"  {kname:13s} serving logits {SERVE_LOGITS} b=1: kernel "
               f"{k_ms:.4f} ms  plain {p_ms:.3f} ms  bound {bnd * 1e3:.2f} us "
               f"({bound_by})  {bnd / k_ms:.1%} of bound")
-    return report
+
+
+def register_phase(gen: torch.Generator, report: dict) -> None:
+    """K1-K4 in the register bucket of every m in 1..64, at d = 4,099,
+    against their plain versions: the tie-heavy matrix bit for bit, the
+    others by compare_kernel, counts equal as integers."""
+    from repro_torch.kernels import build
+    pairs = {k: v for k, v in wrappers().items() if k in TRIM_KERNELS}
+    d = 4099
+    for m in range(1, build.REGISTER_BUCKETS[-1] + 1):
+        bmax = (m + 1) // 2 - 1
+        bs = sorted({0, 1, m // 4, bmax} & set(range(bmax + 1)))
+        mats = adversarial_matrices(m, d, gen)
+        for mname, u in mats + [("ties", tie_matrix(m, d, gen))]:
+            for b in bs:
+                for kname, (kernel, ref) in pairs.items():
+                    if mname == "ties":
+                        tie_check(kname, u, b)
+                        continue
+                    err = compare_kernel(kname, u, b, kernel(u, b), ref(u, b))
+                    report[kname]["max_abs_err"] = max(
+                        report[kname]["max_abs_err"], err)
+    torch.cuda.synchronize()
+    print(f"register buckets {build.REGISTER_BUCKETS}: {list(pairs)} == plain "
+          f"at every m in 1..64, d = {d:,}, b in {{0, 1, m/4, (m+1)//2 - 1}} "
+          f"on gauss/duplicates/pm1e20/nan_inf/bitflip, the tie-heavy matrix "
+          f"bit for bit, counts equal: ok")
+
+
+def k1_shape_phase(gen: torch.Generator, report: dict) -> None:
+    """K1 at each of K1_SHAPES against its plain version, then timed beside
+    its bound and ``torch.sum(u, 0)``, a library read of the same bytes
+    under the same timing, as a floor."""
+    from repro_torch.kernels.phocas.kernel import phocas_hopper
+    from repro_torch.kernels.phocas.ref import phocas_ref
+    print("K1 at its shapes (== plain; median of 15, L2 flushed):")
+    for m, d, b, dtype in K1_SHAPES:
+        u = (3.0 + torch.randn((m, d), generator=gen, device=gen.device)
+             ).to(dtype)
+        err = compare("phocas", u, b, phocas_hopper(u, b), phocas_ref(u, b))
+        report["phocas"]["max_abs_err"] = max(report["phocas"]["max_abs_err"],
+                                              err)
+        bnd, bound_by = bound_ms("phocas", m, d, u.element_size())
+        k_ms = time_ms(lambda: phocas_hopper(u, b))
+        floor_ms = time_ms(lambda: torch.sum(u, 0))
+        print(f"  phocas ({m}, {d:,}) b={b} {str(dtype)[6:]}: kernel "
+              f"{k_ms:.4f} ms  sum(u, 0) {floor_ms:.4f} ms  bound "
+              f"{bnd * 1e3:.2f} us ({bound_by})  {bnd / k_ms:.1%} of bound, "
+              f"kernel / floor {k_ms / floor_ms:.2f}")
 
 
 def wide_bs(m: int) -> list:
@@ -375,14 +470,17 @@ def wide_bs(m: int) -> list:
 
 def wide_phase(gen: torch.Generator, report: dict) -> None:
     """K1-K4 past the register kernels' m = 64, on their shared-memory
-    variant: each against its plain version at d = 118,282 on the
-    adversarial matrices and the tie-heavy matrix (there bit for bit) for b
-    in {0, 2, m/4, (m+1)//2 - 1}, counts equal as integers; then each
-    kernel's time beside its bound at m = 128."""
+    variants (K1/K2 also just past the warp-register sort):
+    each against its plain version at d = 118,282 on the adversarial
+    matrices and the tie-heavy matrix (there bit for bit) for b in {0, 2,
+    m/4, (m+1)//2 - 1}, counts equal as integers; then each kernel's time
+    beside its bound at m = 128."""
+    from repro_torch.kernels import build
     pairs = {k: v for k, v in wrappers().items() if k in TRIM_KERNELS}
     d = SHAPES[0][1]
-    for m in WIDE_MS:
-        names = list(pairs)
+    switch_m = build.WARP_SORT_MAX_M + 1
+    for m in (*WIDE_MS, switch_m):
+        names = list(pairs) if m != switch_m else ["phocas", "trmean"]
         mats = adversarial_matrices(m, d, gen)
         for mname, u in mats:
             for b in wide_bs(m):
@@ -1263,7 +1361,9 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = kernel_phase(gen)
+    register_phase(gen, report)
     wide_phase(gen, report)
+    k1_shape_phase(gen, report)
     report["krum_gram"] = gram_phase(gen)
     launches = train_phase()
     launches.update(vector_phase())

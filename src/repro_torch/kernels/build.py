@@ -48,12 +48,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Kernel dtype codes (csrc/selection.cuh kF32 / kF16 / kBF16).
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # Worker counts the selection kernels take.  m <= 64 (selection.cuh
-# kRegisterMaxM) runs the register design, larger m the shared-memory
-# variant (selection_wide.cuh).  That variant takes any m whose column,
-# padded to a power of two, fits a block's shared memory with the kernel's
-# other per-column arrays and its (m,) tally (wide_layout): one array for
-# K1/K2, two for K4, three for K3.  Each cap below is the largest power of
-# two that fits.
+# kRegisterMaxM) runs the register design, in the instance of the smallest
+# of REGISTER_BUCKETS >= m (selection.cuh next_bucket); larger m the
+# shared-memory variants (selection_wide.cuh): K1/K2 up to WARP_SORT_MAX_M
+# (kWarpSortMaxM) sort each column in one warp's registers, above it and for
+# K3/K4 in shared memory.  The shared-memory variants take any m whose
+# column, padded to a power of two, fits a block's shared memory with the
+# kernel's other per-column arrays and its (m,) tally (wide_layout): one
+# array for K1/K2, two for K4, three for K3.  Each cap below is the largest
+# power of two that fits.
+REGISTER_BUCKETS = (4, 8, 12, 16, 20, 24, 32, 48, 64)
+WARP_SORT_MAX_M = 1024
 MAX_M = {"trmean": 32768, "phocas": 32768, "trmean_counts": 16384,
          "phocas_counts": 8192}
 GRAM_TILE = 256       # columns of one staged tile (krum_gram.cu kGramTile)

@@ -49,9 +49,9 @@
 // inf - inf.
 #include <cooperative_groups.h>
 
-#include <atomic>
 #include <type_traits>
 
+#include "residency.cuh"
 #include "selection.cuh"
 
 namespace cg = cooperative_groups;
@@ -345,46 +345,22 @@ inline size_t gram_smem_bytes(int stage_rows) {
   return ring > red ? ring : red;
 }
 
-constexpr int kGramMaxDevices = 16;
 constexpr int kGramRingSizes = 2 * kGramRows / 4 + 1;   // stage_rows / 4
 
-// The SMs of `device` and the blocks of gram_kernel<T> an SM holds with a
-// ring of stage_rows rows.  The runtime calls behind them (the shared-memory
-// opt-in, set once to the largest ring any m needs, and the occupancy query)
-// run once per device, dtype and ring size, not at every launch.  Threads
-// racing on a first call store the same values.
+// Names resident_blocks' cache of gram_kernel<T>: one slot per ring size.
+template <typename T>
+struct GramResidency {};
+
+// The SMs of the current device and the blocks of gram_kernel<T> an SM holds
+// with a ring of stage_rows rows.  The shared-memory opt-in, set once to the
+// largest ring any m needs, and the occupancy query run once per device,
+// dtype and ring size (residency.cuh), not at every launch.
 template <typename T>
 cudaError_t gram_residency(int stage_rows, int* sms, int* per_sm) {
-  static std::atomic<int> sm_count[kGramMaxDevices];
-  static std::atomic<int> resident[kGramMaxDevices][kGramRingSizes];
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const bool cached = device < kGramMaxDevices;
-  const int ring = stage_rows / 4;
-  if (cached) {
-    *sms = sm_count[device].load();
-    *per_sm = resident[device][ring].load();
-    if (*sms > 0 && *per_sm > 0) return cudaSuccess;
-  }
-  auto fn = gram_kernel<T>;
-  err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(gram_smem_bytes(2 * kGramRows)));
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, fn, kGramThreads, gram_smem_bytes(stage_rows));
-  }
-  if (err != cudaSuccess) return err;
-  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
-  if (cached) {
-    sm_count[device].store(*sms);
-    resident[device][ring].store(*per_sm);
-  }
-  return cudaSuccess;
+  return resident_blocks<GramResidency<T>, kGramRingSizes>(
+      reinterpret_cast<const void*>(gram_kernel<T>), kGramThreads,
+      gram_smem_bytes(stage_rows), stage_rows / 4,
+      gram_smem_bytes(2 * kGramRows), sms, per_sm);
 }
 
 // One cooperative launch: every block must be resident at once for the grid

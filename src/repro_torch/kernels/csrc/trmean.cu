@@ -24,17 +24,17 @@
 
 namespace repro_torch {
 
-template <int MP, typename T>
+template <int N, typename T>
 __global__ void __launch_bounds__(kThreads)
     trmean_kernel(const T* __restrict__ u, float* __restrict__ out, int m,
                   long long d, int b) {
   const long long j =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (j >= d) return;
-  float v[MP];
-  load_column<MP>(u, m, d, j, v);
-  sort_network<MP>(v);
-  out[j] = trimmed_mean<MP>(v, m, b);
+  float v[N];
+  load_column<N>(u, m, d, j, v);
+  sort_network<N>(v);
+  out[j] = trimmed_mean<N>(v, m, b);
 }
 
 }  // namespace repro_torch
@@ -57,7 +57,11 @@ extern "C" int repro_trmean(const void* u, void* out, int m, long long d,
                                      nullptr, m, d, b, dtype, stream);
   }
   const unsigned grid = static_cast<unsigned>((d + kThreads - 1) / kThreads);
-  REPRO_DISPATCH_MP_DTYPE(trmean_kernel, m, dtype, grid, stream,
-                          static_cast<float*>(out), m, d, b);
-  return static_cast<int>(cudaGetLastError());
+  const int rc = dispatch_register(m, dtype, [&](auto inst) {
+    using I = decltype(inst);
+    trmean_kernel<I::N, typename I::T><<<grid, kThreads, 0, stream>>>(
+        static_cast<const typename I::T*>(u), static_cast<float*>(out), m, d,
+        b);
+  });
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

@@ -36,25 +36,25 @@
 
 namespace repro_torch {
 
-template <int MP, typename T>
+template <int N, typename T>
 __global__ void __launch_bounds__(kThreads)
     trmean_counts_kernel(const T* __restrict__ u, float* __restrict__ out,
                          int* __restrict__ counts, int m, long long d,
                          int b) {
-  __shared__ int tally[MP];
-  zero_tally<MP>(tally);
+  __shared__ int tally[N];
+  zero_tally<N>(tally);
   bool live;
   const long long j = clamped_coordinate(d, &live);
-  float key[MP];
-  load_column<MP>(u, m, d, j, key);
-  float v[MP];
+  float key[N];
+  load_column<N>(u, m, d, j, key);
+  float v[N];
 #pragma unroll
-  for (int i = 0; i < MP; ++i) v[i] = key[i];
-  sort_network<MP>(v);
-  const float agg = trimmed_mean<MP>(v, m, b);
+  for (int i = 0; i < N; ++i) v[i] = key[i];
+  sort_network<N>(v);
+  const float agg = trimmed_mean<N>(v, m, b);
   if (live) out[j] = agg;
-  tally_trim_drops<MP>(key, v, m, live, b, tally);
-  flush_tally<MP>(tally, m, counts);
+  tally_trim_drops<N>(key, v, m, live, b, tally);
+  flush_tally(tally, m, counts);
 }
 
 }  // namespace repro_torch
@@ -80,8 +80,11 @@ extern "C" int repro_trmean_counts(const void* u, void* out, void* counts,
                                            dtype, stream);
   }
   const unsigned grid = static_cast<unsigned>((d + kThreads - 1) / kThreads);
-  REPRO_DISPATCH_MP_DTYPE(trmean_counts_kernel, m, dtype, grid, stream,
-                          static_cast<float*>(out), static_cast<int*>(counts),
-                          m, d, b);
-  return static_cast<int>(cudaGetLastError());
+  const int rc = dispatch_register(m, dtype, [&](auto inst) {
+    using I = decltype(inst);
+    trmean_counts_kernel<I::N, typename I::T><<<grid, kThreads, 0, stream>>>(
+        static_cast<const typename I::T*>(u), static_cast<float*>(out),
+        static_cast<int*>(counts), m, d, b);
+  });
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

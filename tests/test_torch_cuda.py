@@ -168,6 +168,85 @@ def test_counts_kernels_equal_plain_versions_on_ties(cuda, m):
                 assert torch.equal(counts, want_counts), (b, dtype)
 
 
+def _four_bs(m):
+    """0, 1, m/4 and the largest b, where valid."""
+    bmax = (m + 1) // 2 - 1
+    return sorted({0, 1, m // 4, bmax} & set(range(bmax + 1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", list(range(1, 65)))
+def test_register_buckets_equal_plain_versions_at_every_m(cuda, m):
+    """K1-K4 in the register bucket of every m up to 64 (the pruned
+    networks and K1/K3's staged window search), at an odd d whose last
+    block is partial, on the adversarial and the tie-heavy matrices:
+    aggregates bit for bit, counts equal as integers."""
+    d = 4099
+    mats = dict(_matrices(m, d, cuda), ties=_tie_matrix(m, d, cuda))
+    for name, u in mats.items():
+        for b in _four_bs(m):
+            for kernel, ref in PAIRS:
+                _assert_same(kernel(u, b), ref(u, b))
+            for kernel, ref in COUNTS_PAIRS:
+                agg, counts = kernel(u, b)
+                want_agg, want_counts = ref(u, b)
+                _assert_same(agg, want_agg)
+                assert torch.equal(counts, want_counts), (name, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [3, 20, 64])
+def test_register_kernels_past_one_wave_of_blocks(cuda, m, dtype):
+    """K1-K4 at a d larger than the card holds threads, so K1's one-wave
+    grid gives every thread more than one column (its prefetched next
+    column included) and the last wave is partial: aggregates bit for bit,
+    counts equal as integers."""
+    d = 400_003
+    props = torch.cuda.get_device_properties(cuda)
+    assert d > props.multi_processor_count * \
+        props.max_threads_per_multi_processor
+    mats = dict(_matrices(m, d, cuda), ties=_tie_matrix(m, d, cuda))
+    for name, u in mats.items():
+        x = u.to(dtype)
+        for b in _four_bs(m):
+            for kernel, ref in PAIRS:
+                n = kernel.launches
+                got = kernel(x, b)
+                assert kernel.launches == n + 1
+                _assert_same(got, ref(x, b))
+            for kernel, ref in COUNTS_PAIRS:
+                agg, counts = kernel(x, b)
+                want_agg, want_counts = ref(x, b)
+                _assert_same(agg, want_agg)
+                assert torch.equal(counts, want_counts), (name, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [65, 96, 128, 200, 1024, 1025, 2048])
+def test_wide_kernels_on_both_sides_of_the_warp_sort_switch(cuda, m):
+    """K1/K2 past 64 workers: sorted in one warp's registers up to
+    ``build.WARP_SORT_MAX_M`` (1,024) and in shared memory above it; both
+    equal the plain versions bit for bit, at a d whose last 32-column tile
+    is partial, on the adversarial and the tie-heavy matrices."""
+    d = 1031
+    mats = dict(_matrices(m, d, cuda), ties=_tie_matrix(m, d, cuda))
+    for name, u in mats.items():
+        for b in _four_bs(m):
+            dtypes = (torch.float32, torch.bfloat16) if name == "gauss" \
+                else (torch.float32,)
+            for dtype in dtypes:
+                x = u.to(dtype)
+                for kernel, ref in PAIRS:
+                    n = kernel.launches
+                    got = kernel(x, b)
+                    assert kernel.launches == n + 1
+                    _assert_same(got, ref(x, b))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_counts_kernels_reject_what_they_do_not_take(cuda):
     for kernel, name in ((phocas_counts_hopper, "phocas_counts"),

@@ -4,8 +4,8 @@ on one GPU.
 
     git archive <commit> | tar -x -C build/other
     python3 tools/ab.py build/other steps
-    python3 tools/ab.py build/other kernel phocas_counts 20 118282 8
-    python3 tools/ab.py build/other kernel krum_gram 20 2430826
+    python3 tools/ab.py build/other kernel phocas:20:2430826:8 \
+        phocas:20:2430826:8:bf16 krum_gram:20:2430826
 
 Each turn is a fresh process run from the root of its checkout, on that
 checkout's ``src`` and kernels; the order is other, this, this, other.
@@ -15,15 +15,17 @@ trmean, plain and defended, MLP krum plain and defended, CNN multikrum), one
 warm-up ``run_experiment`` and then three timed ones: ms per untraced step,
 host clock, over a run that ends in a device sync.
 
-``kernel NAME M D [B]``: the kernel ``NAME`` (a ``build.SOURCES`` entry
-other than ``flash_attn``; ``B`` for all but ``krum_gram``) on an f32 (M, D)
-matrix of 3 + N(0, 1) entries, seeded.  Two times per turn: the device time
-by this checkout's ``chip_smoke.time_ms`` in both turns (CUDA events, median
-of 15, L2 flushed, the wrapper's host time kept out), and the wall time per
-call over 200 calls issued back to back (host clock, ending in a sync), in
-which the wrapper's host work shows wherever it exceeds the device's.
-Beside them, as a floor, the device time of ``u.sum()``, one library read of
-the same bytes, timed the same way.
+``kernel SPEC [SPEC ...]``, each ``SPEC`` ``NAME:M:D[:B][:DTYPE]``: the
+kernel ``NAME`` (a ``build.SOURCES`` entry other than ``flash_attn``; ``B``
+for all but ``krum_gram``) on an (M, D) matrix of 3 + N(0, 1) entries,
+seeded, in ``DTYPE`` (f32, the default, bf16 or f16); every spec in each
+turn.  Two times per spec and turn: the device time by this checkout's
+``chip_smoke.time_ms`` in both turns (CUDA events, median of 15, L2
+flushed, the wrapper's host time kept out), and the wall time per call over
+200 calls issued back to back (host clock, ending in a sync), in which the
+wrapper's host work shows wherever it exceeds the device's.  Beside them,
+as a floor, the device time of ``u.sum(0)``, one library read of the same
+bytes, timed the same way.
 
 Needs a CUDA device.
 """
@@ -65,25 +67,32 @@ from repro_torch.kernels import build
 spec = importlib.util.spec_from_file_location("ab_timing", sys.argv[1])
 timing = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(timing)
-name, m, d = sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
-b = int(sys.argv[5]) if len(sys.argv) > 5 else None
+out = {}
 build.KERNELS.build_all()
-gen = torch.Generator(device="cuda").manual_seed(0)
-u = 3.0 + torch.randn((m, d), generator=gen, device="cuda")
-call = (lambda: build.launch_gram(u)) if b is None else \
-    (lambda: build.launch(name, u, b))
-device_ms = timing.time_ms(call)
-for _ in range(20):
-    call()
-torch.cuda.synchronize()
-t0 = time.perf_counter()
-for _ in range(200):
-    call()
-torch.cuda.synchronize()
-wall_ms = (time.perf_counter() - t0) / 200 * 1e3
-print("RESULT " + json.dumps({"device ms": [device_ms],
-                              "wall ms per call": [wall_ms],
-                              "read ms": [timing.time_ms(u.sum)]}))
+for arg in sys.argv[2:]:
+    name, m, d, *rest = arg.split(":")
+    m, d = int(m), int(d)
+    b = int(rest.pop(0)) if rest and rest[0].isdigit() else None
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+             "f16": torch.float16}[rest[0] if rest else "f32"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    u = (3.0 + torch.randn((m, d), generator=gen, device="cuda")).to(dtype)
+    call = (lambda: build.launch_gram(u)) if b is None else \
+        (lambda: build.launch(name, u, b))
+    device_ms = timing.time_ms(call)
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        call()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 200 * 1e3
+    out[f"{arg} device ms"] = [device_ms]
+    out[f"{arg} wall ms/call"] = [wall_ms]
+    out[f"{arg} read ms"] = [timing.time_ms(lambda: u.sum(0))]
+    del u
+print("RESULT " + json.dumps(out))
 """
 
 
@@ -103,7 +112,7 @@ def turn(root: str, args: list) -> dict:
 def main() -> int:
     args = sys.argv[2:]
     if (len(sys.argv) < 3 or args[0] not in ("steps", "kernel")
-            or (args[0] == "kernel" and len(args) not in (4, 5))):
+            or (args[0] == "kernel" and len(args) < 2)):
         print(__doc__, file=sys.stderr)
         return 2
     other = os.path.abspath(sys.argv[1])
@@ -116,7 +125,7 @@ def main() -> int:
     for key in turns[0][1]:
         cols = "  ".join(f"{who} " + "/".join(f"{x:.4f}" for x in t[key])
                          for who, t in turns)
-        print(f"{key:22s} {cols}", flush=True)
+        print(f"{key:40s} {cols}", flush=True)
     return 0
 
 
