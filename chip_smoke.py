@@ -55,9 +55,30 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
      small m=8 krum and multikrum runs whose kernel and plain paths select
      the same workers every step; one short run each of geomedian, mediam
      and mom, which have no kernel;
-4. trace: for both models, plain and defended, and the CNN multikrum cell,
-   the untraced step time and one torch.profiler run giving the device's
-   busy share and its top kernels;
+3b. the other topologies through ``run_experiment`` at full width, m = 20:
+   - async_ps: the MLP (phocas b = 8 under bitflip q = 8, staleness 4,
+     update_clip 10, 30 steps), the same defended under signflip q = 8,
+     and the CNN (trmean b = 6 under gaussian q = 6, lr 0.02, 10 steps):
+     synchronized step time, K1/K2/K3 launches, eval at the first and last
+     record (it must rise), ejections;
+   - streaming: the CNN with trmean and phocas b = 6 under gaussian q = 6,
+     10 steps, against sync_ps on the same spec: step time and
+     ``torch.cuda.max_memory_allocated`` (the streaming peak must be the
+     lower);
+   - faults: ``sync_ps_chaos.json``'s four faults on workers 4-7 of the MLP
+     (phocas b = 8), 20 steps on sync_ps and async_ps: lost rounds, b_eff
+     of each degraded round, the m' of every K1 launch; kill-and-resume
+     (checkpoint every 5 steps, resume from step 10) equal to the
+     uninterrupted run bit for bit, and again after corrupting the newest
+     checkpoint (the restore falls back to ``.prev``);
+   - compression: the MLP with topk 0.05 under bitplane_flip q = 4,
+     streaming with int8, signvote with signbit: wire bytes a round
+     against dense, finite losses;
+   - all nine ``examples/scenarios/*.json``, unchanged, on the card;
+4. trace: for both models, plain and defended, the CNN multikrum cell and
+   the CNN on async_ps (trmean) and streaming (phocas), the untraced step
+   time and one torch.profiler run giving the device's busy share and its
+   top kernels;
 5. flash attention: K6 against its plain version on the card (bf16 within
    3e-2 at granite-8b's prefill (8, 512, 32/8, 128), at (1, 4096, 32/8,
    128), at a tile edge (2, 129, 32/8, 128, window 64), at a gemma2-like
@@ -1000,6 +1021,306 @@ def vector_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the other topologies, faults, resume and compression
+# ---------------------------------------------------------------------------
+
+CHAOS_WORKERS = (4, 5, 6, 7)     # sync_ps_chaos.json's faults, on these
+STEP_SPANS = ("train_step", "degraded_round", "async_step",
+              "streaming_step")
+
+
+def chaos_faults() -> tuple:
+    """The four faults of ``examples/scenarios/sync_ps_chaos.json`` (crash
+    at step 2, straggler, flaky p 0.3, a silent pod), on workers 4-7."""
+    from repro_torch.experiment import ScenarioSpec
+    faults = ScenarioSpec.load(os.path.join(
+        REPO, "examples", "scenarios", "sync_ps_chaos.json")).faults
+    check(tuple(w for f in faults for w in f.workers) == CHAOS_WORKERS,
+          f"sync_ps_chaos.json's faults moved: {faults}")
+    return faults
+
+
+def traced_run(tag: str, spec, spans: bool = True, **kw):
+    """run_experiment of ``spec`` with its JSONL under
+    build/chip_smoke/<tag>.jsonl, kernel counts set to 0 just before and
+    read just after.  Returns (result, counts, records, step ms): with
+    ``spans`` the recorder is on and the step ms is the median of the
+    synchronized step spans, else the run's host-clock wall time over its
+    steps (the reference's recorder cannot count fault retries while it
+    mirrors the fault records' fields into gauges of the same name, so the
+    fault runs go without it; ROADMAP queue 3)."""
+    import dataclasses
+
+    from repro_torch.defense import read_jsonl
+    from repro_torch.experiment import run_experiment
+    from repro_torch.obs import ObsConfig
+    path = os.path.join(REPO, "build", "chip_smoke", f"{tag}.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    spec = dataclasses.replace(spec, telemetry_path=path)
+    t0 = time.perf_counter()
+    res, counts = launch_counts(lambda: run_experiment(
+        spec, obs=ObsConfig() if spans else None, **kw))
+    wall = time.perf_counter() - t0
+    records = read_jsonl(path)
+    if not spans:
+        return res, counts, records, 1e3 * wall / spec.steps
+    ms = sorted(r["ms"] for r in records
+                if r["kind"] == "span" and r["name"] in STEP_SPANS)
+    return res, counts, records, ms[len(ms) // 2]
+
+
+def finite_params(tag: str, res) -> None:
+    from repro_torch.tree import leaves
+    check(all(bool(torch.isfinite(x).all()) for x in leaves(res.params)),
+          f"{tag}: non-finite parameters")
+
+
+def async_phase() -> None:
+    """async_ps at full width: the MLP (phocas b = 8 under bitflip q = 8,
+    staleness 4, update_clip 10, lr 0.1, 30 steps), the same run defended
+    under signflip q = 8, and the CNN (trmean b = 6 under gaussian q = 6,
+    lr 0.02, 10 steps).  One aggregate launch a step (K1 or K2), one K3
+    launch a defended step; finite parameters and eval rising from the
+    initial parameters' to the last step's."""
+    import dataclasses
+
+    from repro_torch.experiment import resolve
+    for kind, steps, defended, kname in (("mlp", 30, False, "phocas"),
+                                         ("mlp", 30, True, "phocas_counts"),
+                                         ("cnn", 10, False, "trmean")):
+        spec = dataclasses.replace(
+            paper_spec(kind, steps, defended), topology="async_ps",
+            topology_params={"staleness": 4, "update_clip": 10.0})
+        tag = f"async {kind} {spec.robust.rule}" + (" defended" if defended
+                                                     else "")
+        # eval of the parameters the run starts from (AsyncPS seeds them
+        # from spec.seed), then of each step's
+        plan = resolve(spec)
+        ev0 = float(plan.eval_fn(plan.model.init(
+            torch.Generator(device="cuda").manual_seed(spec.seed))))
+        res, counts, _, ms = traced_run(tag.replace(" ", "-"), spec)
+        ev = [r["eval"] for r in res.history]
+        line = (f"{tag} (m=20, staleness 4, {spec.attack.name} "
+                f"q={spec.attack.num_byzantine}, {steps} steps): step "
+                f"{ms:.2f} ms (median, synchronized span), eval {ev0:.4f} "
+                f"at init, {ev[0]:.4f} after step 0, {ev[-1]:.4f} after the "
+                f"last, launches {counts}")
+        if defended:
+            active = res.defense_state["active"].tolist()
+            q = spec.attack.num_byzantine
+            line += (f", ejected Byzantine {sum(a == 0 for a in active[:q])}"
+                     f"/{q}, benign {sum(a == 0 for a in active[q:])}")
+        print(line)
+        finite_params(tag, res)
+        check(counts[kname] == steps, f"{tag}: {kname} launches {counts}")
+        check(ev[-1] > ev0, f"{tag}: eval did not rise ({ev0} -> {ev})")
+
+
+def streaming_phase() -> None:
+    """streaming at the CNN width (trmean and phocas b = 6 under gaussian
+    q = 6, lr 0.02, 10 steps) against sync_ps on the same spec: step time
+    and peak device memory (reset before each run); the streaming peak must
+    be the lower one and its losses finite."""
+    import dataclasses
+
+    from repro_torch.core.robust import RobustConfig
+    for rule in ("trmean", "phocas"):
+        base = dataclasses.replace(
+            paper_spec("cnn", 10),
+            robust=RobustConfig(rule=rule, b=6, q=6))
+        peaks, msd = {}, {}
+        for topo in ("streaming", "sync_ps"):
+            spec = dataclasses.replace(base, topology=topo)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            res, counts, _, msd[topo] = traced_run(
+                f"{topo}-cnn-{rule}", spec)
+            peaks[topo] = torch.cuda.max_memory_allocated()
+            losses = [r["loss"] for r in res.history]
+            check(all(x == x and abs(x) != float("inf") for x in losses),
+                  f"{topo} cnn {rule}: non-finite loss {losses}")
+            if topo == "streaming":
+                check(sum(counts.values()) == 0,
+                      f"streaming launched kernels: {counts}")
+                s_loss = losses
+        print(f"streaming cnn {rule} b=6 (m=20, gaussian q=6, 10 steps): "
+              f"step {msd['streaming']:.2f} ms vs sync_ps "
+              f"{msd['sync_ps']:.2f} ms; peak memory "
+              f"{peaks['streaming'] / 2**20:.1f} MiB vs sync_ps "
+              f"{peaks['sync_ps'] / 2**20:.1f} MiB "
+              f"({peaks['streaming'] / peaks['sync_ps']:.2f}x); loss "
+              f"{s_loss[0]:.4f} -> {s_loss[-1]:.4f}")
+        check(peaks["streaming"] < peaks["sync_ps"],
+              f"streaming cnn {rule}: peak {peaks} not below sync_ps")
+
+
+def corrupt(path: str) -> None:
+    with open(path, "r+b") as f:
+        f.seek(30)
+        f.write(b"\xff" * 8)
+
+
+def fault_phase() -> None:
+    """The chaos faults on the MLP (phocas b = 8 under bitflip q = 8, m =
+    20, 20 steps) on sync_ps and async_ps: lost rounds, b_eff per degraded
+    round and the m' of every K1 launch; then kill-and-resume on sync_ps
+    (checkpoint every 5 steps, resume from step 10) equal to the
+    uninterrupted run bit for bit, and again from a corrupted newest
+    checkpoint, which falls back to its .prev."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.tree import leaves
+    faults = chaos_faults()
+    for topo in ("sync_ps", "async_ps"):
+        spec = dataclasses.replace(
+            paper_spec("mlp", 20), faults=faults, topology=topo,
+            topology_params=({"staleness": 4, "update_clip": 10.0}
+                             if topo == "async_ps" else {}))
+        k1_ms, k1 = [], ops.phocas_hopper
+
+        def recording(u, b):
+            k1_ms.append(u.shape[0])
+            return k1(u, b)
+
+        ops.phocas_hopper = recording
+        try:
+            res, counts, recs, ms = traced_run(f"faults-{topo}", spec,
+                                               spans=False)
+        finally:
+            ops.phocas_hopper = k1
+        frecs = [r for r in recs if r["kind"] == "fault"]
+        lost = sum(1 for r in frecs if r.get("lost_round"))
+        b_eff = sorted({(r["present"], r["b_eff"]) for r in frecs
+                        if "b_eff" in r})
+        present = sorted({r["present"] for r in frecs})
+        print(f"faults {topo} mlp phocas b=8 (chaos on workers 4-7 of 20, "
+              f"20 steps): {ms:.2f} ms a step (host clock, whole run incl. "
+              f"init and eval), lost rounds {lost}, present "
+              f"{present}, (m', b_eff) {b_eff or 'n/a (slots kept)'}, K1 "
+              f"launches {counts['phocas']} at m' {sorted(set(k1_ms))}")
+        finite_params(f"faults {topo}", res)
+        check(counts["phocas"] == len(k1_ms) == 20 - lost,
+              f"faults {topo}: K1 launches {counts}, {len(k1_ms)} seen")
+        if topo == "sync_ps":
+            check(bool(k1_ms) and max(k1_ms) < 20
+                  and all(m < 20 for m, _ in b_eff),
+                  f"faults sync_ps: K1 at m' {k1_ms}")
+
+    ck = os.path.join(REPO, "build", "chip_smoke", "ckpt")
+    for suffix in ("full", "run"):
+        for ext in (".npz", ".json", ".prev.npz", ".prev.json"):
+            if os.path.exists(f"{ck}-{suffix}{ext}"):
+                os.remove(f"{ck}-{suffix}{ext}")
+    from repro_torch.experiment import run_experiment
+    base = dataclasses.replace(paper_spec("mlp", 20), faults=faults,
+                               checkpoint_every=5)
+    full = run_experiment(dataclasses.replace(
+        base, checkpoint_path=ck + "-full"))
+    killed = dataclasses.replace(base, steps=11, checkpoint_path=ck + "-run")
+    run_experiment(killed)                      # checkpoints at 5 and 10
+    resumed = run_experiment(dataclasses.replace(killed, steps=20),
+                             resume=killed.checkpoint_path)
+    same = all(torch.equal(a, b) for a, b in zip(leaves(resumed.params),
+                                                  leaves(full.params)))
+    check(same, "resume from step 10: params differ from the "
+                "uninterrupted run")
+    corrupt(killed.checkpoint_path + ".npz")    # the step-15 checkpoint
+    again = run_experiment(dataclasses.replace(killed, steps=20),
+                           resume=killed.checkpoint_path)
+    same_prev = all(torch.equal(a, b) for a, b in zip(leaves(again.params),
+                                                       leaves(full.params)))
+    check(again.history[0]["step"] == 11 and same_prev,
+          "resume from the .prev checkpoint: params differ")
+    print(f"kill-and-resume (sync_ps mlp, chaos, checkpoint every 5): "
+          f"resumed from step 10 == uninterrupted run bit for bit; newest "
+          f"checkpoint corrupted -> .prev (step 10) used, again bit for bit")
+
+
+def compression_phase() -> None:
+    """The MLP (phocas b = 8) on sync_ps with topk ratio 0.05 under
+    bitplane_flip q = 4; streaming with int8 under gaussian q = 4; signvote
+    (lr 0.001, signSGD's step) with signbit under bitplane_flip q = 4: wire
+    bytes a round against dense, finite losses, K1 once a step through the
+    decoded matrix."""
+    import dataclasses
+
+    from repro_torch.compress import CompressionSpec
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust import RobustConfig
+    for topo, codec, rule, attack in (
+            ("sync_ps", CompressionSpec(codec="topk", ratio=0.05), "phocas",
+             "bitplane_flip"),
+            ("streaming", CompressionSpec(codec="int8"), "phocas",
+             "gaussian"),
+            ("sync_ps", CompressionSpec(codec="signbit"), "signvote",
+             "bitplane_flip")):
+        spec = dataclasses.replace(
+            paper_spec("mlp", 20), topology=topo, compression=codec,
+            robust=RobustConfig(rule=rule, b=8, q=8),
+            attack=AttackConfig(name=attack, num_byzantine=4))
+        if rule == "signvote":
+            # signSGD moves every coordinate by lr a step: at the MLP's
+            # 0.1 the loss climbs from the first steps
+            spec = dataclasses.replace(spec, opt=dataclasses.replace(
+                spec.opt, lr=0.001))
+        tag = f"compressed {topo} mlp {rule} {codec.codec}"
+        res, counts, recs, ms = traced_run(tag.replace(" ", "-"), spec)
+        wire = [r for r in recs if r["kind"] == "compress"]
+        losses = [r["loss"] for r in res.history]
+        print(f"{tag} ({attack} q=4, 20 steps): step {ms:.2f} ms, "
+              f"{wire[-1]['bytes']:,} wire bytes a round vs "
+              f"{wire[-1]['dense_bytes']:,} dense ({wire[-1]['ratio']:.4f}),"
+              f" loss {losses[0]:.4f} -> {losses[-1]:.4f}, launches "
+              f"{counts}")
+        check(len(wire) == 20, f"{tag}: {len(wire)} compress records")
+        check(all(x == x and abs(x) != float("inf") for x in losses),
+              f"{tag}: non-finite loss {losses}")
+        want = 20 if (topo, rule) == ("sync_ps", "phocas") else 0
+        check(counts["phocas"] == want and sum(counts.values()) == want,
+              f"{tag}: launches {counts}")
+
+
+def scenario_phase() -> None:
+    """All nine ``examples/scenarios/*.json`` through run_experiment on the
+    card, unchanged: each completes with finite losses (or, on async_ps,
+    finite parameters; on serve, its requests done)."""
+    import glob
+
+    from repro_torch.experiment import ScenarioSpec, run_experiment
+    paths = sorted(glob.glob(os.path.join(REPO, "examples", "scenarios",
+                                          "*.json")))
+    check(len(paths) == 9, f"{len(paths)} scenarios")
+    done = []
+    for path in paths:
+        spec = ScenarioSpec.load(path)
+        res = run_experiment(spec)
+        name = os.path.basename(path)
+        if spec.topology == "serve":
+            check(res.final_metrics["completed"] > 0, f"{name}: none done")
+        else:
+            finite_params(name, res)
+            losses = [r["loss"] for r in res.history if "loss" in r]
+            check(all(x == x and abs(x) != float("inf") for x in losses),
+                  f"{name}: non-finite loss {losses}")
+            check(len(res.history) == spec.steps, f"{name}: history")
+        done.append(name[:-5])
+    print(f"scenarios on the card: all {len(done)} complete ({', '.join(done)})")
+
+
+def topology_phase() -> None:
+    t0 = time.perf_counter()
+    async_phase()
+    streaming_phase()
+    fault_phase()
+    compression_phase()
+    scenario_phase()
+    print(f"phase 3b: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: where a step's time goes
 # ---------------------------------------------------------------------------
 
@@ -1013,7 +1334,9 @@ def trace_phase(steps: int = 8, defended_steps: int = 16) -> None:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core.robust import RobustConfig
     from repro_torch.experiment import run_experiment
+    runs = []
     for kind, defended, n, rule in (
             ("mlp", False, steps, None), ("cnn", False, steps, None),
             ("mlp", True, defended_steps, None),
@@ -1021,8 +1344,17 @@ def trace_phase(steps: int = 8, defended_steps: int = 16) -> None:
             ("cnn", False, steps, "multikrum")):
         spec = (vector_spec(kind, rule, n) if rule else
                 paper_spec(kind, n, defended))
+        runs.append((f"{kind} {spec.robust.rule}"
+                     f"{' defended' if defended else ''}", spec, n))
+    # phase 3b's CNN cells on the other topologies
+    runs.append(("async_ps cnn trmean", dataclasses.replace(
+        paper_spec("cnn", steps), topology="async_ps",
+        topology_params={"staleness": 4, "update_clip": 10.0}), steps))
+    runs.append(("streaming cnn phocas", dataclasses.replace(
+        paper_spec("cnn", 4), topology="streaming",
+        robust=RobustConfig(rule="phocas", b=6, q=6)), 4))
+    for tag, spec, n in runs:
         spec = dataclasses.replace(spec, log_every=n)
-        tag = f"{kind} {spec.robust.rule}{' defended' if defended else ''}"
         run_experiment(spec)                                 # warm-up
         step_ms = run_experiment(spec).wall_time / n * 1e3
         with profile(activities=[ProfilerActivity.CPU,
@@ -1367,6 +1699,7 @@ def main() -> int:
     report["krum_gram"] = gram_phase(gen)
     launches = train_phase()
     launches.update(vector_phase())
+    topology_phase()
     trace_phase()
     report["flash_attn"] = flash_phase(gen)
     launches.update(serve_phase())

@@ -242,6 +242,7 @@ class MeanRule(AggregatorRule):
     """Plain averaging — NOT Byzantine resilient (Proposition 1)."""
     name = "mean"
     resilience = "none"
+    supports_streaming = True
 
     def _reduce_plain(self, u):
         return mean(u)
@@ -314,6 +315,7 @@ class TrmeanRule(_TrimFamilyRule):
     """b-trimmed coordinate-wise mean (Definition 7)."""
     name = "trmean"
     trim_kind = "trmean"
+    supports_streaming = True
 
     def _baseline(self, m: int) -> float:
         # each coordinate trims exactly 2b of m values
@@ -325,6 +327,7 @@ class PhocasRule(_TrimFamilyRule):
     """Phocas (Definition 8)."""
     name = "phocas"
     trim_kind = "phocas"
+    supports_streaming = True
 
     def _baseline(self, m: int) -> float:
         # each coordinate drops the b farthest of m values

@@ -22,12 +22,6 @@ from repro_torch.core.selection import gate_matrix, vector_median
 
 BACKENDS = ("auto", "pallas", "xla")
 
-# Reference rules not ported yet, with the ROADMAP queue item that brings
-# each.
-UNPORTED_RULES = {
-    "signvote": "ROADMAP queue 1 item 13",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class RuleParams:
@@ -45,8 +39,8 @@ class AggregatorRule:
     """Base class for registered aggregation rules.
 
     Subclasses set ``name`` (and ``coordinate_wise`` / ``resilience`` /
-    ``uses_b`` / ``uses_q`` / ``has_kernel`` / ``emits_scores`` /
-    ``fused_gate``) and implement ``_reduce_plain`` (and
+    ``uses_b`` / ``uses_q`` / ``has_kernel`` / ``supports_streaming`` /
+    ``emits_scores`` / ``fused_gate``) and implement ``_reduce_plain`` (and
     ``_reduce_kernel`` with ``has_kernel = True``).  The sharded hooks of the
     reference (``reduce_sharded*``) come with the distributed layouts.
     """
@@ -57,6 +51,7 @@ class AggregatorRule:
     uses_b: ClassVar[bool] = False        # spec.validate checks b's range
     uses_q: ClassVar[bool] = False        # spec.validate checks q's range
     has_kernel: ClassVar[bool] = False    # declares a CUDA _reduce_kernel
+    supports_streaming: ClassVar[bool] = False  # train/streaming.py scan
     emits_scores: ClassVar[bool] = False  # informative reduce_with_scores
     fused_gate: ClassVar[bool] = False    # one-pass reduce_gated_with_scores
 
@@ -191,10 +186,6 @@ def available_rules() -> Tuple[str, ...]:
 def get_rule(name: str) -> Type[AggregatorRule]:
     _ensure_builtins()
     key = name.lower()
-    if key in UNPORTED_RULES:
-        raise NotImplementedError(
-            f"rule {name!r} is not ported to repro_torch yet "
-            f"({UNPORTED_RULES[key]}); ported rules: {sorted(_RULES)}")
     if key not in _RULES:
         raise ValueError(f"unknown aggregation rule {name!r}; "
                          f"have {sorted(_RULES)}")
@@ -222,6 +213,12 @@ def robust_rules() -> Tuple[str, ...]:
 
 def kernel_rules() -> Tuple[str, ...]:
     return tuple(n for n in available_rules() if _RULES[n].has_kernel)
+
+
+def streaming_rules() -> Tuple[str, ...]:
+    """Rules with a streaming (sequential-scan) formulation."""
+    return tuple(n for n in available_rules()
+                 if _RULES[n].supports_streaming)
 
 
 def score_rules() -> Tuple[str, ...]:

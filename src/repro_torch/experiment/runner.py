@@ -3,6 +3,9 @@
 Port of ``repro/experiment/runner.py``.  ``resolve(spec, device)`` validates
 the spec and builds the runtime bundle every topology consumes
 (:class:`Plan`); ``run_experiment`` dispatches it to its topology plugin.
+The deprecated legacy shims (``Trainer``, ``run_async_training``,
+``run_streaming_training``) build their plan with :func:`plan_from_parts`
+and enter the same topology loops.
 
 The device defaults to ``cuda``: without a GPU, ``run_experiment`` raises
 unless the caller asks for ``device="cpu"``, as the tests do.
@@ -15,8 +18,9 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch.core.robust import RobustConfig
-from repro_torch.experiment.spec import ScenarioSpec, not_ported
-from repro_torch.experiment.topology import make_topology
+from repro_torch.experiment.spec import ScenarioSpec, SpecError
+from repro_torch.experiment.topology import (get_topology, make_topology,
+                                             topologies_with)
 from repro_torch.optim.optimizers import OptConfig
 
 
@@ -48,9 +52,17 @@ class Plan:
     record_every: int                 # history/eval cadence
     device: torch.device
     topology_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    checkpoint_path: Optional[str] = None
+    checkpoint_every: int = 0
     # Observability switches (repro_torch.obs.ObsConfig | None): a property
     # of the invocation, not of the spec.
     obs: Any = None
+    faults: tuple = ()                # spec.faults (FaultSpec tuple)
+    # The checkpoint a resumed run continues from (an invocation property,
+    # like obs).
+    resume_path: Optional[str] = None
+    # spec.compression when enabled, else None.
+    compress_cfg: Any = None
 
 
 @dataclasses.dataclass
@@ -87,9 +99,19 @@ class ExperimentResult:
         return None
 
 
-def resolve(spec: ScenarioSpec, *, device=None, obs: Any = None) -> Plan:
+def resolve(spec: ScenarioSpec, *, device=None, obs: Any = None,
+            resume: Optional[str] = None) -> Plan:
     """Validate ``spec`` and build the runtime bundle on ``device``."""
     spec.validate()
+    if resume:
+        if not get_topology(spec.topology).supports_resume:
+            raise SpecError(
+                f"topology {spec.topology!r} does not support resume; "
+                f"resumable topologies: {topologies_with('supports_resume')}")
+        if not spec.checkpoint_path:
+            raise SpecError(
+                "resume needs spec.checkpoint_path set (the resumed run "
+                "keeps checkpointing to the same path)")
     dev = resolve_device(device)
     model, batch_fn, eval_fn = _build_model_and_data(spec, dev)
 
@@ -122,7 +144,12 @@ def resolve(spec: ScenarioSpec, *, device=None, obs: Any = None) -> Plan:
         record_every=spec.record_every(),
         device=dev,
         topology_params=dict(spec.topology_params),
+        checkpoint_path=spec.checkpoint_path or None,
+        checkpoint_every=spec.checkpoint_every,
         obs=obs,
+        faults=tuple(spec.faults),
+        resume_path=resume or None,
+        compress_cfg=spec.compression if spec.compression.enabled else None,
     )
 
 
@@ -131,11 +158,38 @@ def run_experiment(spec: ScenarioSpec, *, device=None, obs: Any = None,
     """THE entry point: validate + resolve ``spec`` on ``device`` (default
     ``cuda``), dispatch to its topology plugin, return the
     :class:`ExperimentResult`.  ``obs`` (a ``repro_torch.obs.ObsConfig`` or
-    None) arms the metrics registry and span tracer for this run."""
-    if resume:
-        raise not_ported("resume from a checkpoint", "item 9")
-    plan = resolve(spec, device=device, obs=obs)
+    None) arms the metrics registry and span tracer for this run.
+    ``resume`` names a checkpoint written by an earlier run of the same
+    spec: the topology restores params, optimizer, defense state, codec
+    residual, generator state, live b/q and step from it (falling back to
+    its ``.prev`` on corruption) and continues from the next step, bit for
+    bit as the uninterrupted run."""
+    plan = resolve(spec, device=device, obs=obs, resume=resume)
     return make_topology(plan.topology).run(plan)
+
+
+def plan_from_parts(*, model, batch_fn, robust_cfg, opt_cfg,
+                    num_workers: int, steps: int, seed: int = 0,
+                    topology: str = "sync_ps",
+                    topology_params: Optional[dict] = None,
+                    eval_fn=None, defense_cfg=None, record_every: int = 10,
+                    checkpoint_path: Optional[str] = None,
+                    checkpoint_every: int = 0,
+                    telemetry_path: Optional[str] = None, obs: Any = None,
+                    faults: tuple = (), resume_path: Optional[str] = None,
+                    compress_cfg: Any = None, device=None) -> Plan:
+    """A :class:`Plan` from already-built runtime objects, for the
+    deprecated legacy shims (``spec=None`` on the result)."""
+    return Plan(
+        spec=None, topology=topology, model=model, batch_fn=batch_fn,
+        eval_fn=eval_fn, robust_cfg=robust_cfg, opt_cfg=opt_cfg,
+        defense_cfg=defense_cfg, telemetry_path=telemetry_path,
+        num_workers=num_workers, steps=steps, seed=seed,
+        record_every=max(record_every, 1), device=resolve_device(device),
+        topology_params=dict(topology_params or {}),
+        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+        obs=obs, faults=tuple(faults), resume_path=resume_path,
+        compress_cfg=compress_cfg)
 
 
 def _build_model_and_data(spec: ScenarioSpec, device: torch.device):

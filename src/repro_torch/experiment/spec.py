@@ -2,13 +2,13 @@
 
 Port of ``repro/experiment/spec.py``.  The port reads the reference's JSON
 unchanged (``examples/scenarios/*.json``), so every field is kept; ``defense``
-parses into :class:`repro_torch.defense.DefenseConfig`.  The axes this package
-does not run yet parse as plain data and are refused by
-:meth:`ScenarioSpec.validate` with ``NotImplementedError`` naming the ROADMAP
-queue item that brings them: ``faults`` (a tuple of JSON objects),
-``compression``, ``mesh``, ``checkpoint_path``, the ``async_ps``/
-``streaming`` topologies and LM training (an arch model on ``sync_ps``).
-An arch model runs on the ``serve`` topology.
+parses into :class:`repro_torch.defense.DefenseConfig`, ``faults`` into
+:class:`repro_torch.faults.FaultSpec` and ``compression`` into
+:class:`repro_torch.compress.CompressionSpec`.  The axes this package does not
+run yet are refused by :meth:`ScenarioSpec.validate` (``mesh``) or by the
+training topologies (LM training, an arch model on the token stream) with
+``NotImplementedError`` naming the ROADMAP queue item that brings them.  An
+arch model runs on the ``serve`` topology.
 """
 from __future__ import annotations
 
@@ -16,9 +16,12 @@ import dataclasses
 import json
 from typing import Any, Dict, Optional, Tuple
 
+from repro_torch.compress.spec import (CompressError, CompressionSpec,
+                                       validate_compression)
 from repro_torch.core.attacks import AttackConfig
 from repro_torch.core.robust import RobustConfig
 from repro_torch.defense.reputation import DefenseConfig
+from repro_torch.faults.spec import FaultError, FaultSpec, validate_faults
 from repro_torch.optim.optimizers import OptConfig
 
 SCHEDULES = ("", "constant", "cosine_decay", "warmup_cosine")
@@ -57,17 +60,6 @@ class DataSpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class CompressionSpec:
-    """The compression axis; ``codec="none"`` disables it."""
-    codec: str = "none"
-    ratio: float = 0.01
-
-    @property
-    def enabled(self) -> bool:
-        return self.codec.lower() not in ("none", "")
-
-
-@dataclasses.dataclass(frozen=True)
 class ScenarioSpec:
     """One experiment, as declarative data."""
     name: str = "scenario"
@@ -89,7 +81,7 @@ class ScenarioSpec:
     checkpoint_path: str = ""
     checkpoint_every: int = 0
     telemetry_path: str = ""
-    faults: Tuple[Dict[str, Any], ...] = ()
+    faults: Tuple[FaultSpec, ...] = ()
     compression: CompressionSpec = dataclasses.field(
         default_factory=CompressionSpec)
 
@@ -126,6 +118,10 @@ class ScenarioSpec:
     @classmethod
     def from_json(cls, s: str) -> "ScenarioSpec":
         return cls.from_dict(json.loads(s))
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json() + "\n")
 
     @classmethod
     def load(cls, path: str) -> "ScenarioSpec":
@@ -228,15 +224,22 @@ class ScenarioSpec:
                 raise SpecError(
                     f"defense.adapt_b tunes the rule's b/q, but rule "
                     f"{self.robust.rule!r} consumes neither")
-        if self.faults:
-            raise not_ported("fault injection (spec.faults)", "item 13")
-        if self.compression.enabled:
-            raise not_ported("gradient compression (spec.compression)",
-                             "item 13")
         if self.mesh:
             raise not_ported("device meshes (spec.mesh)", "item 10")
-        if self.checkpoint_path:
-            raise not_ported("checkpointing (spec.checkpoint_path)", "item 9")
+        if self.faults:
+            try:
+                validate_faults(self.faults, m)
+            except FaultError as e:
+                raise SpecError(str(e)) from None
+            if self.defense is not None and self.defense.adapt_b:
+                raise SpecError(
+                    "faults and defense.adapt_b both re-resolve the rule's "
+                    "trim width (quorum vs suspicion); pick one per run")
+        if self.compression.enabled:
+            try:
+                validate_compression(self.compression)
+            except CompressError as e:
+                raise SpecError(str(e)) from None
 
         if not isinstance(self.opt.lr, (int, float)):
             raise SpecError("spec.opt.lr must be a number; express "
@@ -264,6 +267,7 @@ _NESTED_FIELDS = {
     "attack": AttackConfig,
     "defense": DefenseConfig,
     "opt": OptConfig,
+    "inner": FaultSpec,   # FaultSpec's pod-wrapped kind
     "compression": CompressionSpec,
 }
 
@@ -308,6 +312,9 @@ def _decode_dataclass(cls, d):
             kwargs[name] = _decode_dataclass(_NESTED_FIELDS[name], v)
         elif name in ("topology_params", "schedule_params"):
             kwargs[name] = dict(v) if v else {}
+        elif name == "faults":
+            kwargs[name] = tuple(_decode_dataclass(FaultSpec, x)
+                                 for x in (v or ()))
         else:
             kwargs[name] = _decode_value(v)
     return cls(**kwargs)

@@ -36,3 +36,8 @@ def map(fn: Callable, tree, *rest):
     """Apply ``fn`` leafwise over trees of one structure."""
     cols = [leaves(t) for t in (tree, *rest)]
     return unflatten(tree, [fn(*xs) for xs in zip(*cols)])
+
+
+def size(tree) -> int:
+    """Total element count of a tree's leaves (the flat dimension D)."""
+    return sum(x.numel() for x in leaves(tree))

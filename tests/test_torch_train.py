@@ -90,12 +90,17 @@ def _port_spec(**overrides):
         _ref_spec("phocas", steps=1), **overrides).to_json())
 
 
+_LM = dict(model=rexp.ModelSpec(kind="arch", arch="gemma2-2b-reduced"),
+           data=rexp.DataSpec(kind="tokens"))
+
+
 @pytest.mark.parametrize("overrides,item", [
-    (dict(faults=(FaultSpec(kind="crash", workers=(1,)),)), "item 13"),
+    (dict(faults=(FaultSpec(kind="crash", workers=(1,)),), mesh="8x1"),
+     "item 10"),
     (dict(mesh="8x1"), "item 10"),
-    (dict(checkpoint_path="ck.npz"), "item 9"),
-    (dict(topology="async_ps"), "item 9"),
-    (dict(robust=RobustConfig(rule="signvote")), "item 13"),
+    (dict(topology="streaming", mesh="8x1"), "item 10"),
+    (dict(topology="async_ps", **_LM), "item 11"),
+    (dict(topology="streaming", **_LM), "item 11"),
 ])
 def test_unported_axes_raise(overrides, item):
     spec = _port_spec(**overrides)
@@ -112,15 +117,15 @@ def test_defense_needs_a_score_rule():
         trun(spec, device="cpu")
 
 
-def test_compression_and_arch_raise():
+def test_compression_and_arch_raise(tmp_path):
+    """Compression and resume are ported: an int8 run trains, and resume
+    refuses a spec without a checkpoint path; LM training still raises."""
     from repro.compress.spec import CompressionSpec
     spec = _port_spec(compression=CompressionSpec(codec="int8"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        trun(spec, device="cpu")
-    spec = _port_spec(model=rexp.ModelSpec(kind="arch",
-                                           arch="gemma2-2b-reduced"),
-                      data=rexp.DataSpec(kind="tokens"))
+    res = trun(spec, device="cpu")
+    assert np.isfinite(res.final_loss)
+    spec = _port_spec(**_LM)
     with pytest.raises(NotImplementedError, match="item 11"):
         trun(spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trun(_port_spec(), device="cpu", resume="ck.npz")
+    with pytest.raises(SpecError, match="checkpoint_path"):
+        trun(_port_spec(), device="cpu", resume=str(tmp_path / "ck"))

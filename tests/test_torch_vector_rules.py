@@ -263,23 +263,23 @@ def test_mom_refuses_b_out_of_range():
 # ---------------------------------------------------------------------------
 
 META = ("coordinate_wise", "resilience", "uses_b", "uses_q", "has_kernel",
-        "emits_scores", "fused_gate")
+        "supports_streaming", "emits_scores", "fused_gate")
 
 
 def test_registry_metadata_and_enumerators_match_reference():
     ported = set(treg.available_rules())
-    assert ported == set(rreg.available_rules()) - {"signvote"}
+    assert ported == set(rreg.available_rules())
     for name in ported:
         t, r = treg.get_rule(name), rreg.get_rule(name)
         assert {k: getattr(t, k) for k in META} == {
             k: getattr(r, k) for k in META}, name
     for fn in ("coordinate_wise_rules", "vector_wise_rules", "robust_rules",
-               "kernel_rules", "score_rules", "fused_gate_rules"):
-        want = tuple(n for n in getattr(rreg, fn)() if n != "signvote")
-        assert getattr(treg, fn)() == want, fn
+               "kernel_rules", "streaming_rules", "score_rules",
+               "fused_gate_rules"):
+        assert getattr(treg, fn)() == getattr(rreg, fn)(), fn
     assert treg.vector_wise_rules() == ("geomedian", "krum", "multikrum")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        treg.get_rule("signvote")
+    with pytest.raises(ValueError, match="unknown aggregation rule"):
+        treg.get_rule("nope")
 
 
 def test_robust_config_passes_the_vector_rule_parameters():
