@@ -96,7 +96,29 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
    group, every request's robust tokens equal to the single replica's, and
    exactly the corrupted replica ejected; then a shorter traced serving run
    for the device's busy share and K6's share of the prefill time;
-7. report: the card's name and power limit, one JSON line describing every
+7. LM training at full width through ``runner.plan_from_parts`` and the
+   sync_ps loop, m workers of 2 x 128 tokens from the token stream, phocas
+   b = q = 2 under omniscient q = 2, SGD lr 0.5, remat "full":
+   - cell A, gemma2-2b (d_model 2304, 8/4 heads, hd 256, d_ff 9216, vocab
+     256,000, window 4096 / global, softcaps, tied, bf16) cut to 2 layers
+     (745.5 M parameters), m = 8: 10 steps, then defended 6 steps (one K3
+     launch a step), then remat "none" and "dots" 2 steps each; peak
+     device memory of each; a profiler trace of 3 steps; K1 and K3 on its
+     (8, 745.5 M) f32 worker matrix (offsets past 2^31): both aggregates
+     equal to their plain versions bit for bit on the first and last 2^22
+     columns, K3's counts equal to the plain counts summed over column
+     chunks, both timed on the whole matrix beside their bound;
+   - cell B, deepseek-v2-lite-16b (MLA kv_lora 512, 64 routed experts
+     top-6 and 2 shared, vocab 102,400, bf16) cut to 1 layer (1.004 B
+     parameters), m = 8: 6 steps; K1 and K3 held and timed on its
+     (8, 1.004 B) matrix as on cell A's; then 16 tokens decoded through
+     the latent cache against the forward pass at capacity factor 8.0,
+     within 0.1 in bf16;
+   - per run: finite losses, the last below the first, K1 (K3 defended)
+     launches equal to the steps, no K6 launch, peak below 80 GB;
+   - the reference's ``examples/byzantine_train.py`` (gemma2-2b-reduced,
+     m = 8, 20 steps) on sync_ps and streaming, mean beside phocas;
+8. report: the card's name and power limit, one JSON line describing every
    kernel, and as the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN convolutions throughout.  Without a CUDA
@@ -313,6 +335,12 @@ def tie_matrix(m: int, d: int, gen: torch.Generator) -> torch.Tensor:
     return u
 
 
+def same(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit for bit, with NaN where the other has NaN."""
+    return (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)))
+
+
 def tie_check(kname: str, u: torch.Tensor, b: int) -> None:
     """A kernel against its plain version on a tie-heavy matrix: the
     aggregate equal bit for bit (NaN where the plain version has NaN) and,
@@ -325,9 +353,7 @@ def tie_check(kname: str, u: torch.Tensor, b: int) -> None:
         check(torch.equal(got[1], want[1]),
               f"{tag}: counts {got[1].tolist()} != plain {want[1].tolist()}")
         got, want = got[0], want[0]
-    check(torch.equal(torch.isnan(got), torch.isnan(want))
-          and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)),
-          f"{tag}: aggregate differs")
+    check(same(got, want), f"{tag}: aggregate differs")
 
 
 def tie_phase(gen: torch.Generator) -> None:
@@ -1661,6 +1687,339 @@ def serve_trace_phase() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: LM training at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept): gemma2-2b cut from 26 to one local/global period,
+# deepseek-v2-lite-16b from 27 to one MoE + MLA layer.
+LM_CELLS = {"A": ("gemma2-2b", 2), "B": ("deepseek-v2-lite-16b", 1)}
+LM_M, LM_SEQS, LM_SEQ_LEN, LM_B = 8, 2, 128, 2   # byzantine_train.py's
+LM_LR = 0.5              # byzantine_train.py's SGD rate (PERF.md §6)
+LM_EDGE = 1 << 22        # K1/K3 held bit for bit on the first and last
+                         # LM_EDGE columns of an LM's worker matrix
+LM_COUNT_CHUNK = 1 << 24  # K3's plain counts summed over column chunks
+                          # (a chunk's f32 count is an exact integer)
+LM_DECODE = 16           # cell B: ring-cache decode length
+LM_DECODE_ATOL = 0.1     # bf16 logits: test_torch_lm.py's bf16 bound
+
+
+def lm_model(cell: str, remat: str = "full", **changes):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    name, layers = LM_CELLS[cell]
+    cfg = dataclasses.replace(get_arch(name), num_layers=layers, **changes)
+    return build_model(cfg, remat=remat)
+
+
+def lm_plan(cell: str, *, steps: int, remat: str = "full",
+            defended: bool = False, lr: float = LM_LR, tag: str = "",
+            spans: bool = True):
+    """Cell ``cell``'s sync_ps plan through ``runner.plan_from_parts``:
+    LM_M workers of LM_SEQS sequences of LM_SEQ_LEN tokens from the token
+    stream, phocas b = q = LM_B under omniscient q = LM_B, SGD; with
+    ``spans`` the recorder times each step (synchronized) into a JSONL
+    under build/chip_smoke/."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust import RobustConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.defense import DefenseConfig
+    from repro_torch.experiment.runner import plan_from_parts
+    from repro_torch.obs import ObsConfig
+    from repro_torch.optim import OptConfig
+    model = lm_model(cell, remat)
+    stream = TokenStream(vocab_size=model.cfg.vocab_size, seq_len=LM_SEQ_LEN,
+                         global_batch=LM_M * LM_SEQS, seed=0,
+                         device="cuda")
+    path = os.path.join(REPO, "build", "chip_smoke",
+                        f"lm-{tag or cell}.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    return plan_from_parts(
+        model=model, batch_fn=stream.batch,
+        robust_cfg=RobustConfig(rule="phocas", b=LM_B, q=LM_B,
+                                attack=AttackConfig(name="omniscient",
+                                                    num_byzantine=LM_B)),
+        opt_cfg=OptConfig(name="sgd", lr=lr),
+        num_workers=LM_M, steps=steps, seed=0, record_every=1,
+        defense_cfg=DefenseConfig() if defended else None,
+        telemetry_path=path if spans else None,
+        obs=ObsConfig() if spans else None, device="cuda")
+
+
+def lm_run(tag: str, plan, remat: str = "full") -> dict:
+    """Run ``plan`` with the kernel counts set to 0 just before and read
+    just after, and the peak memory reset before; print and check its
+    outcome (finite losses, no K6 launch, peak below the card's 80 GB).
+    Returns the run's numbers."""
+    import gc
+
+    from repro_torch.defense import read_jsonl
+    from repro_torch.experiment.topology import make_topology
+    from repro_torch.tree import size
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, counts = launch_counts(lambda: make_topology(plan.topology).run(plan))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ms = sorted(r["ms"] for r in read_jsonl(plan.telemetry_path)
+                if r["kind"] == "span" and r["name"] in STEP_SPANS)
+    losses = [r["loss"] for r in res.history if "loss" in r]
+    rc = plan.robust_cfg
+    out = {"d": size(res.params), "losses": losses,
+           "step_ms": ms[len(ms) // 2], "peak_gib": peak / 2**30,
+           "launches": counts, "res": res}
+    print(f"{tag}: d={out['d']:,} m={plan.num_workers} {rc.rule} b={rc.b} "
+          f"q={rc.q} {rc.attack.name} q_atk={rc.attack.num_byzantine} "
+          f"lr={plan.opt_cfg.lr} remat={remat} steps={plan.steps}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, step {out['step_ms']:.1f} "
+          f"ms (median synchronized span; slowest {ms[-1]:.1f}), peak "
+          f"{out['peak_gib']:.2f} GiB, run {wall:.1f} s, launches {counts}")
+    check(len(losses) == plan.steps, f"{tag}: {len(losses)} loss records")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"{tag}: non-finite loss in {losses}")
+    check(counts["flash_attn"] == 0,
+          f"{tag}: K6 launched in training ({counts})")
+    check(peak < 80e9, f"{tag}: peak {peak / 1e9:.1f} GB")
+    finite_params(tag, res)
+    return out
+
+
+def lm_cell(cell: str, steps: int, defended_steps: int = 0,
+            remat_steps: int = 0) -> dict:
+    """Train cell ``cell`` plain (remat "full"), then defended, then with
+    remat "none" and "dots"; K1 (K3 defended) launches equal to the steps,
+    the last loss below the first.  Returns the K1/K3 launch counts."""
+    name = LM_CELLS[cell][0]
+    plain = lm_run(f"cell {cell} {name}", lm_plan(cell, steps=steps))
+    launches = dict(plain["launches"])
+    check(launches["phocas"] == steps and sum(launches.values()) == steps,
+          f"cell {cell}: launches {launches} in {steps} steps")
+    losses = plain["losses"]
+    check(losses[-1] < losses[0],
+          f"cell {cell}: loss did not decrease ({losses})")
+    del plain
+    if defended_steps:
+        out = lm_run(f"cell {cell} {name} defended", lm_plan(
+            cell, steps=defended_steps, defended=True,
+            tag=f"{cell}-defended"))
+        c = out["launches"]
+        gated = sum(1 for r in out["res"].history[:-1]
+                    if r["n_active"] < LM_M)
+        check(c["phocas_counts"] == defended_steps and c["phocas"] == gated
+              and sum(c.values()) == defended_steps + gated,
+              f"cell {cell} defended: launches {c}, {gated} gated steps")
+        check(out["losses"][-1] < out["losses"][0],
+              f"cell {cell} defended: loss did not decrease")
+        print(f"  defended: final active "
+              f"{[int(a) for a in out['res'].defense_state['active']]}, "
+              f"q_hat {out['res'].history[-1]['q_hat']}")
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+        del out
+    if remat_steps:
+        peaks = {}
+        for remat in ("none", "dots"):
+            out = lm_run(f"cell {cell} {name} remat {remat}", lm_plan(
+                cell, steps=remat_steps, remat=remat,
+                tag=f"{cell}-{remat}"), remat)
+            peaks[remat] = out["peak_gib"]
+            check(out["launches"]["phocas"] == remat_steps
+                  and out["losses"][-1] < out["losses"][0],
+                  f"cell {cell} remat {remat}: launches "
+                  f"{out['launches']}, losses {out['losses']}")
+            launches["phocas"] += out["launches"]["phocas"]
+            del out
+        print(f"  remat peaks: none {peaks['none']:.2f} GiB, dots "
+              f"{peaks['dots']:.2f} GiB")
+    return launches
+
+
+def lm_trace(cell: str, steps: int = 3) -> None:
+    """One torch.profiler run of ``steps`` of cell ``cell`` (after a run of
+    the same steps as warm-up): the device's busy share of the loop and its
+    top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.experiment.topology import make_topology
+    make_topology("sync_ps").run(lm_plan(cell, steps=steps, spans=False))
+    plan = lm_plan(cell, steps=steps, spans=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        make_topology("sync_ps").run(plan)
+        torch.cuda.synchronize()
+        loop = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    check(busy > 0, f"cell {cell} trace: the profiler saw no device time")
+    print(f"cell {cell} trace ({steps} steps): loop {loop * 1e3:.1f} ms, "
+          f"kernels busy {busy * 1e3:.1f} ms = {busy / loop:.1%} of it")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.self_device_time_total / busy / 1e6:6.1%}  "
+              f"n={e.count:5d}  {e.key[:100]}")
+    host = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
+        print(f"    host {e.self_cpu_time_total / 1e3 / steps:9.1f} ms/step"
+              f"  n={e.count:6d}  {e.key[:80]}")
+
+
+def k1_lm_phase(cell: str) -> None:
+    """K1 and K3 on cell ``cell``'s (m, D) worker matrix (the gradients of
+    one token batch at the initial parameters, omniscient rows written in
+    place): each aggregate equal to its plain version bit for bit on the
+    matrix's first and last LM_EDGE columns (the last at element offsets
+    past 2^31), read from the whole matrix's launch; K3's counts equal to
+    the plain counts summed as integers over column chunks of the whole
+    matrix; then both timed on the whole matrix beside their bound."""
+    import gc
+
+    from repro_torch.core.attacks import make_attack, writing_in_place
+    from repro_torch.core.robust import flatten_stacked
+    from repro_torch.data.pipeline import make_worker_batches
+    from repro_torch.kernels.phocas.kernel import (phocas_counts_hopper,
+                                                   phocas_hopper)
+    from repro_torch.kernels.phocas.ref import phocas_counts_ref, phocas_ref
+    plan = lm_plan(cell, steps=1, spans=False)
+    model = plan.model
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = make_worker_batches(plan.batch_fn(0), LM_M)
+    grads, _ = torch.func.vmap(torch.func.grad_and_value(model.loss),
+                               in_dims=(None, 0))(params, batch)
+    u = flatten_stacked(grads)
+    del grads, params
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with writing_in_place():
+        u = make_attack(plan.robust_cfg.attack)(gen, u, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m, d = u.shape
+    tag = f"cell {cell} ({m}, {d:,}) f32, b={LM_B}"
+    check(m * d > 2**31, f"{tag}: m*d = {m * d} not past 2^31")
+    got1 = phocas_hopper(u, LM_B)
+    got3, counts = phocas_counts_hopper(u, LM_B)
+    for where, cols in (("last", slice(d - LM_EDGE, d)),
+                        ("first", slice(0, LM_EDGE))):
+        check(same(got1[cols], phocas_ref(u[:, cols], LM_B)),
+              f"{tag}: K1 differs from its plain version on the {where} "
+              f"{LM_EDGE:,} columns")
+        check(same(got3[cols], phocas_counts_ref(u[:, cols], LM_B)[0]),
+              f"{tag}: K3's aggregate differs from its plain version on "
+              f"the {where} {LM_EDGE:,} columns")
+    del got1, got3
+    plain = torch.zeros(m, dtype=torch.int64, device="cuda")
+    for s in range(0, d, LM_COUNT_CHUNK):
+        plain += phocas_counts_ref(u[:, s:s + LM_COUNT_CHUNK],
+                                   LM_B)[1].long()
+    check(int(plain.sum()) == LM_B * d,
+          f"{tag}: plain counts sum to {int(plain.sum())}, not b*d")
+    check(torch.equal(counts, plain.float()),
+          f"{tag}: K3 counts {counts.tolist()} != plain {plain.tolist()}")
+    t = time_ms(lambda: phocas_hopper(u, LM_B), reps=5)
+    t3 = time_ms(lambda: phocas_counts_hopper(u, LM_B), reps=5)
+    floor = time_ms(lambda: torch.sum(u, 0), reps=5)
+    b1, by1 = bound_ms("phocas", m, d, 4)
+    b3, by3 = bound_ms("phocas_counts", m, d, 4)
+    print(f"K1 and K3 at {tag}, element offsets to {m * d:,} (past 2^31 = "
+          f"{2**31:,}): aggregates equal to the plain versions bit for bit "
+          f"on the first and last {LM_EDGE:,} columns; K3 counts "
+          f"{plain.tolist()} equal to the plain counts over "
+          f"{-(-d // LM_COUNT_CHUNK)} column chunks (compared as K3's f32 "
+          f"output); K1 {t:.3f} ms (bound {b1:.3f} ms by {by1}, "
+          f"{100 * b1 / t:.0f}%), K3 {t3:.3f} ms (bound {b3:.3f} ms by "
+          f"{by3}, {100 * b3 / t3:.0f}%), torch.sum(u, 0) {floor:.3f} ms")
+    del u, counts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_decode_phase(cell: str = "B") -> None:
+    """Cell ``cell``'s model at capacity factor 8.0 (no token drops):
+    LM_DECODE tokens decoded one by one through the ring (latent) cache
+    against one forward pass over them, within LM_DECODE_ATOL."""
+    model = lm_model(cell, "none", capacity_factor=8.0)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, model.cfg.vocab_size, (2, LM_DECODE),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2), device="cuda")
+    with torch.no_grad():
+        full, _ = model.forward(params, {"tokens": toks})
+        cache = model.init_cache(2, LM_DECODE, "cuda")
+        outs = []
+        for t in range(LM_DECODE):
+            lg, cache = model.decode_step(params, cache, toks[:, t:t + 1], t)
+            outs.append(lg[:, 0])
+    inc = torch.stack(outs, 1)
+    err = (inc - full).abs().max().item()
+    agree = (inc.argmax(-1) == full.argmax(-1)).float().mean().item()
+    print(f"cell {cell} decode: {LM_DECODE} tokens through the latent "
+          f"cache vs the forward pass, bf16, capacity factor 8.0: max|diff| "
+          f"{err:.4f} (bound {LM_DECODE_ATOL}), greedy tokens agree "
+          f"{100 * agree:.0f}%, |logits| <= {full.abs().max().item():.2f}")
+    check(err <= LM_DECODE_ATOL, f"cell {cell} decode: max|diff| {err}")
+
+
+def lm_example_phase() -> None:
+    """The reference's examples/byzantine_train.py through run_experiment on
+    the card: gemma2-2b-reduced, m = 8, phocas b = q = 2 under omniscient
+    (sync_ps) or gaussian (streaming), 20 steps; mean under the same attack
+    beside it.  Phocas's loss must fall."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust import RobustConfig
+    from repro_torch.experiment import (DataSpec, ModelSpec, ScenarioSpec,
+                                        run_experiment)
+    from repro_torch.optim import OptConfig
+    for topo, attack in (("sync_ps", "omniscient"), ("streaming",
+                                                     "gaussian")):
+        out = {}
+        for rule, b in (("phocas", 2), ("mean", 0)):
+            spec = ScenarioSpec(
+                name=f"byz-{rule}", topology=topo,
+                model=ModelSpec(kind="arch", arch="gemma2-2b-reduced"),
+                data=DataSpec(kind="tokens", seq_len=128,
+                              batch_per_worker=2),
+                robust=RobustConfig(rule=rule, b=b, q=2),
+                attack=AttackConfig(name=attack, num_byzantine=2),
+                opt=OptConfig(name="sgd", lr=0.5), num_workers=8, steps=20,
+                log_every=1)
+            res, counts = launch_counts(lambda: run_experiment(spec))
+            out[rule] = [r["loss"] for r in res.history]
+            check(counts["flash_attn"] == 0,
+                  f"example {topo} {rule}: K6 launched ({counts})")
+        ph, mn = out["phocas"], out["mean"]
+        print(f"byzantine_train.py on {topo} ({attack} q=2, m=8, 20 steps): "
+              f"phocas loss {ph[0]:.3f} -> {ph[-1]:.3f}; mean {mn[0]:.3f} "
+              f"-> {mn[-1]:.3f}")
+        check(all(x == x and abs(x) != float("inf") for x in ph),
+              f"example {topo}: non-finite phocas loss {ph}")
+        check(ph[-1] < ph[0], f"example {topo}: phocas loss did not fall")
+
+
+def lm_phase() -> dict:
+    """Phase 7: cells A and B, K1 at the LM shape, cell B's decode and the
+    reference's LM example.  Returns the K1/K3 launches of the cells."""
+    t0 = time.perf_counter()
+    launches = lm_cell("A", steps=10, defended_steps=6, remat_steps=2)
+    lm_trace("A")
+    k1_lm_phase("A")
+    for k, v in lm_cell("B", steps=6).items():
+        launches[k] = launches.get(k, 0) + v
+    k1_lm_phase("B")
+    lm_decode_phase("B")
+    lm_example_phase()
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1704,6 +2063,8 @@ def main() -> int:
     report["flash_attn"] = flash_phase(gen)
     launches.update(serve_phase())
     serve_trace_phase()
+    for k, v in lm_phase().items():
+        launches[k] += v
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

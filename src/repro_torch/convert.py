@@ -26,19 +26,33 @@ def params_to_numpy(tree):
     return tree_util.map(lambda x: x.detach().cpu().numpy(), tree)
 
 
+# Parameters the reference holds in f32 whatever the model's dtype: the MoE
+# router (``repro/models/moe.py::init_moe``).
+F32_PARAMS = ("router",)
+
+
 def lm_params_from_numpy(tree, device=None, dtype=None):
     """An LM parameter tree (nested dict of arrays, the reference's
     ``lm.init`` layout) -> the same keys and shapes as tensors on
     ``device``, in ``dtype`` (default: each array's own float dtype; pass
     ``torch.bfloat16`` for the reference's bf16 leaves, which numpy holds as
-    float32 or ml_dtypes)."""
-    def one(x):
+    float32 or ml_dtypes).  Leaves under an ``F32_PARAMS`` key stay f32, as
+    in the reference."""
+    def one(x, keep_f32):
         arr = np.asarray(x)
         if arr.dtype.kind != "f" or arr.dtype.itemsize < 4:
             arr = arr.astype(np.float32)
         t = torch.tensor(arr, device=device)
+        if keep_f32:
+            return t.float()
         return t if dtype is None else t.to(dtype)
-    return tree_util.map(one, tree)
+
+    def walk(t, keep_f32=False):
+        if isinstance(t, dict):
+            return {k: walk(v, keep_f32 or k in F32_PARAMS)
+                    for k, v in t.items()}
+        return one(t, keep_f32)
+    return walk(tree)
 
 
 def lm_params_to_numpy(tree):

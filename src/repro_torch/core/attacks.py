@@ -4,7 +4,10 @@ Port of ``repro/core/attacks.py``.  Every attack is a function
 ``(gen, u) -> u_tilde`` over the worker-gradient matrix ``u`` of shape
 ``(m, d)`` (f32), where ``gen`` is a ``torch.Generator`` on ``u``'s device
 (unused by the deterministic attacks).  Attacks return a new tensor and
-leave ``u`` untouched.  The random attacks cannot reproduce ``jax.random``
+leave ``u`` untouched; inside :func:`writing_in_place` the built-in ones
+write into ``u`` and return it instead, for a caller that owns an (m, d)
+matrix too large to hold twice (an LM's).  The random attacks cannot
+reproduce ``jax.random``
 streams; they match the reference in distribution and in which entries they
 touch.
 
@@ -13,7 +16,9 @@ individual coordinates anywhere in the matrix (Definition 4).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -42,8 +47,30 @@ class AttackConfig:
     inflate_scale: float = 100.0       # scale_inflate: payload-scale factor
 
 
+_IN_PLACE = threading.local()
+
+
+@contextlib.contextmanager
+def writing_in_place():
+    """Inside, the built-in attacks write into the matrix they are given
+    (whose caller owns it and reads only the result) instead of a copy."""
+    prev = getattr(_IN_PLACE, "on", False)
+    _IN_PLACE.on = True
+    try:
+        yield
+    finally:
+        _IN_PLACE.on = prev
+
+
+def _writable(u: torch.Tensor) -> torch.Tensor:
+    return u if getattr(_IN_PLACE, "on", False) else u.clone()
+
+
 def _with_rows(u: torch.Tensor, q: int, rows: torch.Tensor) -> torch.Tensor:
-    out = u.clone()
+    """``u`` with its first q rows replaced by ``rows``, which the callers
+    compute from ``u`` beforehand, so a write in place reads nothing
+    stale."""
+    out = _writable(u)
     out[:q] = rows
     return out
 
@@ -146,7 +173,7 @@ def bitflip_attack(gen, u: torch.Tensor, q: int, num_dims: int = 1000,
     ranks = torch.argsort(torch.argsort(scores, dim=0), dim=0)
     hit = ranks < q                                  # exactly q per column
     head = u[:, :nd]
-    out = u.clone()
+    out = _writable(u)
     out[:, :nd] = torch.where(hit, _flip_bits_f32(head, bits).to(u.dtype),
                               head)
     return out
@@ -163,7 +190,7 @@ def gambler_attack(gen, u: torch.Tensor, num_servers: int = 20,
     hit = torch.rand((m, server_size), generator=gen,
                      device=u.device) < prob
     head = u[:, :server_size]
-    out = u.clone()
+    out = _writable(u)
     out[:, :server_size] = torch.where(hit, scale * head, head)
     return out
 

@@ -10,6 +10,7 @@ ROADMAP queue 1 item 10.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -17,7 +18,8 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.core import registry
-from repro_torch.core.attacks import AttackConfig, make_attack
+from repro_torch.core.attacks import (AttackConfig, make_attack,
+                                      writing_in_place)
 from repro_torch.core.selection import gate_matrix
 
 
@@ -51,7 +53,8 @@ class RobustConfig:
 def aggregate_matrix(u: torch.Tensor, cfg: RobustConfig,
                      gen: Optional[torch.Generator] = None, *,
                      active: Optional[torch.Tensor] = None,
-                     with_scores: bool = False, step=None):
+                     with_scores: bool = False, step=None,
+                     owned: bool = False):
     """Aggregate an (m, d) worker matrix, injecting the configured attack.
 
     ``gen`` draws the random attacks' noise; ``step`` reaches step-aware
@@ -60,13 +63,17 @@ def aggregate_matrix(u: torch.Tensor, cfg: RobustConfig,
     returns ``(agg, scores)``.  Scores observe the RAW submissions while the
     aggregate uses the gated matrix: scoring gated rows would make an
     ejected worker look conforming at once, and it would flap back in.
+    ``owned=True`` hands ``u`` over: the attack then writes into it rather
+    than into a copy, as it also does into a copy made for ``agg_dtype``.
     """
     attack = make_attack(cfg.attack)
     uf = u.to(getattr(torch, cfg.agg_dtype))
     if attack is not None:
         if gen is None:
             raise ValueError("attack configured but no generator supplied")
-        uf = attack(gen, uf, step)
+        with (writing_in_place() if owned or uf is not u
+              else contextlib.nullcontext()):
+            uf = attack(gen, uf, step)
     rule = cfg.rule_obj()
     if with_scores:
         return rule.reduce_gated_with_scores(uf, active)
@@ -76,10 +83,21 @@ def aggregate_matrix(u: torch.Tensor, cfg: RobustConfig,
 
 
 def flatten_stacked(stacked) -> torch.Tensor:
-    """(m, D) matrix of a tree of stacked leaves, in ravel_pytree order."""
+    """(m, D) f32 matrix of a tree of stacked leaves, in ravel_pytree order.
+
+    The matrix is allocated once and each leaf copied into its column range
+    (casting on the way), so it is never held twice, as an f32 copy of
+    every leaf and their concatenation would be."""
     leaves = tree_util.leaves(stacked)
     m = leaves[0].shape[0]
-    return torch.cat([x.reshape(m, -1).float() for x in leaves], dim=1)
+    sizes = [x[0].numel() for x in leaves]
+    out = torch.empty((m, sum(sizes)), dtype=torch.float32,
+                      device=leaves[0].device)
+    start = 0
+    for x, n in zip(leaves, sizes):
+        out[:, start:start + n].copy_(x.reshape(m, n))
+        start += n
+    return out
 
 
 def unflatten_like(vec: torch.Tensor, like):
@@ -99,11 +117,13 @@ def aggregate_stacked_tree(stacked, cfg: RobustConfig,
     """Aggregate a tree whose leaves are stacked (m, *leaf_shape) tensors.
 
     Flattens to a single (m, D) matrix (so vector-wise rules would see the
-    full gradient geometry), aggregates, and unflattens.  With
+    full gradient geometry), aggregates, and unflattens.  The matrix is
+    this function's own, so the attack writes into it: an LM's is held
+    once, not twice.  With
     ``with_scores=True`` returns ``(tree, scores)``.
     """
     out = aggregate_matrix(flatten_stacked(stacked), cfg, gen, active=active,
-                           with_scores=with_scores, step=step)
+                           with_scores=with_scores, step=step, owned=True)
     if with_scores:
         agg, scores = out
         return unflatten_like(agg, stacked), scores

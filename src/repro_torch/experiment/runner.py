@@ -194,17 +194,20 @@ def plan_from_parts(*, model, batch_fn, robust_cfg, opt_cfg,
 
 def _build_model_and_data(spec: ScenarioSpec, device: torch.device):
     """(model, batch_fn, eval_fn) for the spec's model × data cell.  An arch
-    model has no batch function yet: the token stream comes with LM
-    training (ROADMAP queue 1 item 11), and the serve topology makes its
-    own prompts."""
-    from repro_torch.data.pipeline import ClassificationData
+    model trains on the token stream and has no eval, as in the
+    reference."""
+    from repro_torch.data.pipeline import ClassificationData, TokenStream
 
     m, ds = spec.model, spec.data
+    global_batch = spec.num_workers * ds.batch_per_worker
     if m.kind == "arch":
         from repro_torch.configs import get_arch
         from repro_torch.models.registry import build_model
-        return build_model(get_arch(m.arch), remat=m.remat), None, None
-    global_batch = spec.num_workers * ds.batch_per_worker
+        cfg = get_arch(m.arch)
+        stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=ds.seq_len,
+                             global_batch=global_batch, seed=ds.seed,
+                             device=device)
+        return build_model(cfg, remat=m.remat), stream.batch, None
     data = ClassificationData(num_classes=ds.num_classes, dim=ds.dim,
                               noise=ds.noise, seed=ds.seed, device=device)
     test = data.test_set(1024)

@@ -5,10 +5,11 @@ unchanged (``examples/scenarios/*.json``), so every field is kept; ``defense``
 parses into :class:`repro_torch.defense.DefenseConfig`, ``faults`` into
 :class:`repro_torch.faults.FaultSpec` and ``compression`` into
 :class:`repro_torch.compress.CompressionSpec`.  The axes this package does not
-run yet are refused by :meth:`ScenarioSpec.validate` (``mesh``) or by the
-training topologies (LM training, an arch model on the token stream) with
-``NotImplementedError`` naming the ROADMAP queue item that brings them.  An
-arch model runs on the ``serve`` topology.
+run yet are refused with ``NotImplementedError`` naming the ROADMAP queue
+item that brings them: ``mesh`` by :meth:`ScenarioSpec.validate`, the arch
+families not built yet by ``models.registry.build_model``.  An arch model
+trains on the token stream on every training topology and serves on the
+``serve`` topology.
 """
 from __future__ import annotations
 

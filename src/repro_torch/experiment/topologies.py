@@ -31,17 +31,11 @@ from repro_torch import tree as tree_util
 from repro_torch.core import registry
 from repro_torch.data.pipeline import make_worker_batches
 from repro_torch.experiment.runner import ExperimentResult, Plan
-from repro_torch.experiment.spec import SpecError, not_ported
+from repro_torch.experiment.spec import SpecError
 from repro_torch.experiment.topology import Topology, register_topology
 from repro_torch.obs.metrics import make_recorder
 from repro_torch.optim.optimizers import init_opt_state
 from repro_torch.train.streaming import STREAMING_ATTACKS, fold_seed
-
-
-def _refuse_lm_training(spec) -> None:
-    if spec.model.kind == "arch":
-        raise not_ported("LM training (model.kind='arch' on the token "
-                         "stream)", "item 11")
 
 
 def _mask_flips(rec, prev, now, stream: str):
@@ -158,10 +152,6 @@ class SyncPS(Topology):
     supports_resume = True
     supports_compression = True
     supports_stateful_codecs = True
-
-    def validate_spec(self, spec) -> None:
-        super().validate_spec(spec)
-        _refuse_lm_training(spec)
 
     def run(self, plan: Plan, init_state=None) -> ExperimentResult:
         """``init_state`` optionally injects ``(params, opt_state)`` or
@@ -418,10 +408,6 @@ class AsyncPS(Topology):
     supports_compression = True
     supports_stateful_codecs = True
 
-    def validate_spec(self, spec) -> None:
-        super().validate_spec(spec)
-        _refuse_lm_training(spec)
-
     def run(self, plan: Plan, init_state=None) -> ExperimentResult:
         """``init_state`` optionally injects the async state dict."""
         from repro_torch.compress.spec import make_codec
@@ -529,10 +515,6 @@ class Streaming(Topology):
     supports_compression = True
     # supports_stateful_codecs stays False: the O((2b+1)·|θ|) memory
     # contract cannot hold an (m, |θ|) error-feedback residual.
-
-    def validate_spec(self, spec) -> None:
-        super().validate_spec(spec)
-        _refuse_lm_training(spec)
 
     def run(self, plan: Plan, init_state=None) -> ExperimentResult:
         """``init_state`` optionally injects ``(params, opt_state)``."""

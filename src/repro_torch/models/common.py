@@ -1,6 +1,7 @@
-"""Shared model components, the GQA subset of ``repro/models/common.py``:
-norms, embeddings, RoPE, query-chunked GQA attention with sliding windows and
-softcaps, GLU MLPs, and the ring and paged KV caches.
+"""Shared model components, a port of ``repro/models/common.py``: norms,
+embeddings, RoPE, query-chunked GQA attention with sliding windows and
+softcaps, MLA (multi-head latent attention) with its latent cache, GLU MLPs,
+and the ring and paged KV caches.
 
 Parameters are plain nested dicts of tensors in the reference's layout:
 linear ``w`` is (d_in, d_out), q/k/v are (B, S, H, hd).  ``init_*`` take a
@@ -17,15 +18,24 @@ Three differences from the reference, each forced by PyTorch:
 - The caches are updated in place (slice assignment on the ring cache,
   ``index_put_`` on the block pool) and returned, where the reference
   returns updated copies; a cache passed in is the cache that comes back.
-- On a CUDA tensor, ``attention_core`` sends the reference's flash-attention
-  case (causal self-attention, Sq == T > 1) to the flash-attention kernel:
-  the choice ``REPRO_FLASH_ATTN=1`` makes in the reference.  Every other call,
-  and every call on the CPU, takes ``_attend``, the reference's default.
-  MLA waits for a later slice (ROADMAP queue 1 item 11).
+- Serving's prefill calls ``attention_core`` with ``flash=True``: on a CUDA
+  tensor it sends the reference's flash-attention case (causal
+  self-attention, Sq == T > 1) to the flash-attention kernel, the choice
+  ``REPRO_FLASH_ATTN=1`` makes in the reference.  The kernel has no
+  backward, as the reference's has none, so training (the cacheless
+  ``attention_block``), every other call and every call on the CPU take
+  ``_attend``, the reference's default.
+
+:func:`linear` also serves the ``"dots"`` remat policy of
+``models/stack.py``: inside :func:`record_dots` it keeps each product's
+output, and inside :func:`replay_dots` it hands the kept outputs back in the
+same order, with the product's gradient, instead of computing them again.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -63,8 +73,68 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype) -> dict:
 # Primitive ops
 # ---------------------------------------------------------------------------
 
+_TAPE = threading.local()
+
+
+@contextlib.contextmanager
+def record_dots():
+    """Collect the output of every :func:`linear` run inside; yields the
+    list they are appended to, in call order."""
+    prev = getattr(_TAPE, "state", None)
+    tape: list = []
+    _TAPE.state = ("record", tape)
+    try:
+        yield tape
+    finally:
+        _TAPE.state = prev
+
+
+@contextlib.contextmanager
+def replay_dots(saved):
+    """Inside, each :func:`linear` returns the next of ``saved`` (outputs
+    of :func:`record_dots` over the same code) with its product's
+    gradient, instead of multiplying again."""
+    prev = getattr(_TAPE, "state", None)
+    _TAPE.state = ("replay", list(saved))
+    try:
+        yield
+    finally:
+        _TAPE.state = prev
+
+
+class _SavedProduct(torch.autograd.Function):
+    """``x @ w`` whose forward value is given (the kept output): the
+    backward is the product's, from the recomputed ``x`` and ``w``."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, _ = inputs
+        ctx.save_for_backward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = g @ w.transpose(-1, -2)
+        gw = (x.reshape(-1, x.shape[-1]).transpose(0, 1)
+              @ g.reshape(-1, g.shape[-1]))
+        return gx, gw, None
+
+
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"]
+    state = getattr(_TAPE, "state", None)
+    if state is None:
+        return x @ p["w"]
+    mode, tape = state
+    if mode == "replay":
+        return _SavedProduct.apply(x, p["w"], tape.pop(0))
+    y = x @ p["w"]
+    tape.append(y)
+    return y
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -129,14 +199,15 @@ def _attend(q, k, v, q_pos, k_pos, *, causal, window, cap, scale):
 
 
 def attention_core(q, k, v, q_pos, k_pos, *, causal=True, window=None,
-                   cap=None, scale=None, chunk=ATTN_QUERY_CHUNK):
-    """Query-chunked masked attention; see _attend for shapes."""
+                   cap=None, scale=None, chunk=ATTN_QUERY_CHUNK, flash=False):
+    """Query-chunked masked attention; see _attend for shapes.  ``flash``:
+    the caller is a serving prefill, of which no gradient is taken."""
     B, Sq, H, hd = q.shape
     if scale is None:
         scale = hd ** -0.5
-    if (q.is_cuda and causal and Sq > 1 and Sq == k.shape[1]
+    if (flash and q.is_cuda and causal and Sq > 1 and Sq == k.shape[1]
             and q.is_floating_point()):
-        # self-attention train/prefill (q_pos == k_pos == arange)
+        # self-attention prefill (q_pos == k_pos == arange)
         from repro_torch.kernels.ops import flash_attention
         return flash_attention(q, k, v, causal=True, window=window, cap=cap,
                                scale=scale)
@@ -214,7 +285,7 @@ def attention_block(p, cfg, x, *, positions, window, cache=None):
         k_pos = _cache_positions(size, last, window, x.device)
         out = attention_core(q, cache["k"], cache["v"], positions, k_pos,
                              causal=True, window=window,
-                             cap=cfg.attn_logit_softcap)
+                             cap=cfg.attn_logit_softcap, flash=True)
     return linear(p["wo"], out.reshape(B, S, H * hd)), cache
 
 
@@ -296,7 +367,7 @@ def attention_block_prefill_paged(p, cfg, x, *, positions, block_tables,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     out = attention_core(q, k, v, positions, positions, causal=True,
-                         window=None, cap=cfg.attn_logit_softcap)
+                         window=None, cap=cfg.attn_logit_softcap, flash=True)
 
     bt = cache["k"].shape[1]
     blk = block_tables[:, positions // bt]             # (B, S0)
@@ -304,6 +375,99 @@ def attention_block_prefill_paged(p, cfg, x, *, positions, block_tables,
     cache["k"][blk, off] = k
     cache["v"][blk, off] = v
     return linear(p["wo"], out.reshape(B, S, H * hd)), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2) with latent KV cache
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg, lead: tuple = ()) -> dict:
+    dt = dtype_of(cfg)
+    d, H = cfg.d_model, cfg.num_heads
+    nope, rdim, vdim, rank = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                              cfg.v_head_dim, cfg.kv_lora_rank)
+    return {
+        "wq": init_linear(gen, d, H * (nope + rdim), dt, lead),
+        "wkv_a": init_linear(gen, d, rank, dt, lead),        # latent down-proj
+        "wk_rope": init_linear(gen, d, rdim, dt, lead),      # shared rope key
+        "wk_b": init_linear(gen, rank, H * nope, dt, lead),  # latent -> keys
+        "wv_b": init_linear(gen, rank, H * vdim, dt, lead),  # latent -> values
+        "wo": init_linear(gen, H * vdim, d, dt, lead),
+    }
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, lead: tuple = (),
+                   device=None) -> dict:
+    dt = dtype_of(cfg)
+    return {
+        "ckv": torch.zeros(lead + (batch, max_len, cfg.kv_lora_rank),
+                           dtype=dt, device=device),
+        "krope": torch.zeros(lead + (batch, max_len, cfg.qk_rope_head_dim),
+                             dtype=dt, device=device),
+    }
+
+
+def _mla_attend(cfg, q_nope, q_rope, k_nope, v, krope, q_pos, k_pos):
+    """q_nope (B,Sq,H,n), q_rope (B,Sq,H,r), k_nope (B,T,H,n), v (B,T,H,vd),
+    krope (B,T,r); f32 scores and softmax, as :func:`_attend`."""
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    s = (torch.einsum("bqhn,bthn->bhqt", q_nope.float(), k_nope.float())
+         + torch.einsum("bqhr,btr->bhqt", q_rope.float(), krope.float())
+         ) * scale
+    mask = (k_pos[None, :] >= 0) & (k_pos[None, :] <= q_pos[:, None])
+    s = torch.where(mask[None, None], s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)            # fully-masked rows
+    out = torch.einsum("bhqt,bthv->bqhv", p.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def _mla_attend_chunked(p, cfg, q_nope, q_rope, ckv, krope, q_pos, k_pos,
+                        chunk=ATTN_QUERY_CHUNK):
+    B, Sq, H = q_nope.shape[:3]
+    T = ckv.shape[1]
+    # Expand latent -> per-head keys/values once (chunk-invariant); only the
+    # (B,H,chunk,T) score tensor is made again per query chunk.
+    k_nope = linear(p["wk_b"], ckv).reshape(B, T, H, cfg.qk_nope_head_dim)
+    v = linear(p["wv_b"], ckv).reshape(B, T, H, cfg.v_head_dim)
+    if Sq <= chunk or Sq % chunk != 0:
+        return _mla_attend(cfg, q_nope, q_rope, k_nope, v, krope, q_pos,
+                           k_pos)
+    return torch.cat([
+        _mla_attend(cfg, q_nope[:, i:i + chunk], q_rope[:, i:i + chunk],
+                    k_nope, v, krope, q_pos[i:i + chunk], k_pos)
+        for i in range(0, Sq, chunk)], dim=1)
+
+
+def mla_block(p, cfg, x, *, positions, cache=None):
+    """x: (B,S,d).  Training when cache is None; otherwise decode or a
+    batched prefill from position 0, as :func:`attention_block`.  The latent
+    cache (``ckv`` (B,T,rank), ``krope`` (B,T,rope)) is written in place
+    and returned.  MLA layers are global (no window)."""
+    B, S, d = x.shape
+    H = cfg.num_heads
+    nope, rdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = linear(p["wq"], x).reshape(B, S, H, nope + rdim)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    ckv_new = linear(p["wkv_a"], x)                     # (B,S,rank)
+    krope_new = rope(linear(p["wk_rope"], x)[:, :, None], positions,
+                     cfg.rope_theta)[:, :, 0]           # (B,S,rdim)
+
+    if cache is None:
+        out = _mla_attend_chunked(p, cfg, q_nope, q_rope, ckv_new, krope_new,
+                                  positions, positions)
+    else:
+        T = cache["ckv"].shape[1]
+        last = int(positions[-1])                   # newest cached position
+        start = min(int(positions[0]), T - S)       # dynamic_update_slice's
+        cache["ckv"][:, start:start + S] = ckv_new  # clamp
+        cache["krope"][:, start:start + S] = krope_new
+        t = torch.arange(T, device=x.device)
+        k_pos = torch.where(t <= last, t, -1)
+        out = _mla_attend_chunked(p, cfg, q_nope, q_rope, cache["ckv"],
+                                  cache["krope"], positions, k_pos)
+    return linear(p["wo"], out.reshape(B, S, H * cfg.v_head_dim)), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Decoder-only language model, the dense-GQA subset of
-``repro/models/lm.py``: training forward and loss, the ring-cache decode
-step, and the paged serving path.
+"""Decoder-only language model, a port of ``repro/models/lm.py`` for the
+dense and MoE families with GQA or MLA attention: training forward and loss
+(with the MoE load-balance aux), the ring-cache decode step (MLA layers
+keep latent caches), and the paged serving path.
 
 ``init(gen, cfg)`` draws the parameters from a ``torch.Generator`` on the
 device they go to; the VLM projector raises ``NotImplementedError`` (ROADMAP
@@ -61,7 +62,7 @@ def forward(params, cfg, batch, *, remat: str = "none"):
 
 
 def loss_fn(params, cfg, batch, *, remat: str = "none") -> torch.Tensor:
-    """Next-token cross-entropy (+ MoE aux, zero here)."""
+    """Next-token cross-entropy + the MoE aux (zero for a dense model)."""
     logits, aux = forward(params, cfg, batch, remat=remat)
     labels = batch["labels"].long()                  # (B,S) next tokens
     logp = torch.log_softmax(logits, dim=-1)

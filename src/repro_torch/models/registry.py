@@ -10,9 +10,10 @@ paged serving path (``supports_paged``):
   prefill_paged(params, cache, tokens, block_tables) -> (logits, cache)
   decode_step_paged(params, cache, tokens, positions, block_tables)
 
-Parameters are nested dicts of tensors in the reference's layout.  The
-families this package does not build yet (MoE, MLA, SSM, hybrid, enc-dec,
-VLM) raise ``NotImplementedError`` naming ROADMAP queue 1 item 11.
+Parameters are nested dicts of tensors in the reference's layout.  Dense and
+MoE decoders with GQA or MLA attention are built; the families this package
+does not build yet (SSM, hybrid, enc-dec, VLM) raise ``NotImplementedError``
+naming ROADMAP queue 1 item 11.
 """
 from __future__ import annotations
 

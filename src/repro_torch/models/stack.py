@@ -1,26 +1,41 @@
-"""Generic decoder-only stack, the GQA subset of ``repro/models/stack.py``.
+"""Generic decoder-only stack, a port of ``repro/models/stack.py``.
 
 The parameter layout is the reference's: ``blocks.l{j}.*`` holds the j-th
 layer of every window-pattern period, stacked on a leading period axis, and
 ``tail{j}`` the remainder layers.  The reference's ``lax.scan`` over periods
 is a Python loop over period index views here (a view, so the caches the
-loop writes in place are the stacked tensors themselves).  Windows and
-post-norms are covered; MoE, MLA, SSM and hybrid layers raise
-``NotImplementedError`` (ROADMAP queue 1 item 11).
+loop writes in place are the stacked tensors themselves).  Mixers are GQA
+(with windows and post-norms) or MLA, FFNs dense GLU or MoE; SSM and hybrid
+layers raise ``NotImplementedError`` (ROADMAP queue 1 item 11).
+
+``remat`` ("none" | "full" | "dots") recomputes each period in the backward
+pass, as the reference's ``jax.checkpoint`` of its scan body does.
+``torch.utils.checkpoint`` does not run under ``torch.func.grad`` (it needs
+saved-tensor hooks), so a period is a ``torch.autograd.Function``
+(:class:`_RematPeriod`) whose backward recomputes it through
+``torch.func.vjp``; ``generate_vmap_rule`` lets the worker ``vmap`` of the
+train step batch it.  "full" keeps only the period's input; "dots" also
+keeps the output of every ``linear`` product, the products without batch
+dimensions that ``dots_with_no_batch_dims_saveable`` saves, and recomputes
+the rest (``models/common.py::record_dots``).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.models import common as C
+from repro_torch.models import moe as M
+
+REMAT_MODES = ("none", "full", "dots")
 
 
 def check_ported(cfg) -> None:
     """Refuse the layer kinds this package does not build yet."""
     from repro_torch.experiment.spec import not_ported
-    for flag, what in ((cfg.is_moe, "MoE layers"), (cfg.use_mla, "MLA"),
-                       (cfg.is_ssm, "SSM layers"),
+    for flag, what in ((cfg.is_ssm, "SSM layers"),
                        (cfg.hybrid, "hybrid attention+SSM layers")):
         if flag:
             raise not_ported(f"{what} (arch {cfg.name!r})", "item 11")
@@ -34,36 +49,53 @@ def init_layer(gen, cfg, lead: tuple = ()) -> dict:
     check_ported(cfg)
     dt = C.dtype_of(cfg)
     d, dev = cfg.d_model, gen.device
+    mixer = C.init_mla if cfg.use_mla else C.init_attention
     p = {"ln1": C.init_norm(d, dt, lead, dev),
-         "mixer": C.init_attention(gen, cfg, lead),
+         "mixer": mixer(gen, cfg, lead),
          "ln2": C.init_norm(d, dt, lead, dev),
-         "ffn": C.init_mlp(gen, cfg, lead=lead)}
+         "ffn": (M.init_moe(gen, cfg, lead) if cfg.is_moe
+                 else C.init_mlp(gen, cfg, lead=lead))}
     if cfg.use_post_norms:
         p["post_ln1"] = C.init_norm(d, dt, lead, dev)
         p["post_ln2"] = C.init_norm(d, dt, lead, dev)
     return p
 
 
+def init_layer_cache(cfg, batch: int, max_len: int, window, lead: tuple = (),
+                     device=None) -> dict:
+    if cfg.use_mla:
+        return {"mixer": C.init_mla_cache(cfg, batch, max_len, lead, device)}
+    return {"mixer": C.init_attn_cache(cfg, batch, max_len, window, lead,
+                                       device)}
+
+
 def _ffn(p, cfg, x):
+    """The FFN half of a layer; returns (x, aux)."""
     h = C.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    f = C.mlp_block(p["ffn"], h)
+    if cfg.is_moe:
+        f, aux = M.moe_block(p["ffn"], cfg, h)
+    else:
+        f, aux = C.mlp_block(p["ffn"], h), torch.zeros((), device=x.device)
     if cfg.use_post_norms:
         f = C.rmsnorm(p["post_ln2"], f, cfg.norm_eps)
-    return x + f
+    return x + f, aux
 
 
 def layer_fwd(p, cfg, x, *, window, positions, cache=None):
     """Returns (x, cache, aux); the cache is updated in place."""
     h = C.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    mix, nc = C.attention_block(p["mixer"], cfg, h, positions=positions,
-                                window=window,
-                                cache=None if cache is None
-                                else cache["mixer"])
+    c = None if cache is None else cache["mixer"]
+    if cfg.use_mla:
+        mix, nc = C.mla_block(p["mixer"], cfg, h, positions=positions,
+                              cache=c)
+    else:
+        mix, nc = C.attention_block(p["mixer"], cfg, h, positions=positions,
+                                    window=window, cache=c)
     if cfg.use_post_norms:
         mix = C.rmsnorm(p["post_ln1"], mix, cfg.norm_eps)
     new_cache = None if cache is None else {"mixer": nc}
-    aux = torch.zeros((), device=x.device)     # MoE's aux loss: none here
-    return _ffn(p, cfg, x + mix), new_cache, aux
+    x, aux = _ffn(p, cfg, x + mix)
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -94,32 +126,93 @@ def init_stack(gen, cfg) -> dict:
 def init_stack_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     windows, P, n_periods, tail = _period_geometry(cfg)
     cache = {"blocks": {
-        f"l{j}": {"mixer": C.init_attn_cache(cfg, batch, max_len, windows[j],
-                                             (n_periods,), device)}
+        f"l{j}": init_layer_cache(cfg, batch, max_len, windows[j],
+                                  (n_periods,), device)
         for j in range(P)}}
     for j in range(tail):
-        cache[f"tail{j}"] = {"mixer": C.init_attn_cache(
-            cfg, batch, max_len, windows[n_periods * P + j], (), device)}
+        cache[f"tail{j}"] = init_layer_cache(
+            cfg, batch, max_len, windows[n_periods * P + j], (), device)
     return cache
+
+
+class _RematPeriod(torch.autograd.Function):
+    """One period, recomputed in the backward pass.  ``fn(x, *leaves) ->
+    (x, aux)`` is the period over its input and its parameter leaves;
+    with ``dots`` the forward also returns the outputs of its ``linear``
+    products, which the backward's recompute replays."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, dots, x, *leaves):
+        if not dots:
+            return fn(x, *leaves)
+        with C.record_dots() as tape:
+            y, aux = fn(x, *leaves)
+        return (y, aux, *tape)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, dots, x, *leaves = inputs
+        kept = tuple(output[2:])
+        ctx.fn, ctx.dots, ctx.n = fn, dots, len(leaves)
+        ctx.save_for_backward(x, *leaves, *kept)
+        if kept:
+            ctx.mark_non_differentiable(*kept)
+
+    @staticmethod
+    def backward(ctx, gy, gaux, *_):
+        saved = ctx.saved_tensors
+        x, leaves = saved[0], saved[1:1 + ctx.n]
+        replay = (C.replay_dots(saved[1 + ctx.n:]) if ctx.dots
+                  else contextlib.nullcontext())
+        with replay:
+            _, vjp = torch.func.vjp(ctx.fn, x, *leaves)
+            grads = vjp((gy, gaux))
+        return (None, None, *grads)
+
+
+def _run_period(blk_p, cfg, x, windows, remat):
+    """Apply one period's layers to a cacheless (training) input at
+    positions 0..S-1; returns (x, aux).  ``period`` captures no tensor (a
+    ``torch.autograd.Function`` under ``vmap`` must not): the positions are
+    made inside it."""
+    P = len(blk_p)
+
+    def period(x, *leaves):
+        p = tree_util.unflatten(blk_p, list(leaves))
+        positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), device=x.device)
+        for j in range(P):
+            x, _, a = layer_fwd(p[f"l{j}"], cfg, x, window=windows[j],
+                                positions=positions)
+            aux = aux + a
+        return x, aux
+
+    leaves = tree_util.leaves(blk_p)
+    if remat == "none":
+        return period(x, *leaves)
+    y, aux, *_ = _RematPeriod.apply(period, remat == "dots", x, *leaves)
+    return y, aux
 
 
 def stack_fwd(params, cfg, x, *, positions, cache=None, remat: str = "none"):
     """Apply the full layer stack.  Returns (x, cache, aux_total); the cache
-    is updated in place."""
-    if remat != "none":
-        from repro_torch.experiment.spec import not_ported
-        raise not_ported(f"activation remat {remat!r} (LM training)",
-                         "item 11")
+    is updated in place.  ``remat`` applies to the periods of a cacheless
+    (training) call, as the reference's checkpointed scan body."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat {remat!r}; valid: {REMAT_MODES}")
     windows, P, n_periods, tail = _period_geometry(cfg)
     aux = torch.zeros((), device=x.device)
     for i in range(n_periods):
         blk_p = _period(params["blocks"], i)
-        blk_c = None if cache is None else _period(cache["blocks"], i)
+        if cache is None:
+            x, a = _run_period(blk_p, cfg, x, windows, remat)
+            aux = aux + a
+            continue
+        blk_c = _period(cache["blocks"], i)
         for j in range(P):
             x, _, a = layer_fwd(blk_p[f"l{j}"], cfg, x, window=windows[j],
-                                positions=positions,
-                                cache=None if blk_c is None
-                                else blk_c[f"l{j}"])
+                                positions=positions, cache=blk_c[f"l{j}"])
             aux = aux + a
     for j in range(tail):
         x, _, a = layer_fwd(params[f"tail{j}"], cfg, x,
@@ -174,7 +267,8 @@ def layer_fwd_paged(p, cfg, x, *, positions, block_tables, cache,
                    block_tables=block_tables, cache=cache["mixer"])
     if cfg.use_post_norms:
         mix = C.rmsnorm(p["post_ln1"], mix, cfg.norm_eps)
-    return _ffn(p, cfg, x + mix), {"mixer": nc}
+    x, _ = _ffn(p, cfg, x + mix)       # MoE's aux is dropped at inference
+    return x, {"mixer": nc}
 
 
 def stack_fwd_paged(params, cfg, x, *, positions, block_tables, cache,

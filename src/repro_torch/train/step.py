@@ -5,7 +5,8 @@ Port of ``repro/train/step.py::make_train_step`` for ``mesh=None``:
   1. the batch arrives as (m, B/m, ...) worker groups, one per paper worker;
   2. per-worker losses and gradients come from ``torch.func.vmap`` of
      ``grad_and_value`` over the group axis (the m estimates must survive
-     to the aggregation stage, so nothing is summed here);
+     to the aggregation stage, so nothing is summed here), inside the MoE's
+     ``no_data_grouping`` as in the reference;
   3. the attack corrupts the (m, D) worker-gradient matrix and the robust
      rule aggregates it (``core/robust.py::aggregate_stacked_tree``); with a
      defense config the rule also scores every worker, the aggregate skips
@@ -20,7 +21,9 @@ import torch
 
 from repro_torch.compress.pipeline import aggregate_compressed_tree
 from repro_torch.compress.spec import make_codec
+from repro_torch import tree as tree_util
 from repro_torch.core.robust import RobustConfig, aggregate_stacked_tree
+from repro_torch.models.moe import no_data_grouping
 from repro_torch.optim.optimizers import OptConfig, apply_updates, tree_norm
 
 
@@ -45,10 +48,12 @@ def make_train_step(model, *, robust_cfg: RobustConfig, opt_cfg: OptConfig,
                                    in_dims=(None, 0))
 
     def grads_of(params, batch):
-        if batch["y"].shape[0] != m:
-            raise ValueError(f"batch has {batch['y'].shape[0]} worker "
-                             f"groups, expected m={m}")
-        return worker_grads(params, batch)
+        groups = tree_util.leaves(batch)[0].shape[0]
+        if groups != m:
+            raise ValueError(f"batch has {groups} worker groups, expected "
+                             f"m={m}")
+        with no_data_grouping():
+            return worker_grads(params, batch)
 
     def step(params, opt_state, batch, gen):
         grads, losses = grads_of(params, batch)

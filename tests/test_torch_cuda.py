@@ -494,3 +494,58 @@ def test_paged_prefill_launches_the_flash_kernel_per_layer(cuda):
     model.decode_step_paged(params, pool, tokens[:, :1],
                             torch.tensor([40, 40], device=cuda), tables)
     assert flash_attention_hopper.launches == before     # Sq = 1: no K6
+
+
+@pytest.mark.cuda
+def test_phocas_kernel_past_2_31_elements(cuda):
+    """K1 on an (m, d) matrix whose element offsets pass 2^31 (an LM's
+    gradient matrix does): its first and last 2^20 columns equal the plain
+    version's."""
+    m, d, b, n = 4, (1 << 29) + (1 << 20), 1, 1 << 20
+    assert m * d > 2**31
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    u = torch.randn((m, d), generator=gen, dtype=torch.bfloat16, device=cuda)
+    got = phocas_hopper(u, b)
+    for cols in (slice(d - n, d), slice(0, n)):
+        _assert_same(got[cols], phocas_ref(u[:, cols], b))
+
+
+@pytest.mark.cuda
+def test_phocas_counts_kernel_past_2_31_elements(cuda):
+    """K3 on an (m, d) matrix whose element offsets pass 2^31: its aggregate
+    on the first and last 2^20 columns equals the plain version's, and its
+    counts equal the plain counts summed as integers over column chunks of
+    the whole matrix (each chunk's f32 count an exact integer)."""
+    m, d, b, n, chunk = 4, (1 << 29) + (1 << 20), 1, 1 << 20, 1 << 24
+    assert m * d > 2**31
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    u = torch.randn((m, d), generator=gen, dtype=torch.bfloat16, device=cuda)
+    got, counts = phocas_counts_hopper(u, b)
+    for cols in (slice(d - n, d), slice(0, n)):
+        _assert_same(got[cols], phocas_counts_ref(u[:, cols], b)[0])
+    plain = torch.zeros(m, dtype=torch.int64, device=cuda)
+    for s in range(0, d, chunk):
+        plain += phocas_counts_ref(u[:, s:s + chunk], b)[1].long()
+    assert int(plain.sum()) == b * d
+    assert torch.equal(counts, plain.float())
+
+
+@pytest.mark.cuda
+def test_lm_training_launches_phocas_and_never_flash(cuda):
+    """An arch model trains on the card through run_experiment: one K1
+    launch a step, and attention under the worker vmap never reaches K6."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust import RobustConfig
+    from repro_torch.experiment import (DataSpec, ModelSpec, ScenarioSpec,
+                                        run_experiment)
+    spec = ScenarioSpec(
+        model=ModelSpec(kind="arch", arch="gemma2-2b-reduced", remat="full"),
+        data=DataSpec(kind="tokens", seq_len=32, batch_per_worker=2),
+        robust=RobustConfig(rule="phocas", b=1),
+        attack=AttackConfig(name="signflip", num_byzantine=1),
+        num_workers=4, steps=3, log_every=1)
+    k1, k6 = phocas_hopper.launches, flash_attention_hopper.launches
+    res = run_experiment(spec)
+    assert phocas_hopper.launches == k1 + 3
+    assert flash_attention_hopper.launches == k6
+    assert all(np.isfinite(r["loss"]) for r in res.history)
