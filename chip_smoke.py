@@ -81,12 +81,13 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
    top kernels;
 5. flash attention: K6 against its plain version on the card (bf16 within
    3e-2 at granite-8b's prefill (8, 512, 32/8, 128), at (1, 4096, 32/8,
-   128), at a tile edge (2, 129, 32/8, 128, window 64), at a gemma2-like
-   (1, 2048, 8/4, 256, window 1024, cap 50) and at a ragged S = 96; f32 at
-   hd 64 within 2e-3), each call repeated bit for bit; timed beside its
-   bound, its plain version and, at the granite shapes,
+   128), at internvl2-26b's prefill (4, 512, 48/8, 128), at a tile edge
+   (2, 129, 32/8, 128, window 64), at a gemma2-like (1, 2048, 8/4, 256,
+   window 1024, cap 50) and at a ragged S = 96; f32 at hd 64 within
+   2e-3), each call repeated bit for bit; timed beside its bound, its
+   plain version and, at the granite shapes,
    ``scaled_dot_product_attention`` (which the port never calls) with the
-   ratio K6 / SDPA;
+   ratio K6 / SDPA, also at internvl2's shape;
 6. serving: ``run_experiment`` of ``examples/scenarios/serve_gaussian.json``
    with granite-8b at full width (36 layers, bf16, random weights from the
    seed), k = 3 replicas (one corrupted), phocas b = 1, 8 slots, 16 requests
@@ -118,6 +119,40 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
      launches equal to the steps, no K6 launch, peak below 80 GB;
    - the reference's ``examples/byzantine_train.py`` (gemma2-2b-reduced,
      m = 8, 20 steps) on sync_ps and streaming, mean beside phocas;
+9. the rest of the LM zoo (after phase 7, before the report), each
+   configuration freed before the next:
+   - training at full width through ``runner.plan_from_parts`` and the
+     sync_ps loop, bf16, phocas b = q under omniscient q, SGD at LM_LR
+     (0.5), 0.1 for C and E (``tools/zoo_lr_probe.py``), remat "full",
+     2 sequences a worker: cell C, mamba2-2.7b (d_model 2560,
+     state 128, 80 SSD heads of 64) cut to 8 layers, m = 8, 512 tokens (two
+     SSD chunks), 10 steps then 6 defended (one K3 launch a step); cell D,
+     hymba-1.5b (window 1024 attention beside the SSD) cut to 8 layers,
+     m = 8, 512 tokens, 10 steps; cell E, whisper-large-v3 cut to 4 + 4
+     layers, m = 8, 128 decoder tokens and (2, 1500, 1280) f32 frame
+     embeddings a worker drawn on the card from the step's seed, 10 steps;
+     cell F, internvl2-26b cut to 1 layer, m = 4, b = q = 1, 512 tokens of
+     which 256 are patches (embeddings drawn as E's), 6 steps.  Per run:
+     finite losses, the last below the first, K1 (K3 defended) launches
+     equal to the steps, no K6 launch, peak below 80 GB; the median step
+     ms and the peak are printed, and the SSD's share of cell C's step
+     (``ssd_chunked`` forward and backward timed at the cell's shapes);
+     K1 and K3 held and timed on each cell's worker matrix as on cell A's
+     ((8, 579.2 M), (8, 487.0 M), (8, 370.4 M) at b = 2 and (4, 1,584.8 M)
+     at b = 1, all past 2^31 elements);
+   - decode against forward in f32 at cells C-E's depth and full width,
+     within atol 2e-3 + rtol 1e-3: mamba2's 512-step recurrence against
+     the two-chunk SSD, hymba over 96 tokens, whisper's 32 tokens after
+     ``prefill_cache`` on 1,500 frames;
+   - serving at full depth in bf16, twice each with the tokens equal and
+     the logits finite: ``generate`` on 4 prompts of 64 tokens + 32 new for
+     mamba2-2.7b (64 layers) and hymba-1.5b (32), ``prefill_cache`` on
+     4 x 1,500 frames and 32 greedy decode steps for whisper-large-v3
+     (32 + 32), ``generate`` on 4 prompts of 512 tokens + 32 new for
+     internvl2-26b (48 layers, 19.9 B parameters) with K6 launched 48
+     times per prefill call; tokens/s and the ms of one decode step;
+   (phase 5 also holds K6 at internvl2's prefill shape (4, 512, 48/8, 128)
+   and times it beside SDPA);
 8. report: the card's name and power limit, one JSON line describing every
    kernel, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -131,6 +166,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -1411,6 +1447,7 @@ def trace_phase(steps: int = 8, defended_steps: int = 16) -> None:
 FLASH_CASES = (
     ("granite_prefill", 8, 512, 32, 8, 128, torch.bfloat16, None, None),
     ("granite_4k", 1, 4096, 32, 8, 128, torch.bfloat16, None, None),
+    ("internvl2_prefill", 4, 512, 48, 8, 128, torch.bfloat16, None, None),
     ("tile_edge", 2, 129, 32, 8, 128, torch.bfloat16, 64, None),
     ("gemma2_like", 1, 2048, 8, 4, 256, torch.bfloat16, 1024, 50.0),
     ("ragged96", 2, 96, 4, 2, 64, torch.bfloat16, None, None),
@@ -1475,7 +1512,8 @@ def flash_phase(gen: torch.Generator) -> dict:
                 f"({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} "
                 f"GFLOP)  {bnd / k_ms:.1%} of bound")
         lib_ms = None
-        if name.startswith("granite") and dtype == torch.bfloat16:
+        if (name.startswith(("granite", "internvl2"))
+                and dtype == torch.bfloat16):
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                 enable_gqa=True)
@@ -1699,53 +1737,71 @@ LM_EDGE = 1 << 22        # K1/K3 held bit for bit on the first and last
                          # LM_EDGE columns of an LM's worker matrix
 LM_COUNT_CHUNK = 1 << 24  # K3's plain counts summed over column chunks
                           # (a chunk's f32 count is an exact integer)
-LM_DECODE = 16           # cell B: ring-cache decode length
+LM_DECODE = 16           # cell B: latent-cache decode length
 LM_DECODE_ATOL = 0.1     # bf16 logits: test_torch_lm.py's bf16 bound
 
 
-def lm_model(cell: str, remat: str = "full", **changes):
+def arch_cfg(name: str, layers=None, dtype: str = "bfloat16", **changes):
+    """``name``'s published config, cut to ``layers`` (enc-dec: encoder
+    and decoder each), in ``dtype``, with ``changes``."""
     import dataclasses
 
     from repro_torch.configs import get_arch
+    cfg = get_arch(name)
+    cut = {} if layers is None else {"num_layers": layers}
+    if cfg.is_encdec and layers is not None:
+        cut["encoder_layers"] = layers
+    return dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype,
+                               **cut, **changes)
+
+
+def lm_model(cell: str, remat: str = "full", **changes):
     from repro_torch.models.registry import build_model
     name, layers = LM_CELLS[cell]
-    cfg = dataclasses.replace(get_arch(name), num_layers=layers, **changes)
-    return build_model(cfg, remat=remat)
+    return build_model(arch_cfg(name, layers, **changes), remat=remat)
+
+
+def sync_plan(model, batch_fn, *, m: int, b: int, steps: int,
+              defended: bool = False, lr: float = LM_LR, tag: str,
+              spans: bool = True):
+    """A sync_ps plan through ``runner.plan_from_parts``: m workers, phocas
+    b = q = ``b`` under omniscient q = ``b``, SGD at ``lr``; with ``spans``
+    the recorder times each step (synchronized) into a JSONL under
+    build/chip_smoke/."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust import RobustConfig
+    from repro_torch.defense import DefenseConfig
+    from repro_torch.experiment.runner import plan_from_parts
+    from repro_torch.obs import ObsConfig
+    from repro_torch.optim import OptConfig
+    path = os.path.join(REPO, "build", "chip_smoke", f"lm-{tag}.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    return plan_from_parts(
+        model=model, batch_fn=batch_fn,
+        robust_cfg=RobustConfig(rule="phocas", b=b, q=b,
+                                attack=AttackConfig(name="omniscient",
+                                                    num_byzantine=b)),
+        opt_cfg=OptConfig(name="sgd", lr=lr),
+        num_workers=m, steps=steps, seed=0, record_every=1,
+        defense_cfg=DefenseConfig() if defended else None,
+        telemetry_path=path if spans else None,
+        obs=ObsConfig() if spans else None, device="cuda")
 
 
 def lm_plan(cell: str, *, steps: int, remat: str = "full",
             defended: bool = False, lr: float = LM_LR, tag: str = "",
             spans: bool = True):
-    """Cell ``cell``'s sync_ps plan through ``runner.plan_from_parts``:
-    LM_M workers of LM_SEQS sequences of LM_SEQ_LEN tokens from the token
-    stream, phocas b = q = LM_B under omniscient q = LM_B, SGD; with
-    ``spans`` the recorder times each step (synchronized) into a JSONL
-    under build/chip_smoke/."""
-    from repro_torch.core.attacks import AttackConfig
-    from repro_torch.core.robust import RobustConfig
+    """Cell ``cell``'s sync_ps plan (:func:`sync_plan`): LM_M workers of
+    LM_SEQS sequences of LM_SEQ_LEN tokens from the token stream, phocas
+    b = q = LM_B."""
     from repro_torch.data.pipeline import TokenStream
-    from repro_torch.defense import DefenseConfig
-    from repro_torch.experiment.runner import plan_from_parts
-    from repro_torch.obs import ObsConfig
-    from repro_torch.optim import OptConfig
     model = lm_model(cell, remat)
     stream = TokenStream(vocab_size=model.cfg.vocab_size, seq_len=LM_SEQ_LEN,
                          global_batch=LM_M * LM_SEQS, seed=0,
                          device="cuda")
-    path = os.path.join(REPO, "build", "chip_smoke",
-                        f"lm-{tag or cell}.jsonl")
-    if os.path.exists(path):
-        os.remove(path)
-    return plan_from_parts(
-        model=model, batch_fn=stream.batch,
-        robust_cfg=RobustConfig(rule="phocas", b=LM_B, q=LM_B,
-                                attack=AttackConfig(name="omniscient",
-                                                    num_byzantine=LM_B)),
-        opt_cfg=OptConfig(name="sgd", lr=lr),
-        num_workers=LM_M, steps=steps, seed=0, record_every=1,
-        defense_cfg=DefenseConfig() if defended else None,
-        telemetry_path=path if spans else None,
-        obs=ObsConfig() if spans else None, device="cuda")
+    return sync_plan(model, stream.batch, m=LM_M, b=LM_B, steps=steps,
+                     defended=defended, lr=lr, tag=tag or cell, spans=spans)
 
 
 def lm_run(tag: str, plan, remat: str = "full") -> dict:
@@ -1794,33 +1850,12 @@ def lm_cell(cell: str, steps: int, defended_steps: int = 0,
     """Train cell ``cell`` plain (remat "full"), then defended, then with
     remat "none" and "dots"; K1 (K3 defended) launches equal to the steps,
     the last loss below the first.  Returns the K1/K3 launch counts."""
+    launches, _ = train_cell(
+        f"cell {cell} {LM_CELLS[cell][0]}",
+        lambda steps, tag, **kw: lm_plan(cell, steps=steps,
+                                         tag=tag.replace("@", cell), **kw),
+        LM_M, steps, defended_steps)
     name = LM_CELLS[cell][0]
-    plain = lm_run(f"cell {cell} {name}", lm_plan(cell, steps=steps))
-    launches = dict(plain["launches"])
-    check(launches["phocas"] == steps and sum(launches.values()) == steps,
-          f"cell {cell}: launches {launches} in {steps} steps")
-    losses = plain["losses"]
-    check(losses[-1] < losses[0],
-          f"cell {cell}: loss did not decrease ({losses})")
-    del plain
-    if defended_steps:
-        out = lm_run(f"cell {cell} {name} defended", lm_plan(
-            cell, steps=defended_steps, defended=True,
-            tag=f"{cell}-defended"))
-        c = out["launches"]
-        gated = sum(1 for r in out["res"].history[:-1]
-                    if r["n_active"] < LM_M)
-        check(c["phocas_counts"] == defended_steps and c["phocas"] == gated
-              and sum(c.values()) == defended_steps + gated,
-              f"cell {cell} defended: launches {c}, {gated} gated steps")
-        check(out["losses"][-1] < out["losses"][0],
-              f"cell {cell} defended: loss did not decrease")
-        print(f"  defended: final active "
-              f"{[int(a) for a in out['res'].defense_state['active']]}, "
-              f"q_hat {out['res'].history[-1]['q_hat']}")
-        for k, v in c.items():
-            launches[k] = launches.get(k, 0) + v
-        del out
     if remat_steps:
         peaks = {}
         for remat in ("none", "dots"):
@@ -1837,6 +1872,39 @@ def lm_cell(cell: str, steps: int, defended_steps: int = 0,
         print(f"  remat peaks: none {peaks['none']:.2f} GiB, dots "
               f"{peaks['dots']:.2f} GiB")
     return launches
+
+
+def train_cell(tag: str, plan_fn, m: int, steps: int,
+               defended_steps: int = 0) -> tuple:
+    """Train ``plan_fn(steps, tag)`` plain, then ``plan_fn(steps, tag,
+    defended=True)``; K1 (K3 defended, and K1 on each gated step) launches
+    equal to the steps, the last loss below the first (``tag``'s "@" in the
+    JSONL names stands for the cell).  Returns the launch counts and the
+    plain run's median step ms."""
+    plain = lm_run(tag, plan_fn(steps, "@"))
+    launches, step_ms = dict(plain["launches"]), plain["step_ms"]
+    check(launches["phocas"] == steps and sum(launches.values()) == steps,
+          f"{tag}: launches {launches} in {steps} steps")
+    losses = plain["losses"]
+    check(losses[-1] < losses[0], f"{tag}: loss did not decrease ({losses})")
+    del plain
+    if defended_steps:
+        out = lm_run(f"{tag} defended", plan_fn(defended_steps, "@-defended",
+                                                defended=True))
+        c = out["launches"]
+        gated = sum(1 for r in out["res"].history[:-1] if r["n_active"] < m)
+        check(c["phocas_counts"] == defended_steps and c["phocas"] == gated
+              and sum(c.values()) == defended_steps + gated,
+              f"{tag} defended: launches {c}, {gated} gated steps")
+        check(out["losses"][-1] < out["losses"][0],
+              f"{tag} defended: loss did not decrease")
+        print(f"  defended: final active "
+              f"{[int(a) for a in out['res'].defense_state['active']]}, "
+              f"q_hat {out['res'].history[-1]['q_hat']}")
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+        del out
+    return launches, step_ms
 
 
 def lm_trace(cell: str, steps: int = 3) -> None:
@@ -1872,14 +1940,15 @@ def lm_trace(cell: str, steps: int = 3) -> None:
               f"  n={e.count:6d}  {e.key[:80]}")
 
 
-def k1_lm_phase(cell: str) -> None:
-    """K1 and K3 on cell ``cell``'s (m, D) worker matrix (the gradients of
-    one token batch at the initial parameters, omniscient rows written in
-    place): each aggregate equal to its plain version bit for bit on the
-    matrix's first and last LM_EDGE columns (the last at element offsets
-    past 2^31), read from the whole matrix's launch; K3's counts equal to
-    the plain counts summed as integers over column chunks of the whole
-    matrix; then both timed on the whole matrix beside their bound."""
+def k1_lm_phase(tag: str, plan) -> None:
+    """K1 and K3 on the (m, D) worker matrix of ``plan`` at its phocas b
+    (the gradients of its first batch at the initial parameters, the
+    plan's attack's rows written in place): each aggregate equal to its
+    plain version bit for bit on the matrix's first and last LM_EDGE
+    columns (the last at element offsets past 2^31), read from the whole
+    matrix's launch; K3's counts equal to the plain counts summed as
+    integers over column chunks of the whole matrix; then both timed on
+    the whole matrix beside their bound."""
     import gc
 
     from repro_torch.core.attacks import make_attack, writing_in_place
@@ -1888,10 +1957,9 @@ def k1_lm_phase(cell: str) -> None:
     from repro_torch.kernels.phocas.kernel import (phocas_counts_hopper,
                                                    phocas_hopper)
     from repro_torch.kernels.phocas.ref import phocas_counts_ref, phocas_ref
-    plan = lm_plan(cell, steps=1, spans=False)
-    model = plan.model
+    model, b = plan.model, plan.robust_cfg.b
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    batch = make_worker_batches(plan.batch_fn(0), LM_M)
+    batch = make_worker_batches(plan.batch_fn(0), plan.num_workers)
     grads, _ = torch.func.vmap(torch.func.grad_and_value(model.loss),
                                in_dims=(None, 0))(params, batch)
     u = flatten_stacked(grads)
@@ -1902,29 +1970,29 @@ def k1_lm_phase(cell: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     m, d = u.shape
-    tag = f"cell {cell} ({m}, {d:,}) f32, b={LM_B}"
+    tag = f"{tag} ({m}, {d:,}) f32, b={b}"
     check(m * d > 2**31, f"{tag}: m*d = {m * d} not past 2^31")
-    got1 = phocas_hopper(u, LM_B)
-    got3, counts = phocas_counts_hopper(u, LM_B)
+    got1 = phocas_hopper(u, b)
+    got3, counts = phocas_counts_hopper(u, b)
     for where, cols in (("last", slice(d - LM_EDGE, d)),
                         ("first", slice(0, LM_EDGE))):
-        check(same(got1[cols], phocas_ref(u[:, cols], LM_B)),
+        check(same(got1[cols], phocas_ref(u[:, cols], b)),
               f"{tag}: K1 differs from its plain version on the {where} "
               f"{LM_EDGE:,} columns")
-        check(same(got3[cols], phocas_counts_ref(u[:, cols], LM_B)[0]),
+        check(same(got3[cols], phocas_counts_ref(u[:, cols], b)[0]),
               f"{tag}: K3's aggregate differs from its plain version on "
               f"the {where} {LM_EDGE:,} columns")
     del got1, got3
     plain = torch.zeros(m, dtype=torch.int64, device="cuda")
     for s in range(0, d, LM_COUNT_CHUNK):
         plain += phocas_counts_ref(u[:, s:s + LM_COUNT_CHUNK],
-                                   LM_B)[1].long()
-    check(int(plain.sum()) == LM_B * d,
+                                   b)[1].long()
+    check(int(plain.sum()) == b * d,
           f"{tag}: plain counts sum to {int(plain.sum())}, not b*d")
     check(torch.equal(counts, plain.float()),
           f"{tag}: K3 counts {counts.tolist()} != plain {plain.tolist()}")
-    t = time_ms(lambda: phocas_hopper(u, LM_B), reps=5)
-    t3 = time_ms(lambda: phocas_counts_hopper(u, LM_B), reps=5)
+    t = time_ms(lambda: phocas_hopper(u, b), reps=5)
+    t3 = time_ms(lambda: phocas_counts_hopper(u, b), reps=5)
     floor = time_ms(lambda: torch.sum(u, 0), reps=5)
     b1, by1 = bound_ms("phocas", m, d, 4)
     b3, by3 = bound_ms("phocas_counts", m, d, 4)
@@ -1941,30 +2009,40 @@ def k1_lm_phase(cell: str) -> None:
     torch.cuda.empty_cache()
 
 
-def lm_decode_phase(cell: str = "B") -> None:
-    """Cell ``cell``'s model at capacity factor 8.0 (no token drops):
-    LM_DECODE tokens decoded one by one through the ring (latent) cache
-    against one forward pass over them, within LM_DECODE_ATOL."""
-    model = lm_model(cell, "none", capacity_factor=8.0)
+def decode_vs_forward(tag: str, model, n: int, tol: tuple) -> None:
+    """``n`` tokens of ``model`` (random weights from the seed) decoded one
+    by one through its cache against one forward pass over them (enc-dec:
+    after ``prefill_cache`` on its frames), within ``tol`` = (atol, rtol)."""
+    from repro_torch.models import encdec
+    cfg = model.cfg
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    toks = torch.randint(0, model.cfg.vocab_size, (2, LM_DECODE),
-                         generator=torch.Generator(device="cuda")
-                         .manual_seed(2), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, n), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks}
     with torch.no_grad():
-        full, _ = model.forward(params, {"tokens": toks})
-        cache = model.init_cache(2, LM_DECODE, "cuda")
+        cache = model.init_cache(2, n, "cuda")
+        if cfg.is_encdec:
+            batch["audio_embeds"] = 0.1 * torch.randn(
+                (2, cfg.encoder_seq_len, cfg.frontend_dim), generator=gen,
+                device="cuda")
+            encdec.prefill_cache(params, cfg, cache, batch["audio_embeds"])
+        full, _ = model.forward(params, batch)
         outs = []
-        for t in range(LM_DECODE):
+        for t in range(n):
             lg, cache = model.decode_step(params, cache, toks[:, t:t + 1], t)
             outs.append(lg[:, 0])
     inc = torch.stack(outs, 1)
-    err = (inc - full).abs().max().item()
+    atol, rtol = tol
+    diff = (inc - full).abs()
+    over = (diff - (atol + rtol * full.abs())).max().item()
     agree = (inc.argmax(-1) == full.argmax(-1)).float().mean().item()
-    print(f"cell {cell} decode: {LM_DECODE} tokens through the latent "
-          f"cache vs the forward pass, bf16, capacity factor 8.0: max|diff| "
-          f"{err:.4f} (bound {LM_DECODE_ATOL}), greedy tokens agree "
-          f"{100 * agree:.0f}%, |logits| <= {full.abs().max().item():.2f}")
-    check(err <= LM_DECODE_ATOL, f"cell {cell} decode: max|diff| {err}")
+    print(f"{tag}: {n} tokens through the cache vs the forward pass: "
+          f"max|diff| {diff.max().item():.3e} (bound {atol} + {rtol}|logit|, "
+          f"worst margin {-over:.3e}), greedy tokens agree {100 * agree:.0f}%"
+          f", |logits| <= {full.abs().max().item():.2f}")
+    check(over <= 0, f"{tag}: past the bound by {over}")
+    check(bool(torch.isfinite(inc).all()), f"{tag}: non-finite logits")
 
 
 def lm_example_phase() -> None:
@@ -2009,13 +2087,264 @@ def lm_phase() -> dict:
     t0 = time.perf_counter()
     launches = lm_cell("A", steps=10, defended_steps=6, remat_steps=2)
     lm_trace("A")
-    k1_lm_phase("A")
+    k1_lm_phase("cell A", lm_plan("A", steps=1, spans=False))
     for k, v in lm_cell("B", steps=6).items():
         launches[k] = launches.get(k, 0) + v
-    k1_lm_phase("B")
-    lm_decode_phase("B")
+    k1_lm_phase("cell B", lm_plan("B", steps=1, spans=False))
+    decode_vs_forward("cell B decode, bf16, capacity factor 8.0",
+                      lm_model("B", "none", capacity_factor=8.0), LM_DECODE,
+                      (LM_DECODE_ATOL, 0))
     lm_example_phase()
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the rest of the LM zoo at full width
+# ---------------------------------------------------------------------------
+
+class ZooCell(NamedTuple):
+    arch: str
+    layers: int         # kept (whisper: encoder and decoder each)
+    m: int              # workers, each of LM_SEQS sequences
+    b: int              # phocas b = q = the attack's q
+    steps: int
+    defended_steps: int
+    seq_len: int
+    lr: float           # SGD; LM_LR unless its loss did not fall there
+
+
+# mamba2 and whisper rise at LM_LR within 10 steps and fall at 0.1
+# (``tools/zoo_lr_probe.py``; PERF.md §6, PR 20).
+ZOO_CELLS = {
+    "C": ZooCell("mamba2-2.7b", 8, 8, 2, 10, 6, 512, 0.1),  # 2 SSD chunks
+    "D": ZooCell("hymba-1.5b", 8, 8, 2, 10, 0, 512, LM_LR),
+    "E": ZooCell("whisper-large-v3", 4, 8, 2, 10, 0, 128, 0.1),
+    "F": ZooCell("internvl2-26b", 1, 4, 1, 6, 0, 512, LM_LR),  # m = 8: 76 GB
+}
+ZOO_DECODE = {"C": 512, "D": 96, "E": 32}   # f32 decode-vs-forward tokens
+ZOO_DECODE_TOL = (2e-3, 1e-3)   # test_decode_matches_forward's atol, rtol
+ZOO_SERVE = (4, 64, 32)         # generate: prompts, prompt tokens, new ones
+ZOO_VLM_PROMPT = 512            # internvl2-26b's prompt tokens
+
+
+def zoo_batch_fn(cfg, m: int, seq_len: int):
+    """The token stream's batch of step s, plus the stub frontends' patch
+    or frame embeddings (0.1 * N(0, 1), f32) drawn on the card from a
+    generator seeded with s."""
+    from repro_torch.data.pipeline import TokenStream
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                         global_batch=m * LM_SEQS, seed=0, device="cuda")
+
+    def batch_fn(step: int) -> dict:
+        batch = stream.batch(step)
+        gen = torch.Generator(device="cuda").manual_seed(step)
+        n = m * LM_SEQS
+        if cfg.num_patches:
+            batch["patch_embeds"] = 0.1 * torch.randn(
+                (n, cfg.num_patches, cfg.vit_dim), generator=gen,
+                device="cuda")
+        if cfg.is_encdec:
+            batch["audio_embeds"] = 0.1 * torch.randn(
+                (n, cfg.encoder_seq_len, cfg.frontend_dim), generator=gen,
+                device="cuda")
+        return batch
+
+    return batch_fn
+
+
+def zoo_train(cell: str) -> tuple:
+    """Cell ``cell`` on sync_ps at full width with its depth cut, remat
+    "full", plain then defended; then K1 and K3 held on its worker matrix
+    (:func:`k1_lm_phase`).  Returns the K1/K3 launches of the runs and the
+    plain run's median step ms."""
+    import gc
+
+    from repro_torch.models.registry import build_model
+    c = ZOO_CELLS[cell]
+    model = build_model(arch_cfg(c.arch, c.layers), remat="full")
+    batch_fn = zoo_batch_fn(model.cfg, c.m, c.seq_len)
+
+    def plan(steps, tag, **kw):
+        return sync_plan(model, batch_fn, m=c.m, b=c.b, steps=steps,
+                         lr=c.lr, tag=tag.replace("@", cell), **kw)
+
+    out = train_cell(f"cell {cell} {c.arch} ({c.layers} layers, {LM_SEQS} x "
+                     f"{c.seq_len} tokens)", plan, c.m, c.steps,
+                     c.defended_steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_lm_phase(f"cell {cell}", plan(1, "@-k1", spans=False))
+    return out
+
+
+def ssd_share(step_ms: float) -> None:
+    """The SSD's device time in cell C's step: one layer's ``ssd_chunked``
+    forward, and forward plus backward, under the worker vmap at the
+    cell's shapes (CUDA events); remat "full" runs the forward twice a
+    step, so a step spends layers x (fwd + fwd&bwd) in it."""
+    from repro_torch.models.ssm import _dims, ssd_chunked
+    c = ZOO_CELLS["C"]
+    layers, m, seq = c.layers, c.m, c.seq_len
+    cfg = arch_cfg(c.arch, layers)
+    _, h = _dims(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = (m, LM_SEQS, seq)
+    xbar = torch.randn(shape + (h, cfg.ssm_head_dim), generator=gen,
+                       device="cuda")
+    dA = -torch.rand(shape + (h,), generator=gen, device="cuda")
+    B, C = (torch.randn(shape + (cfg.ssm_state,), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+
+    def loss(xbar, dA, B, C):
+        y, state = ssd_chunked(xbar, dA, B, C)
+        return y.sum() + state.sum()
+
+    fwd = torch.func.vmap(lambda *a: ssd_chunked(*a)[0])
+    both = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2, 3)))
+    f_ms = time_ms(lambda: fwd(xbar, dA, B, C), reps=5)
+    g_ms = time_ms(lambda: both(xbar, dA, B, C), reps=5)
+    share = layers * (f_ms + g_ms) / step_ms
+    print(f"cell C SSD (ssd_chunked under the worker vmap, ({m}, "
+          f"{LM_SEQS}, {seq}, {h}, {cfg.ssm_head_dim}), state "
+          f"{cfg.ssm_state}, 2 chunks): forward {f_ms:.3f} ms, forward + "
+          f"backward {g_ms:.3f} ms a layer; {layers} layers x (fwd + "
+          f"fwd&bwd) = {layers * (f_ms + g_ms):.1f} ms = {share:.1%} of "
+          f"the {step_ms:.1f} ms step")
+
+
+def zoo_generate(name: str) -> dict:
+    """``name`` at full depth and width in bf16, random weights from the
+    seed: ``generate`` on ZOO_SERVE's prompts twice (whisper: generate
+    would ignore the audio, so ``prefill_cache`` on 1,500 frames a prompt
+    and greedy ``decode_step`` calls), the second call timing each decode
+    step and checking its logits; tokens equal across the calls.  Returns
+    the K6 launches of the two calls and the prefill calls they made."""
+    import dataclasses
+    import gc
+
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import generate
+    from repro_torch.serve.engine import batched_prefill_supported
+    from repro_torch.tree import size
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(arch_cfg(name))
+    cfg = model.cfg
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    nb, s0, new = ZOO_SERVE
+    if cfg.num_patches:
+        s0 = ZOO_VLM_PROMPT
+    elif cfg.is_encdec:
+        s0 = 1                                      # the start token
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab_size, (nb, s0), generator=gen,
+                            device="cuda")
+    audio = (0.1 * torch.randn((nb, cfg.encoder_seq_len, cfg.frontend_dim),
+                               generator=gen, device="cuda")
+             if cfg.is_encdec else None)
+    steps = []            # (tokens in the call, ms) of the timed call
+    finite = []
+
+    def timed(p, c, t, pos):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, c = model.decode_step(p, c, t, pos)
+        torch.cuda.synchronize()
+        steps.append((t.shape[1], (time.perf_counter() - t0) * 1e3))
+        finite.append(torch.isfinite(lg).all())
+        return lg, c
+
+    def run(step):
+        if not cfg.is_encdec:
+            return generate(dataclasses.replace(model, decode_step=step),
+                            params, prompts, new)
+        cache = encdec.prefill_cache(params, cfg,
+                                     model.init_cache(nb, new, "cuda"),
+                                     audio)
+        tok, out = prompts, [prompts]
+        for t in range(new):
+            lg, cache = step(params, cache, tok, t)
+            tok = lg[:, -1].argmax(-1)[:, None]
+            out.append(tok)
+        return torch.cat(out, 1)
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, counts = launch_counts(lambda: run(model.decode_step))
+        wall = time.perf_counter() - t0
+        second, counts2 = launch_counts(lambda: run(timed))
+    check(torch.equal(first, second), f"{name} generate: tokens differ "
+          f"between two identical calls")
+    check(all(bool(f) for f in finite), f"{name} generate: non-finite "
+          f"logits")
+    dec = sorted(ms for n, ms in steps if n == 1)
+    prefills = (0 if cfg.is_encdec or not batched_prefill_supported(cfg, s0)
+                else 1)
+    work = (f"{nb} x {cfg.encoder_seq_len} frames through prefill_cache, "
+            f"a start token + {new} greedy decode steps" if cfg.is_encdec
+            else f"{nb} prompts of {s0} tokens + {new} new ("
+            f"{'batched prefill' if prefills else 'stepwise prompt'})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{name} serving, full depth ({cfg.num_layers} layers"
+          f"{' + %d encoder' % cfg.encoder_layers if cfg.is_encdec else ''}"
+          f", {size(params) / 1e9:.2f} B parameters, bf16): {work}: "
+          f"{nb * new / wall:.1f} new tokens/s ({wall:.2f} s a call), one "
+          f"decode step {dec[len(dec) // 2]:.2f} ms (median of {len(dec)}, "
+          f"synchronized), peak {peak:.2f} GiB; tokens equal across two "
+          f"calls; launches {counts}")
+    out = {k: counts[k] + counts2[k] for k in counts}
+    out["prefills"] = 2 * prefills
+    del params
+    return out
+
+
+def zoo_phase() -> dict:
+    """Phase 9: configs C-F train under phocas at full width, cell C also
+    defended, and K1/K3 held on each one's worker matrix; decode against
+    forward in f32 on C-E; full-depth serving of all four.  Returns the
+    kernel launches of its training and serving runs."""
+    import gc
+
+    from repro_torch.models.registry import build_model
+    t0 = time.perf_counter()
+    launches = {}
+    for cell in ZOO_CELLS:
+        counts, step_ms = zoo_train(cell)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if cell == "C":
+            ssd_share(step_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for cell, n in ZOO_DECODE.items():
+        c = ZOO_CELLS[cell]
+        decode_vs_forward(
+            f"cell {cell} {c.arch} decode, f32, {c.layers} layers",
+            build_model(arch_cfg(c.arch, c.layers, "float32")), n,
+            ZOO_DECODE_TOL)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for cell in ZOO_CELLS:
+        name = ZOO_CELLS[cell].arch
+        c = zoo_generate(name)
+        if name == "internvl2-26b":
+            layers = arch_cfg(name).num_layers
+            check(c["flash_attn"] == layers * c["prefills"]
+                  and c["prefills"] == 2,
+                  f"{name} generate: K6 launches {c['flash_attn']} != "
+                  f"{layers} x {c['prefills']} prefill calls")
+        else:
+            check(c["flash_attn"] == 0, f"{name} generate: K6 launched")
+        for k, v in c.items():
+            if k != "prefills":
+                launches[k] = launches.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -2064,6 +2393,8 @@ def main() -> int:
     launches.update(serve_phase())
     serve_trace_phase()
     for k, v in lm_phase().items():
+        launches[k] += v
+    for k, v in zoo_phase().items():
         launches[k] += v
 
     smi = subprocess.run(

@@ -27,8 +27,9 @@ def params_to_numpy(tree):
 
 
 # Parameters the reference holds in f32 whatever the model's dtype: the MoE
-# router (``repro/models/moe.py::init_moe``).
-F32_PARAMS = ("router",)
+# router (``repro/models/moe.py::init_moe``) and the Mamba2 block's
+# ``dt_bias``, ``A_log`` and ``D`` (``repro/models/ssm.py::init_mamba``).
+F32_PARAMS = ("router", "dt_bias", "A_log", "D")
 
 
 def lm_params_from_numpy(tree, device=None, dtype=None):

@@ -283,9 +283,15 @@ def attention_block(p, cfg, x, *, positions, window, cache=None):
         cache["k"][:, slot:slot + S] = k
         cache["v"][:, slot:slot + S] = v
         k_pos = _cache_positions(size, last, window, x.device)
-        out = attention_core(q, cache["k"], cache["v"], positions, k_pos,
-                             causal=True, window=window,
-                             cap=cfg.attn_logit_softcap, flash=True)
+        # A batched prefill from position 0 wrote slots 0..S-1, and every
+        # other slot is still invalid (masked): attending over the written
+        # slots alone is the same softmax, and a self-attention the
+        # flash-attention kernel takes (Sq == T).
+        T = S if start == 0 and S > 1 else size
+        out = attention_core(q, cache["k"][:, :T], cache["v"][:, :T],
+                             positions, k_pos[:T], causal=True,
+                             window=window, cap=cfg.attn_logit_softcap,
+                             flash=True)
     return linear(p["wo"], out.reshape(B, S, H * hd)), cache
 
 

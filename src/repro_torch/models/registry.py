@@ -2,18 +2,20 @@
 
 Port of ``repro/models/registry.py::Model``: ``init(gen) -> params``,
 ``forward(params, batch) -> (logits, aux)`` and ``loss(params, batch) ->
-scalar`` for every model; the LM family built by :func:`build_model`
-additionally has the ring-cache ``init_cache`` / ``decode_step`` and the
-paged serving path (``supports_paged``):
+scalar`` for every model; the arch models built by :func:`build_model`
+additionally have the decode cache ``init_cache`` / ``decode_step``, and
+the decoder-only ones the paged serving path (``supports_paged``):
 
   init_paged_cache(num_blocks, block_tokens, device) -> block-pool cache
   prefill_paged(params, cache, tokens, block_tables) -> (logits, cache)
   decode_step_paged(params, cache, tokens, positions, block_tables)
 
-Parameters are nested dicts of tensors in the reference's layout.  Dense and
-MoE decoders with GQA or MLA attention are built; the families this package
-does not build yet (SSM, hybrid, enc-dec, VLM) raise ``NotImplementedError``
-naming ROADMAP queue 1 item 11.
+Parameters are nested dicts of tensors in the reference's layout.  Every
+family of ``repro_torch.configs`` is built: dense and MoE decoders with GQA
+or MLA attention, the Mamba2 SSM, the hybrid attention + SSM stack and the
+VLM backbone (``models/lm.py``), and the whisper encoder-decoder
+(``models/encdec.py``, no paged path; its cross-attention cache is filled by
+``encdec.prefill_cache``).
 """
 from __future__ import annotations
 
@@ -42,14 +44,17 @@ class Model:
 
 def build_model(cfg, *, remat: str = "none") -> Model:
     """The :class:`Model` of an arch config (``repro_torch.configs``)."""
-    from repro_torch.experiment.spec import not_ported
-    from repro_torch.models import lm
-    from repro_torch.models.stack import check_ported
+    from repro_torch.models import encdec, lm
     if cfg.is_encdec:
-        raise not_ported(f"enc-dec models (arch {cfg.name!r})", "item 11")
-    if cfg.num_patches:
-        raise not_ported(f"VLM models (arch {cfg.name!r})", "item 11")
-    check_ported(cfg)
+        return Model(
+            cfg=cfg,
+            init=lambda gen: encdec.init(gen, cfg),
+            forward=lambda p, b: encdec.forward(p, cfg, b, remat=remat),
+            loss=lambda p, b: encdec.loss_fn(p, cfg, b, remat=remat),
+            init_cache=lambda bs, ml, device=None: encdec.init_cache(
+                cfg, bs, ml, device),
+            decode_step=lambda p, c, t, pos: encdec.decode_step(p, cfg, c, t,
+                                                                pos))
     return Model(
         cfg=cfg,
         init=lambda gen: lm.init(gen, cfg),

@@ -5,14 +5,16 @@ layer of every window-pattern period, stacked on a leading period axis, and
 ``tail{j}`` the remainder layers.  The reference's ``lax.scan`` over periods
 is a Python loop over period index views here (a view, so the caches the
 loop writes in place are the stacked tensors themselves).  Mixers are GQA
-(with windows and post-norms) or MLA, FFNs dense GLU or MoE; SSM and hybrid
-layers raise ``NotImplementedError`` (ROADMAP queue 1 item 11).
+(with windows and post-norms), MLA, the Mamba2 SSD block (an SSM layer *is*
+its block: no FFN) or hymba's hybrid of attention and SSD on the same
+input; FFNs are dense GLU or MoE.
 
 ``remat`` ("none" | "full" | "dots") recomputes each period in the backward
 pass, as the reference's ``jax.checkpoint`` of its scan body does.
 ``torch.utils.checkpoint`` does not run under ``torch.func.grad`` (it needs
 saved-tensor hooks), so a period is a ``torch.autograd.Function``
-(:class:`_RematPeriod`) whose backward recomputes it through
+(:class:`_RematPeriod`, also used through :func:`checkpointed` by the
+enc-dec layers) whose backward recomputes it through
 ``torch.func.vjp``; ``generate_vmap_rule`` lets the worker ``vmap`` of the
 train step batch it.  "full" keeps only the period's input; "dots" also
 keeps the output of every ``linear`` product, the products without batch
@@ -28,17 +30,9 @@ import torch
 from repro_torch import tree as tree_util
 from repro_torch.models import common as C
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 REMAT_MODES = ("none", "full", "dots")
-
-
-def check_ported(cfg) -> None:
-    """Refuse the layer kinds this package does not build yet."""
-    from repro_torch.experiment.spec import not_ported
-    for flag, what in ((cfg.is_ssm, "SSM layers"),
-                       (cfg.hybrid, "hybrid attention+SSM layers")):
-        if flag:
-            raise not_ported(f"{what} (arch {cfg.name!r})", "item 11")
 
 
 # ---------------------------------------------------------------------------
@@ -46,15 +40,23 @@ def check_ported(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 def init_layer(gen, cfg, lead: tuple = ()) -> dict:
-    check_ported(cfg)
     dt = C.dtype_of(cfg)
     d, dev = cfg.d_model, gen.device
-    mixer = C.init_mla if cfg.use_mla else C.init_attention
-    p = {"ln1": C.init_norm(d, dt, lead, dev),
-         "mixer": mixer(gen, cfg, lead),
-         "ln2": C.init_norm(d, dt, lead, dev),
-         "ffn": (M.init_moe(gen, cfg, lead) if cfg.is_moe
-                 else C.init_mlp(gen, cfg, lead=lead))}
+    p = {"ln1": C.init_norm(d, dt, lead, dev)}
+    if cfg.is_ssm:
+        p["mixer"] = S.init_mamba(gen, cfg, lead)
+        return p                                  # mamba2: block IS the layer
+    if cfg.hybrid:
+        p["mixer"] = C.init_attention(gen, cfg, lead)
+        p["mixer_ssm"] = S.init_mamba(gen, cfg, lead)
+        p["branch_norm_a"] = C.init_norm(d, dt, lead, dev)
+        p["branch_norm_s"] = C.init_norm(d, dt, lead, dev)
+    else:
+        mixer = C.init_mla if cfg.use_mla else C.init_attention
+        p["mixer"] = mixer(gen, cfg, lead)
+    p["ln2"] = C.init_norm(d, dt, lead, dev)
+    p["ffn"] = (M.init_moe(gen, cfg, lead) if cfg.is_moe
+                else C.init_mlp(gen, cfg, lead=lead))
     if cfg.use_post_norms:
         p["post_ln1"] = C.init_norm(d, dt, lead, dev)
         p["post_ln2"] = C.init_norm(d, dt, lead, dev)
@@ -63,10 +65,15 @@ def init_layer(gen, cfg, lead: tuple = ()) -> dict:
 
 def init_layer_cache(cfg, batch: int, max_len: int, window, lead: tuple = (),
                      device=None) -> dict:
+    if cfg.is_ssm:
+        return {"mixer": S.init_mamba_cache(cfg, batch, lead, device)}
     if cfg.use_mla:
         return {"mixer": C.init_mla_cache(cfg, batch, max_len, lead, device)}
-    return {"mixer": C.init_attn_cache(cfg, batch, max_len, window, lead,
-                                       device)}
+    cache = {"mixer": C.init_attn_cache(cfg, batch, max_len, window, lead,
+                                        device)}
+    if cfg.hybrid:
+        cache["mixer_ssm"] = S.init_mamba_cache(cfg, batch, lead, device)
+    return cache
 
 
 def _ffn(p, cfg, x):
@@ -84,18 +91,27 @@ def _ffn(p, cfg, x):
 def layer_fwd(p, cfg, x, *, window, positions, cache=None):
     """Returns (x, cache, aux); the cache is updated in place."""
     h = C.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    c = None if cache is None else cache["mixer"]
-    if cfg.use_mla:
-        mix, nc = C.mla_block(p["mixer"], cfg, h, positions=positions,
-                              cache=c)
+    c = cache or {}
+    if cfg.is_ssm:
+        mix, _ = S.mamba_block(p["mixer"], cfg, h, cache=c.get("mixer"))
+        return x + mix, cache, torch.zeros((), device=x.device)
+    if cfg.hybrid:
+        attn, _ = C.attention_block(p["mixer"], cfg, h, positions=positions,
+                                    window=window, cache=c.get("mixer"))
+        ssm, _ = S.mamba_block(p["mixer_ssm"], cfg, h,
+                               cache=c.get("mixer_ssm"))
+        mix = 0.5 * (C.rmsnorm(p["branch_norm_a"], attn, cfg.norm_eps)
+                     + C.rmsnorm(p["branch_norm_s"], ssm, cfg.norm_eps))
+    elif cfg.use_mla:
+        mix, _ = C.mla_block(p["mixer"], cfg, h, positions=positions,
+                             cache=c.get("mixer"))
     else:
-        mix, nc = C.attention_block(p["mixer"], cfg, h, positions=positions,
-                                    window=window, cache=c)
+        mix, _ = C.attention_block(p["mixer"], cfg, h, positions=positions,
+                                   window=window, cache=c.get("mixer"))
     if cfg.use_post_norms:
         mix = C.rmsnorm(p["post_ln1"], mix, cfg.norm_eps)
-    new_cache = None if cache is None else {"mixer": nc}
     x, aux = _ffn(p, cfg, x + mix)
-    return x, new_cache, aux
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +184,23 @@ class _RematPeriod(torch.autograd.Function):
         with replay:
             _, vjp = torch.func.vjp(ctx.fn, x, *leaves)
             grads = vjp((gy, gaux))
-        return (None, None, *grads)
+        # ``torch.func.grad`` runs its backward with create_graph=True, so
+        # the caller's level records the recompute and its vjp, and the
+        # gradients would hold that graph, every period's activations,
+        # until the whole backward ends.  Detached, a period's graph goes
+        # as soon as its gradients are out (there is no double backward
+        # through a recomputed period).  The same kernels run as without
+        # remat: grad mode, which steers some of them, is left as it is.
+        return (None, None, *(g.detach() for g in grads))
+
+
+def checkpointed(fn, x, *leaves, dots: bool = False):
+    """``fn(x, *leaves) -> (y, aux)`` with its activations recomputed in
+    the backward pass ("dots": but for its ``linear`` outputs).  ``fn``
+    must capture no tensor: everything it differentiates comes in as an
+    argument."""
+    y, aux, *_ = _RematPeriod.apply(fn, dots, x, *leaves)
+    return y, aux
 
 
 def _run_period(blk_p, cfg, x, windows, remat):
@@ -191,8 +223,7 @@ def _run_period(blk_p, cfg, x, windows, remat):
     leaves = tree_util.leaves(blk_p)
     if remat == "none":
         return period(x, *leaves)
-    y, aux, *_ = _RematPeriod.apply(period, remat == "dots", x, *leaves)
-    return y, aux
+    return checkpointed(period, x, *leaves, dots=remat == "dots")
 
 
 def stack_fwd(params, cfg, x, *, positions, cache=None, remat: str = "none"):

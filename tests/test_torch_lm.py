@@ -164,13 +164,31 @@ def test_init_draws_in_the_parameter_dtype():
     assert abs(stacked.float().std().item() * cfg.d_model ** 0.5 - 1) < 0.05
 
 
-@pytest.mark.parametrize("name", [n for n in list_archs()
-                                  if n not in ("granite-8b", "gemma2-2b",
-                                               "gemma3-27b",
-                                               "starcoder2-7b",
-                                               "deepseek-v2-lite-16b",
-                                               "kimi-k2-1t-a32b")])
-def test_unported_families_raise(name):
-    cfg = t_arch(name + "-reduced")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_build(cfg)
+@pytest.mark.parametrize("name", list_archs())
+def test_every_arch_builds_with_the_reference_tree(name):
+    """The full config builds; at the reduced widths in bf16 the port's
+    ``init`` draws the reference's tree: the same keys, shapes and dtypes
+    (the f32 leaves of a bf16 model, the MoE router and the Mamba2
+    ``dt_bias``/``A_log``/``D``, included)."""
+    assert t_build(t_arch(name)).cfg.name == name
+    bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    rcfg = dataclasses.replace(r_arch(name + "-reduced"), **bf16)
+    tcfg = dataclasses.replace(t_arch(name + "-reduced"), **bf16)
+    want = jax.tree_util.tree_leaves_with_path(
+        jax.eval_shape(r_build(rcfg).init, jax.random.PRNGKey(0)))
+    params = t_build(tcfg).init(torch.Generator().manual_seed(0))
+    got = tree_util.leaves(params)
+    assert len(got) == len(want)
+    paths = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        else:
+            paths.append(path)
+    walk(params, ())
+    for (path, w), g, p in zip(want, got, paths):
+        assert tuple(k.key for k in path) == p
+        assert tuple(g.shape) == tuple(w.shape), p
+        assert str(g.dtype).split(".")[-1] == str(w.dtype), p
