@@ -153,8 +153,38 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
      times per prefill call; tokens/s and the ms of one decode step;
    (phase 5 also holds K6 at internvl2's prefill shape (4, 512, 48/8, 128)
    and times it beside SDPA);
+10. the mesh (after phase 3b): one world of 20 gloo ranks on the card, one
+   rank per device of the (data, model) mesh, the world also holding a
+   (10, 2) grid's groups:
+   - (i) aggregation through ``robust_aggregate_dist`` on the paper's
+     worker matrices, (20, 118,282) and (20, 2,430,826) f32 drawn from the
+     seed, rank r owning row r, in both layouts: phocas b = 8 and trmean
+     b = 6 under signflip and omniscient q = 6, plain and defended (scores,
+     one worker ejected), equal to ``aggregate_matrix`` on the whole matrix
+     bit for bit; K3/K4's counts on the 20 slices, summed, equal to the
+     whole matrix's as integers; krum and multikrum q = 6 (K5 on each
+     slice) selecting as the local path; bitflip q = 8 on the MLP matrix
+     against the local path on the slice-wise attacked matrix; the (10, 2)
+     grid over the CNN's gradient tree (m = 10), model-sharded leaves cut
+     to blocks and all_gathered; each kernel against its plain version
+     on the matrices the mesh path launches it on (rank 0's slices, clean
+     and under omniscient, and the padded wholes of the replicated layout:
+     K1-K5 at (20, 5,915), (20, 121,542), (20, 118,300) and
+     (20, 2,430,840), K1 on the grid's slice and whole); K1 timed on a
+     (20, 121,542) slice, the a2a and all_gather of a CNN row timed;
+   - (ii) ``run_experiment`` on "20x1" as each rank, sharded: the MLP
+     phocas under bitflip, the CNN trmean under gaussian, the defended MLP
+     under signflip (every Byzantine worker ejected) and MLP krum under
+     gaussian, 10 steps each, and the MLP under signflip in the replicated
+     layout for 5: finite falling losses, one K1/K2/K3/K5 launch a step on
+     every rank, params bit-equal across ranks, step time and peak memory
+     on rank 0; then one ``run_experiment`` of the sharded MLP from this
+     process, which spawns its own 20 ranks; both 5-step runs held to the
+     single-process run within rtol 1e-4, atol 1e-5; the spawn time of
+     each world printed;
 8. report: the card's name and power limit, one JSON line describing every
-   kernel, and as the last line ``{"ok": true, "device": {...}}``.
+   kernel (launches include rank 0's in phase 10), and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN convolutions throughout.  Without a CUDA
 device the script exits non-zero and prints no result.
@@ -377,14 +407,16 @@ def same(got: torch.Tensor, want: torch.Tensor) -> bool:
             and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)))
 
 
-def tie_check(kname: str, u: torch.Tensor, b: int) -> None:
-    """A kernel against its plain version on a tie-heavy matrix: the
-    aggregate equal bit for bit (NaN where the plain version has NaN) and,
-    for a counts kernel, the counts equal as integers."""
+def tie_check(kname: str, u: torch.Tensor, b: int,
+              label: str = "ties") -> None:
+    """A kernel against its plain version on a tie-heavy matrix (or on
+    another, named by ``label``): the aggregate equal bit for bit (NaN
+    where the plain version has NaN) and, for a counts kernel, the counts
+    equal as integers."""
     kernel, ref = wrappers()[kname]
     got, want = kernel(u, b), ref(u, b)
     torch.cuda.synchronize()
-    tag = f"{kname} ties {tuple(u.shape)} b={b}"
+    tag = f"{kname} {label} {tuple(u.shape)} b={b}"
     if kname.endswith("_counts"):
         check(torch.equal(got[1], want[1]),
               f"{tag}: counts {got[1].tolist()} != plain {want[1].tolist()}")
@@ -2349,6 +2381,491 @@ def zoo_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the mesh, one torch.distributed rank per mesh device
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 20                  # the paper's m = 20 workers, one a rank
+MESH_SEED = 11
+MESH_TRIM = (("phocas", 8), ("trmean", 6))
+MESH_EJECTED = 19                # the worker the defended cases eject
+MESH_GRID = (10, 2)              # (data, model): the model-axis cases
+MESH_TP_B = 3                    # b of the model-axis cases (m = 10)
+MESH_TOL = (1e-4, 1e-5)          # rtol, atol: mesh run vs single process
+
+
+def mesh_rows(d: int, rows) -> torch.Tensor:
+    """Rows ``rows`` of a (20, d) f32 worker matrix on the card, row i drawn
+    from its own seed, so that a rank draws its row alone."""
+    return torch.stack([torch.randn(
+        d, generator=torch.Generator(device="cuda").manual_seed(
+            MESH_SEED * 1000 + i), device="cuda") for i in rows])
+
+
+def mesh_training_specs() -> dict:
+    """Part (ii)'s runs on "20x1" in the sharded layout: (spec, the kernel
+    each step launches)."""
+    import dataclasses
+
+    from repro_torch.core.attacks import AttackConfig
+    return {
+        "mlp phocas bitflip": (dataclasses.replace(
+            paper_spec("mlp", 10), mesh="20x1"), "phocas"),
+        "cnn trmean gaussian": (dataclasses.replace(
+            paper_spec("cnn", 10), mesh="20x1"), "trmean"),
+        "mlp phocas defended": (dataclasses.replace(
+            paper_spec("mlp", 10, defended=True), mesh="20x1"),
+            "phocas_counts"),
+        "mlp krum gaussian": (dataclasses.replace(
+            vector_spec("mlp", "krum", 10), mesh="20x1"), "krum_gram"),
+        "mlp phocas signflip replicated": (mesh_compare_spec("replicated"),
+                                           "phocas"),
+    }
+
+
+def mesh_compare_spec(layout: str):
+    """The MLP under signflip q = 8 on "20x1" for 5 steps, in ``layout``
+    (the single-process run is the same spec with no mesh)."""
+    import dataclasses
+
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust import RobustConfig
+    return dataclasses.replace(
+        paper_spec("mlp", 5), mesh="20x1",
+        attack=AttackConfig(name="signflip", num_byzantine=8),
+        robust=RobustConfig(rule="phocas", b=8, q=8, layout=layout))
+
+
+def _digest(params) -> str:
+    import hashlib
+
+    from repro_torch.tree import leaves
+    h = hashlib.sha256()
+    for x in leaves(params):
+        h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def mesh_plain_holds(tag: str, u: torch.Tensor, kernels) -> None:
+    """Each of ``kernels`` ((name, b) pairs; b is ignored for K5) on the
+    (m, d) matrix ``u`` that the mesh path hands it, against its plain
+    version on ``u``: K1-K4's aggregates bit for bit and K3/K4's counts as
+    integers (``tie_check``), K5's distances through ``compare_gram``.
+    These launches are not counted: part (ii) counts its own."""
+    for kname, b in kernels:
+        if kname != "krum_gram":
+            tie_check(kname, u, b, label=f"mesh {tag}")
+            continue
+        kernel, ref = wrappers()[kname]
+        got, want, want64 = kernel(u), ref(u), ref(u, torch.float64)
+        torch.cuda.synchronize()
+        compare_gram(f"mesh {tag} {tuple(u.shape)}", u, got, want, want64)
+
+
+def mesh_aggregation(mesh, grid, out: dict) -> None:
+    """Part (i), on every rank: the engine in both layouts on the paper's
+    worker matrices against ``aggregate_matrix`` on the whole matrix (rank
+    0 holds it), bit for bit; the summed K3/K4 counts as integers; the
+    K5-based krum and multikrum; bitflip on slices; the (10, 2) grid over
+    the CNN's gradient tree; then K1 and the collectives timed.  Rank 0
+    also holds every kernel against its plain version on the matrices the
+    mesh path launches it on: its (20, D/20) slice, clean and under the
+    omniscient attack, and the padded (20, D) whole of the replicated
+    layout; on the grid, K1 on its (10, D'/10) slice and (10, D') whole."""
+    import dataclasses
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.core.aggregators import psum_counts
+    from repro_torch.core.attacks import (AttackConfig, bitflip_attack,
+                                          make_attack)
+    from repro_torch.core.robust import (RobustConfig, _flat_padded,
+                                         aggregate_matrix,
+                                         aggregate_stacked_tree,
+                                         robust_aggregate_dist,
+                                         slice_generator)
+    from repro_torch.dist.collectives import (all_to_all_scatter,
+                                              cut_to_blocks, gather_slices,
+                                              gather_workers, join_blocks,
+                                              model_cuts, worker_slice_index)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.phocas.kernel import phocas_hopper
+    from repro_torch.tree import leaves, unflatten
+    rank, m = mesh.rank, MESH_RANKS
+    wa, ma = mesh.axes(("data",)), mesh.axes(("model",))
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+    active = torch.ones(m, device="cuda")
+    active[MESH_EJECTED] = 0.0
+    lines = out.setdefault("lines", [])
+
+    def held(tag, got, want, scores=None, want_scores=None, exact=True):
+        # Multi-Krum's mean of the same rows may round differently on a
+        # slice than on the whole matrix; a different selection would move
+        # it by O(1).
+        ok = (_same_bits(got, want) if exact else
+              torch.allclose(got, want, rtol=1e-6, atol=1e-6))
+        if scores is not None:
+            ok = ok and _same_bits(scores, want_scores)
+        check(ok, f"mesh {tag}: differs from aggregate_matrix on the whole "
+                  f"matrix (max |diff| {(got - want).abs().max().item()})")
+
+    for tag, (_, d) in (("mlp", SHAPES[0]), ("cnn", SHAPES[1])):
+        row = mesh_rows(d, [rank])[0]
+        whole = (F.pad(mesh_rows(d, range(m)), (0, (-d) % m))
+                 if rank == 0 else None)
+        n = 0
+        cases = [(rule, b, atk, layout, defended)
+                 for rule, b in MESH_TRIM
+                 for atk in ("signflip", "omniscient")
+                 for layout in ("sharded", "replicated")
+                 for defended in (False, True)]
+        cases += [(rule, 0, "signflip", layout, False)
+                  for rule in ("krum", "multikrum")
+                  for layout in ("sharded", "replicated")]
+        for rule, b, atk, layout, defended in cases:
+            cfg = RobustConfig(rule=rule, b=b, q=6, layout=layout,
+                               attack=AttackConfig(name=atk,
+                                                   num_byzantine=6))
+            act = active if defended else None
+            res = robust_aggregate_dist({"g": row}, cfg, wa, ma, gen,
+                                        active=act, with_scores=defended,
+                                        step=0)
+            agg, scores = res if defended else (res, None)
+            if rank == 0:
+                want = aggregate_matrix(whole, cfg, gen, active=act,
+                                        with_scores=defended)
+                want, want_scores = want if defended else (want, None)
+                held(f"{tag} {rule} b={b} {atk} {layout}"
+                     f"{' defended' if defended else ''}", agg["g"],
+                     want[:d], scores, want_scores,
+                     exact=rule != "multikrum")
+            n += 1
+        # K3/K4's drop counts on the slices, summed, against the whole
+        # matrix's: equal as integers.
+        flat = F.pad(row, (0, (-d) % m))
+        piece = all_to_all_scatter(flat, wa)
+        for rule, b in MESH_TRIM:
+            _, counts = getattr(ops, f"{rule}_with_counts")(piece, b)
+            counts, ncoords = psum_counts(
+                counts, torch.tensor(float(piece.shape[1]), device="cuda"),
+                wa + ma)
+            if rank == 0:
+                _, want = getattr(ops, f"{rule}_with_counts")(whole, b)
+                check(torch.equal(counts, want) and
+                      int(ncoords) == whole.shape[1],
+                      f"mesh {tag} {rule}: summed counts {counts.tolist()} "
+                      f"!= {want.tolist()}")
+        if rank == 0:
+            every = [(k, b) for k, b in MESH_TRIM]
+            every += [(f"{k}_counts", b) for k, b in MESH_TRIM]
+            every.append(("krum_gram", 0))
+            omni = make_attack(AttackConfig(name="omniscient",
+                                            num_byzantine=6))
+            for label, u in (("slice", piece),
+                             ("omniscient slice", omni(gen, piece, 0)),
+                             ("whole", whole)):
+                mesh_plain_holds(f"{tag} {label}", u, every)
+            lines.append(f"  {tag}: K1-K5 on rank 0's {tuple(piece.shape)} "
+                         f"slice (clean and omniscient) and the padded "
+                         f"{tuple(whole.shape)} whole equal to their plain "
+                         f"versions (K1-K4 bit for bit, K3/K4 counts as "
+                         f"integers, K5 within compare_gram's bound)")
+            lines.append(f"  {tag} (20, {d:,}): {n} cases (phocas b=8, "
+                         f"trmean b=6 under signflip/omniscient q=6, plain "
+                         f"and defended with worker {MESH_EJECTED} ejected; "
+                         f"krum/multikrum q=6) in both layouts equal to "
+                         f"aggregate_matrix bit for bit (multikrum: the "
+                         f"same rows' mean within 1e-6); K3/K4 counts summed "
+                         f"over 20 slices equal as integers")
+    # Bitflip q = 8 on the MLP matrix: each slice's leading 1,000
+    # coordinates, from the slice's generator.
+    d = SHAPES[0][1]
+    row = mesh_rows(d, [rank])[0]
+    cfg = RobustConfig(rule="phocas", b=8, layout="sharded",
+                       attack=AttackConfig(name="bitflip", num_byzantine=8))
+    agg = robust_aggregate_dist({"g": row}, cfg, wa, ma, gen, step=0)["g"]
+    if rank == 0:
+        whole = F.pad(mesh_rows(d, range(m)), (0, (-d) % m))
+        s = whole.shape[1] // m
+        for i in range(m):
+            whole[:, i * s:(i + 1) * s] = bitflip_attack(
+                slice_generator(gen, 0, i, "cuda"), whole[:, i * s:(i + 1) * s],
+                8, 1000)
+        want = aggregate_matrix(whole, dataclasses.replace(
+            cfg, attack=AttackConfig()))
+        held("mlp bitflip q=8 on slices", agg, want[:d])
+        lines.append(f"  mlp bitflip q=8 sharded: {m} x 1,000 coordinates "
+                     f"hit ({m} slices of {s:,}), equal to aggregate_matrix "
+                     f"on the slice-wise attacked matrix bit for bit")
+
+    # The (10, 2) grid over the CNN's gradient tree (m = 10): a model-
+    # sharded leaf contributes this rank's block, the aggregate is
+    # all_gathered over the model axis, as in the train step.
+    from repro_torch.models.cnn import build_cnn_model
+    gwa, gma = grid.axes(("data",)), grid.axes(("model",))
+    like = build_cnn_model(in_ch=3, size=32).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    shapes = [x.shape for x in leaves(like)]
+
+    def worker_tree(w):
+        g = torch.Generator(device="cuda").manual_seed(MESH_SEED * 100 + w)
+        return unflatten(like, [torch.randn(sh, generator=g, device="cuda")
+                                for sh in shapes])
+
+    cuts = model_cuts(like, grid)
+    check(any(c is not None for c in cuts), "no CNN leaf is model-sharded")
+    local = cut_to_blocks(worker_tree(worker_slice_index(gwa)), cuts)
+    stacked = (unflatten(like, [torch.stack(xs) for xs in zip(
+        *[leaves(worker_tree(w)) for w in range(MESH_GRID[0])])])
+               if rank == 0 else None)
+    flat, _ = _flat_padded(local, MESH_GRID[0], torch.float32)
+    piece, whole = all_to_all_scatter(flat, gwa), gather_workers(flat, gwa)
+    if rank == 0:
+        for label, u in (("grid slice", piece), ("grid whole", whole)):
+            mesh_plain_holds(label, u, [("phocas", MESH_TP_B)])
+    for layout in ("sharded", "replicated"):
+        cfg = RobustConfig(rule="phocas", b=MESH_TP_B, layout=layout,
+                           attack=AttackConfig(name="signflip",
+                                               num_byzantine=MESH_TP_B))
+        agg = leaves(join_blocks(
+            robust_aggregate_dist(local, cfg, gwa, gma, gen, step=0), cuts))
+        if rank == 0:
+            want = leaves(aggregate_stacked_tree(stacked, cfg, gen))
+            for a, w in zip(agg, want):
+                held(f"(10, 2) CNN tree {layout}", a, w)
+    if rank == 0:
+        nshard = sum(c is not None for c in cuts)
+        lines.append(f"  (10, 2) grid, CNN gradient tree (m = 10, {nshard} "
+                     f"of {len(cuts)} leaves model-sharded): phocas "
+                     f"b={MESH_TP_B} under signflip in both layouts equal "
+                     f"to aggregate_stacked_tree bit for bit; K1 on "
+                     f"rank 0's {tuple(piece.shape)} slice and "
+                     f"{tuple(whole.shape)} whole equal to its plain "
+                     f"version bit for bit")
+
+    # Timings: K1 on rank 0's (20, 121,542) CNN slice with the other ranks
+    # waiting, and the a2a / all_gather of the CNN row on every rank.
+    d = SHAPES[1][1]
+    flat = F.pad(mesh_rows(d, [rank])[0], (0, (-d) % m))
+    piece = all_to_all_scatter(flat, wa)
+    dist.barrier()
+    if rank == 0:
+        k1 = time_ms(lambda: phocas_hopper(piece, 8))
+        bnd, by = bound_ms("phocas", m, piece.shape[1], 4)
+        out["k1_slice"] = (tuple(piece.shape), k1, bnd, by)
+    dist.barrier()
+    for name, fn in (("a2a", lambda: all_to_all_scatter(flat, wa)),
+                     ("all_gather", lambda: gather_slices(piece[0], wa))):
+        times = []
+        for _ in range(6):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        times.sort()
+        out[f"{name}_ms"] = times[len(times) // 2]
+
+
+def mesh_training(out: dict) -> None:
+    """Part (ii), on every rank: run_experiment of each spec as this rank
+    of the world; per run the launches (counted just around the run), the
+    losses, the params' digest, and on rank 0 the step times, the peak
+    memory, the params and the defense's mask."""
+    import torch.distributed as dist
+
+    from repro_torch.experiment import run_experiment
+    from repro_torch.tree import leaves
+    runs = {}
+    for tag, (spec, _) in mesh_training_specs().items():
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, counts = launch_counts(lambda: run_experiment(spec))
+        call = time.perf_counter() - t0
+        walls = [r["wall"] for r in res.history]
+        step_ms = sorted(1e3 * (b - a) for a, b in zip(walls[1:], walls[2:]))
+        runs[tag] = {
+            "losses": [r["loss"] for r in res.history],
+            "counts": counts, "digest": _digest(res.params),
+            "n_active": [r.get("n_active") for r in res.history],
+            "times": (call, res.wall_time, 1e3 * walls[0])}
+        if dist.get_rank() == 0:
+            runs[tag].update(
+                step_ms=step_ms[len(step_ms) // 2],
+                peak=torch.cuda.max_memory_allocated(),
+                params=[x.cpu() for x in leaves(res.params)],
+                active=(None if res.defense_state is None else
+                        res.defense_state["active"].tolist()))
+    out["runs"] = runs
+
+
+def mesh_warm() -> dict:
+    """The world's first cuBLAS GEMM and first ``torch.func`` gradient
+    under ``vmap``, each timed barrier to barrier on every rank: the set-up
+    that every rank does at once on the one card before part (ii)'s first
+    step (seconds)."""
+    import torch.distributed as dist
+    x = torch.randn(32, 784, device="cuda")
+    w = torch.randn(784, 128, device="cuda")
+
+    def grads():
+        def loss(w, x):
+            return (x @ w).square().sum()
+        return torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(
+            w, x.expand(2, -1, -1))
+
+    times = {}
+    for name, fn in (("gemm", lambda: x @ w), ("vmap(grad)", grads)):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        times[name] = time.perf_counter() - t0
+    return times
+
+
+def mesh_rank(rank: int, world: int, t_spawn: float) -> dict:
+    """One rank of phase 10's world: parts (i) and (ii); returns its
+    results to the parent."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.init()
+    torch.zeros(1, device="cuda")
+    mesh = make_host_mesh(data=MESH_RANKS, model=1)
+    grid = make_host_mesh(*MESH_GRID)
+    dist.barrier()
+    out = {"spawn_s": time.time() - t_spawn}
+    t0 = time.perf_counter()
+    mesh_aggregation(mesh, grid, out)
+    out["part_i_s"] = time.perf_counter() - t0
+    out["warm_s"] = mesh_warm()
+    t0 = time.perf_counter()
+    mesh_training(out)
+    out["part_ii_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_phase() -> dict:
+    """Phase 10: one 20-rank world on the card runs parts (i) and (ii);
+    then one run_experiment from this process spawns its own ranks.
+    Returns rank 0's launches of the training runs."""
+    import dataclasses
+
+    from repro_torch.dist.launch import spawn
+    from repro_torch.experiment import run_experiment
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_rank, MESH_RANKS, time.time())
+    r0 = ranks[0]
+    print(f"spawn: the phase's world of {MESH_RANKS} ranks (gloo, one card) "
+          f"ready {r0['spawn_s']:.2f} s after the spawn")
+    warm = ", ".join(f"first {k} {v:.2f} s" for k, v in r0["warm_s"].items())
+    print(f"mesh world: part (i) {r0['part_i_s']:.1f} s, then on all "
+          f"{MESH_RANKS} ranks at once {warm}, part (ii) "
+          f"{r0['part_ii_s']:.1f} s, world {time.perf_counter() - t0:.1f} s")
+    print("mesh (i) aggregation on the (20, 1) mesh:")
+    for line in r0["lines"]:
+        print(line)
+    shape, k1, bnd, by = r0["k1_slice"]
+    print(f"  K1 on a {shape} slice: {k1:.4f} ms, bound {bnd * 1e3:.2f} us "
+          f"({by}), {bnd / k1:.1%} of bound; a2a of a CNN row "
+          f"{r0['a2a_ms']:.2f} ms, all_gather of its slice "
+          f"{r0['all_gather_ms']:.2f} ms (rank 0, host clock, median)")
+
+    print("mesh (ii) training through run_experiment on '20x1':")
+    specs = mesh_training_specs()
+    launches: dict = {}
+    for tag, run in r0["runs"].items():
+        kname = specs[tag][1]
+        losses = run["losses"]
+        steps = len(losses)
+        check(all(x == x and abs(x) != float("inf") for x in losses),
+              f"mesh {tag}: non-finite loss in {losses}")
+        check(losses[-1] < losses[0],
+              f"mesh {tag}: loss did not decrease ({losses})")
+        for r, rk in enumerate(ranks):
+            check(rk["runs"][tag]["digest"] == run["digest"],
+                  f"mesh {tag}: rank {r}'s params differ from rank 0's")
+            c = rk["runs"][tag]["counts"]
+            if kname == "phocas_counts":
+                gated = sum(1 for n in run["n_active"][:-1] if n < MESH_RANKS)
+                want = {k: 0 for k in c}
+                want.update(phocas_counts=steps, phocas=gated)
+            else:
+                want = {k: (steps if k == kname else 0) for k in c}
+            check(c == want, f"mesh {tag}: rank {r} launches {c}, expected "
+                             f"{want}")
+        for k, v in run["counts"].items():
+            launches[k] = launches.get(k, 0) + v
+        extra = ""
+        if run["active"] is not None:
+            q = specs[tag][0].attack.num_byzantine
+            check(all(a == 0 for a in run["active"][:q]),
+                  f"mesh {tag}: Byzantine workers not all ejected: "
+                  f"{run['active']}")
+            extra = f", active {[int(a) for a in run['active']]}"
+        call, loop, first = run["times"]
+        print(f"  {tag}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, step "
+              f"{run['step_ms']:.2f} ms (median, synchronized, rank 0; the "
+              f"first {first:.0f} ms; the loop {loop:.2f} s of the call's "
+              f"{call:.2f} s), peak {run['peak'] / 2**30:.2f} GiB (rank 0), "
+              f"launches {run['counts']} on each of {MESH_RANKS} ranks, "
+              f"params bit-equal across ranks{extra}")
+
+    # The single-process entry point spawns its own ranks: the sharded
+    # layout's run, and the world's replicated one, against the
+    # single-process run of the same spec.
+    rtol, atol = MESH_TOL
+    local = run_experiment(dataclasses.replace(mesh_compare_spec("sharded"),
+                                               mesh=""))
+    t1 = time.perf_counter()
+    spawned = run_experiment(mesh_compare_spec("sharded"))
+    call = time.perf_counter() - t1
+    walls = [r["wall"] for r in spawned.history]
+    print(f"spawn: run_experiment(mesh='20x1') from this process, "
+          f"{MESH_RANKS} ranks: call {call:.1f} s, of which the run's loop "
+          f"{spawned.wall_time:.1f} s (its first step {walls[0]:.1f} s, the "
+          f"next four {walls[-1] - walls[0]:.2f} s) and spawn and set-up "
+          f"{call - spawned.wall_time:.1f} s")
+    want_l = [r["loss"] for r in local.history]
+    want_p = leaves(local.params)
+    for layout, losses, params in (
+            ("sharded", [r["loss"] for r in spawned.history],
+             leaves(spawned.params)),
+            ("replicated", r0["runs"]["mlp phocas signflip replicated"][
+                "losses"], r0["runs"]["mlp phocas signflip replicated"][
+                "params"])):
+        loss_ok = torch.allclose(torch.tensor(losses), torch.tensor(want_l),
+                                 rtol=rtol, atol=atol)
+        perr = max((a.cuda() - b).abs().max().item()
+                   for a, b in zip(params, want_p))
+        par_ok = all(torch.allclose(a.cuda(), b, rtol=rtol, atol=atol)
+                     for a, b in zip(params, want_p))
+        check(loss_ok and par_ok and losses[-1] < losses[0],
+              f"mesh {layout}: losses {losses} vs single process "
+              f"{want_l}, params max diff {perr}")
+        how = "spawned by run_experiment" if layout == "sharded" else \
+            "the world's"
+        print(f"  mlp signflip {layout} (5 steps, {how}) vs the "
+              f"single-process run: losses within rtol {rtol} atol {atol}, "
+              f"params max diff {perr:.2e}")
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2388,6 +2905,8 @@ def main() -> int:
     launches = train_phase()
     launches.update(vector_phase())
     topology_phase()
+    for k, v in mesh_phase().items():
+        launches[k] = launches.get(k, 0) + v
     trace_phase()
     report["flash_attn"] = flash_phase(gen)
     launches.update(serve_phase())

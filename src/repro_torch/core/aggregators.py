@@ -21,12 +21,19 @@ counts kernels on the kernel backend and from ``selection.trim_family`` on the
 plain one.  krum and multikrum take their pairwise distances from the Krum
 Gram kernel on the kernel backend, for the plain and the defended hooks alike;
 the Weiszfeld loop is plain PyTorch, as in the reference, where it lies
-outside any Pallas kernel.  The sharded hooks of the reference come with the
-distributed layouts (ROADMAP queue 1 item 10).
+outside any Pallas kernel.
+
+Each rule's score hooks are written once, for the (m, D_slice) matrix one
+rank of a mesh owns (``reduce_sharded*``, ``psum_axes`` the mesh axes its
+statistics are summed over); the local hooks are those with no axes.  The
+trim family sums its drop counts and coordinate totals before it normalizes;
+krum and multikrum sum each slice's (m, m) distances (the Gram kernel's, on
+the kernel backend), and with a gate the distances to the median row in the
+same collective; geomedian sums its row norms and Weiszfeld distances.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -73,23 +80,46 @@ def phocas_stats(u: torch.Tensor, b: int):
     return selection.trim_family(u, b, "phocas", with_scores=True)
 
 
-def trim_mask_scores(stats_fn, mat: torch.Tensor, b: int, baseline: float):
-    """``stats_fn(mat, b) -> (agg, drop_counts, ncoords)``, normalized to
-    ``(agg, scores)``.  The reference sums counts and coordinates over the
-    sharded axes first; this package has no sharded layout yet."""
+def _psum(x: torch.Tensor, psum_axes: Sequence) -> torch.Tensor:
+    """``x`` summed over ``psum_axes``; ``x`` itself when there are none."""
+    if not psum_axes:
+        return x
+    from repro_torch.dist.collectives import psum_axes as psum
+    return psum(x, psum_axes)
+
+
+def psum_counts(counts: torch.Tensor, ncoords: torch.Tensor,
+                psum_axes: Sequence):
+    """(m,) per-worker counts and the coordinate total summed over
+    ``psum_axes`` in one collective, in f64 so that the integer sums are
+    exact at any width; returned as f32, as the local counts are."""
+    if not psum_axes:
+        return counts, ncoords
+    packed = torch.cat([counts.double(), ncoords.double().reshape(1)])
+    packed = _psum(packed, psum_axes).float()
+    return packed[:-1], packed[-1]
+
+
+def trim_mask_scores(stats_fn, mat: torch.Tensor, b: int, baseline: float,
+                     psum_axes: Sequence = ()):
+    """``stats_fn(mat, b) -> (agg, drop_counts, ncoords)``, with the counts
+    and coordinates summed over ``psum_axes`` and normalized to ``(agg,
+    scores)``."""
     agg, counts, ncoords = stats_fn(mat, b)
+    counts, ncoords = psum_counts(counts, ncoords, psum_axes)
     return agg, drop_frequency_scores(counts, ncoords, baseline)
 
 
 def fused_trim_family_scores(mat: torch.Tensor, b: int, kind: str,
                              baseline: float,
-                             active: Optional[torch.Tensor]):
+                             active: Optional[torch.Tensor],
+                             psum_axes: Sequence = ()):
     """One-pass defended path for the trim family: raw drop-count scores
     AND the gated aggregate from one ``selection.trim_family`` pass."""
     return trim_mask_scores(
         lambda u, b_: selection.trim_family(u, b_, kind, active=active,
                                             with_scores=True),
-        mat, b, baseline)
+        mat, b, baseline, psum_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -160,19 +190,22 @@ def multikrum(u: torch.Tensor, q: int, k: Optional[int] = None
 
 
 def krum_gated_scores(mat: torch.Tensor, active: torch.Tensor, q: int,
-                      d2: Optional[torch.Tensor] = None):
+                      d2: Optional[torch.Tensor] = None,
+                      psum_axes: Sequence = ()):
     """Raw AND reputation-gated Krum score sums from one distance matrix.
 
-    The single-device form of the reference's
-    ``krum_gated_scores_sharded``.  The gated matrix replaces ejected rows by
-    the raw median row ``med``, so its distances follow from the raw ones
-    and each row's distance ``e_i = ||mat_i - med||^2`` to the median::
+    The port of the reference's ``krum_gated_scores_sharded``.  The gated
+    matrix replaces ejected rows by the raw median row ``med``, so its
+    distances follow from the raw ones and each row's distance
+    ``e_i = ||mat_i - med||^2`` to the median::
 
         d2_A(i, j) = a_i a_j d2(i, j) + a_i (1 - a_j) e_i
                                       + (1 - a_i) a_j e_j
 
     an O(m d) correction in place of a second O(m^2 d) pass.  ``d2`` is the
-    raw (m, m) distance matrix when the caller has it (the Gram kernel's).
+    raw (m, m) distance matrix of ``mat`` when the caller has it (the Gram
+    kernel's); on a slice, ``d2`` and ``e`` are summed over ``psum_axes``
+    together, as one (m + 1, m) block.
     """
     m = mat.shape[0]
     k = _krum_k(m, q)
@@ -180,6 +213,9 @@ def krum_gated_scores(mat: torch.Tensor, active: torch.Tensor, q: int,
         d2 = _pairwise_sq_dists(mat)
     med = selection.matrix_median(mat)
     e = ((mat - med[None]) ** 2).sum(dim=1)
+    if psum_axes:
+        block = _psum(torch.cat([d2, e[None, :]]), psum_axes)
+        d2, e = block[:m], block[m]
     a = active.to(d2.dtype)
     d2_gated = (a[:, None] * a[None, :] * d2
                 + a[:, None] * (1.0 - a[None, :]) * e[:, None]
@@ -198,12 +234,15 @@ WEISZFELD_CLIP_FACTOR = 4.0
 
 def clip_rows_to_norm_quantile(mat: torch.Tensor,
                                factor: float = WEISZFELD_CLIP_FACTOR,
-                               eps: float = 1e-12) -> torch.Tensor:
-    """Rescale the rows of an (m, d) matrix so that no row's norm exceeds
-    ``factor`` x the median row norm.  The median is ``jnp.median``'s: a
-    NaN norm makes it NaN and leaves every row unclipped, as in the
-    reference; so does a zero median, which carries no scale."""
-    norms = torch.sqrt((mat * mat).sum(dim=1))
+                               eps: float = 1e-12,
+                               psum_axes: Sequence = ()) -> torch.Tensor:
+    """Rescale the rows of an (m, d) matrix (a slice of the full vectors,
+    whose squared norms are summed over ``psum_axes``) so that no row's norm
+    exceeds ``factor`` x the median row norm.  The median is
+    ``jnp.median``'s: a NaN norm makes it NaN and leaves every row
+    unclipped, as in the reference; so does a zero median, which carries no
+    scale."""
+    norms = torch.sqrt(_psum((mat * mat).sum(dim=1), psum_axes))
     cap = factor * vector_median(norms)
     scale = torch.where(
         cap > 0.0, torch.clamp(cap / torch.clamp(norms, min=eps), max=1.0),
@@ -211,24 +250,33 @@ def clip_rows_to_norm_quantile(mat: torch.Tensor,
     return mat * scale[:, None]
 
 
+def _row_sq_dists(mat: torch.Tensor, z: torch.Tensor,
+                  psum_axes: Sequence) -> torch.Tensor:
+    """(m,) squared distances of the rows to ``z``, summed over
+    ``psum_axes``."""
+    return _psum(((mat - z[None]) ** 2).sum(dim=1), psum_axes)
+
+
 def geomedian_weiszfeld(mat: torch.Tensor, iters: int = 8, eps: float = 1e-8,
-                        with_dists: bool = False):
+                        with_dists: bool = False, psum_axes: Sequence = ()):
     """Weiszfeld iterations on an (m, d) f32 matrix, from the mean, after
     the rows are norm-clipped (:func:`clip_rows_to_norm_quantile`).
 
-    The single-device form of the reference's ``geomedian_sharded``.  With
+    The port of the reference's ``geomedian_sharded``: on a slice the
+    squared distances are summed over ``psum_axes``, so the weights see the
+    full vectors while the iterate stays slice-local.  With
     ``with_dists=True`` also returns each worker's distance to the final
     iterate (the inverse Weiszfeld weight, the rule's suspicion statistic).
     """
-    mat = clip_rows_to_norm_quantile(mat)
+    mat = clip_rows_to_norm_quantile(mat, psum_axes=psum_axes)
     z = mat.mean(dim=0)
     for _ in range(iters):
-        d2 = ((mat - z[None]) ** 2).sum(dim=1)
+        d2 = _row_sq_dists(mat, z, psum_axes)
         w = 1.0 / torch.clamp(torch.sqrt(d2), min=eps)
         z = (mat * w[:, None]).sum(dim=0) / w.sum()
     if not with_dists:
         return z
-    return z, torch.sqrt(((mat - z[None]) ** 2).sum(dim=1))
+    return z, torch.sqrt(_row_sq_dists(mat, z, psum_axes))
 
 
 def geomedian(u: torch.Tensor, iters: int = 8,
@@ -299,15 +347,17 @@ class _TrimFamilyRule(AggregatorRule):
             return self._kernel_stats(u, b)
         return selection.trim_family(u, b, self.trim_kind, with_scores=True)
 
-    def reduce_with_scores(self, u):
-        return trim_mask_scores(self._stats, u, self.params.b,
-                                self._baseline(u.shape[0]))
+    def reduce_sharded_with_scores(self, mat, psum_axes=()):
+        return trim_mask_scores(self._stats, mat, self.params.b,
+                                self._baseline(mat.shape[0]), psum_axes)
 
-    def reduce_gated_with_scores(self, u, active):
-        if self.uses_kernel(u):
-            return super().reduce_gated_with_scores(u, active)
-        return fused_trim_family_scores(u, self.params.b, self.trim_kind,
-                                        self._baseline(u.shape[0]), active)
+    def reduce_sharded_gated_with_scores(self, mat, active, psum_axes=()):
+        if self.uses_kernel(mat):
+            return super().reduce_sharded_gated_with_scores(mat, active,
+                                                            psum_axes)
+        return fused_trim_family_scores(mat, self.params.b, self.trim_kind,
+                                        self._baseline(mat.shape[0]), active,
+                                        psum_axes)
 
 
 @register_rule
@@ -351,24 +401,36 @@ class _KrumFamilyRule(AggregatorRule):
             return ops.pairwise_sq_dists(mat)
         return _pairwise_sq_dists(mat)
 
+    def _raw_scores(self, mat: torch.Tensor, psum_axes) -> torch.Tensor:
+        """Krum scores of the (m, d_slice) ``mat`` from its distances
+        summed over ``psum_axes``."""
+        return krum_scores_from_d2(_psum(self._d2(mat), psum_axes),
+                                   self.params.q)
+
     def _select(self, mat: torch.Tensor, scores: torch.Tensor):
         """The aggregate of the (m, d) ``mat`` the rule picks by ``scores``."""
         raise NotImplementedError
 
-    def reduce_with_scores(self, u):
-        mat = _flat(u)
-        raw = krum_scores_from_d2(self._d2(mat), self.params.q)
-        return (self._select(mat, raw).reshape(u.shape[1:]),
+    def reduce_sharded(self, mat, psum_axes=()):
+        flat = _flat(mat)
+        return self._select(flat, self._raw_scores(flat, psum_axes)
+                            ).reshape(mat.shape[1:])
+
+    def reduce_sharded_with_scores(self, mat, psum_axes=()):
+        flat = _flat(mat)
+        raw = self._raw_scores(flat, psum_axes)
+        return (self._select(flat, raw).reshape(mat.shape[1:]),
                 distance_ratio_scores(raw))
 
-    def reduce_gated_with_scores(self, u, active):
+    def reduce_sharded_gated_with_scores(self, mat, active, psum_axes=()):
         if active is None:
-            return self.reduce_with_scores(u)
-        mat = _flat(u)
-        raw, gated = krum_gated_scores(mat, active, self.params.q,
-                                       d2=self._d2(mat))
-        agg = self._select(selection.gate_matrix(mat, active), gated)
-        return agg.reshape(u.shape[1:]), distance_ratio_scores(raw)
+            return self.reduce_sharded_with_scores(mat, psum_axes)
+        flat = _flat(mat)
+        raw, gated = krum_gated_scores(flat, active, self.params.q,
+                                       d2=self._d2(flat),
+                                       psum_axes=psum_axes)
+        agg = self._select(selection.gate_matrix(flat, active), gated)
+        return agg.reshape(mat.shape[1:]), distance_ratio_scores(raw)
 
 
 @register_rule
@@ -421,20 +483,25 @@ class GeomedianRule(AggregatorRule):
     def _reduce_plain(self, u):
         return geomedian(u, iters=self.params.geomedian_iters)
 
-    def reduce_with_scores(self, u):
-        # Weiszfeld weight = 1/distance: far (down-weighted) = suspicious.
-        z, dists = geomedian_weiszfeld(_flat(u),
-                                       self.params.geomedian_iters,
-                                       with_dists=True)
-        return z.reshape(u.shape[1:]), distance_ratio_scores(dists)
+    def reduce_sharded(self, mat, psum_axes=()):
+        return geomedian_weiszfeld(_flat(mat), self.params.geomedian_iters,
+                                   psum_axes=psum_axes).reshape(mat.shape[1:])
 
-    def reduce_gated_with_scores(self, u, active):
+    def reduce_sharded_with_scores(self, mat, psum_axes=()):
+        # Weiszfeld weight = 1/distance: far (down-weighted) = suspicious.
+        z, dists = geomedian_weiszfeld(_flat(mat),
+                                       self.params.geomedian_iters,
+                                       with_dists=True, psum_axes=psum_axes)
+        return z.reshape(mat.shape[1:]), distance_ratio_scores(dists)
+
+    def reduce_sharded_gated_with_scores(self, mat, active, psum_axes=()):
         """One Weiszfeld run: the center of the gated matrix, and the RAW
         rows' distances to it as the scores."""
         if active is None:
-            return self.reduce_with_scores(u)
-        mat = _flat(u)
-        z = geomedian_weiszfeld(selection.gate_matrix(mat, active),
-                                self.params.geomedian_iters)
-        d2 = ((mat - z[None]) ** 2).sum(dim=1)
-        return z.reshape(u.shape[1:]), distance_ratio_scores(torch.sqrt(d2))
+            return self.reduce_sharded_with_scores(mat, psum_axes)
+        flat = _flat(mat)
+        z = geomedian_weiszfeld(selection.gate_matrix(flat, active),
+                                self.params.geomedian_iters,
+                                psum_axes=psum_axes)
+        d2 = _row_sq_dists(flat, z, psum_axes)
+        return z.reshape(mat.shape[1:]), distance_ratio_scores(torch.sqrt(d2))

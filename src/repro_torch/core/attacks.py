@@ -19,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import zlib
 from typing import Callable, Optional
 
 import torch
@@ -45,6 +46,12 @@ class AttackConfig:
     slowburn_scale: float = 100.0      # strike magnitude
     slowburn_mimic_std: float = 0.01   # trust-building mimicry noise
     inflate_scale: float = 100.0       # scale_inflate: payload-scale factor
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A generator seed derived from ``seed`` and ``data`` (the port's
+    analogue of ``jax.random.fold_in``): stable across processes."""
+    return zlib.crc32(f"{seed}:{data}".encode())
 
 
 _IN_PLACE = threading.local()

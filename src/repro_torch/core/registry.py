@@ -14,7 +14,8 @@ kernel for a CUDA tensor and the plain path for a CPU one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, ClassVar, Dict, Optional, Tuple, Type
+from typing import (Callable, ClassVar, Dict, Optional, Sequence, Tuple,
+                    Type)
 
 import torch
 
@@ -41,8 +42,16 @@ class AggregatorRule:
     Subclasses set ``name`` (and ``coordinate_wise`` / ``resilience`` /
     ``uses_b`` / ``uses_q`` / ``has_kernel`` / ``supports_streaming`` /
     ``emits_scores`` / ``fused_gate``) and implement ``_reduce_plain`` (and
-    ``_reduce_kernel`` with ``has_kernel = True``).  The sharded hooks of the
-    reference (``reduce_sharded*``) come with the distributed layouts.
+    ``_reduce_kernel`` with ``has_kernel = True``).
+
+    The sharded hooks (``reduce_sharded*``) take the (m, D_slice) worker
+    matrix one rank of a mesh owns and ``psum_axes``, the mesh axes
+    (:class:`repro_torch.dist.mesh.Axis`) over which the rule sums its
+    per-worker statistics before it normalizes or selects; empty axes are
+    the single-device call, and the local score hooks are the sharded ones
+    with no axes.  Coordinate-wise rules inherit the slice-local default
+    (each coordinate is independent); vector-wise rules override it, since
+    their statistics need the sum over the sharded axes.
     """
 
     name: ClassVar[str]
@@ -75,24 +84,50 @@ class AggregatorRule:
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Aggregate AND emit (m,) per-worker suspicion scores in [0, 1]
         (larger = more suspicious).  Rules whose statistics carry a
-        per-worker signal override this and set ``emits_scores``; the
-        default scores are all zero, as in the reference."""
-        return self.reduce(u), torch.zeros((u.shape[0],),
-                                           dtype=torch.float32,
-                                           device=u.device)
+        per-worker signal override :meth:`reduce_sharded_with_scores` and
+        set ``emits_scores``; the default scores are all zero, as in the
+        reference."""
+        return self.reduce_sharded_with_scores(u, ())
 
     def reduce_gated_with_scores(
             self, u: torch.Tensor, active: Optional[torch.Tensor]
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The defended aggregation: scores of the RAW submissions, and the
         aggregate of the gated matrix (``active`` ejected rows replaced by
-        the median row; ``active=None`` = no gate).  This default composes
-        the two passes; rules with ``fused_gate`` override it."""
-        agg, scores = self.reduce_with_scores(u)
+        the median row; ``active=None`` = no gate)."""
+        return self.reduce_sharded_gated_with_scores(u, active, ())
+
+    def reduce_sharded(self, mat: torch.Tensor,
+                       psum_axes: Sequence = ()) -> torch.Tensor:
+        """Aggregate this rank's (m, D_slice) matrix."""
+        if not self.coordinate_wise and tuple(psum_axes):
+            raise NotImplementedError(
+                f"vector-wise rule {self.name!r} must override "
+                "reduce_sharded (its statistics need a sum over the sharded "
+                "axes)")
+        return self.reduce(mat)
+
+    def reduce_sharded_with_scores(
+            self, mat: torch.Tensor, psum_axes: Sequence = ()
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`reduce_sharded` AND (m,) scores, their statistics already
+        summed over ``psum_axes`` so that every rank holds the same global
+        scores."""
+        return self.reduce_sharded(mat, psum_axes), torch.zeros(
+            (mat.shape[0],), dtype=torch.float32, device=mat.device)
+
+    def reduce_sharded_gated_with_scores(
+            self, mat: torch.Tensor, active: Optional[torch.Tensor],
+            psum_axes: Sequence = ()
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The defended aggregation on this rank's matrix in one hook.  This
+        default composes the two passes; rules with ``fused_gate`` override
+        it."""
+        agg, scores = self.reduce_sharded_with_scores(mat, psum_axes)
         if active is not None:
-            gated = gate_matrix(u, active)
-            if gated is not u:      # no worker ejected: agg already is it
-                agg = self.reduce(gated)
+            gated = gate_matrix(mat, active)
+            if gated is not mat:    # no worker ejected: agg already is it
+                agg = self.reduce_sharded(gated, psum_axes)
         return agg, scores
 
     def _reduce_plain(self, u: torch.Tensor) -> torch.Tensor:

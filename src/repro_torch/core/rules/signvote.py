@@ -13,10 +13,16 @@ Suspicion: a worker's disagreement frequency with the majority sign,
 baselined against the fleet's median disagreement.  The tally is a torch
 reduction, as the reference's is an XLA one outside any Pallas kernel; the
 rule declares no kernel.
+
+On a slice of a mesh the disagreement counts and the coordinate total are
+summed over the sharded axes before they are normalized.  The tally is not:
+each rank holds every worker's vote on its coordinates, so its slice-local
+majority is exact, and summing the tallies of different slices (as the
+reference's sharded hooks do, ROADMAP queue 3) would mix coordinates.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -24,8 +30,10 @@ from repro_torch.core.registry import AggregatorRule, register_rule
 from repro_torch.core.selection import vector_median
 
 
-def _vote_stats(mat: torch.Tensor, active: Optional[torch.Tensor]):
-    """Sign matrix, majority votes and per-worker disagreement counts.
+def _vote_stats(mat: torch.Tensor, active: Optional[torch.Tensor],
+                psum_axes: Sequence = ()):
+    """Sign matrix, majority votes and per-worker disagreement counts (with
+    the coordinate total, summed over ``psum_axes``).
 
     Scores observe the RAW signs while the majority is taken over the gated
     votes: an ejected worker's ballot counts as a 0 vote.
@@ -36,12 +44,18 @@ def _vote_stats(mat: torch.Tensor, active: Optional[torch.Tensor]):
     majority = torch.sign(votes.sum(dim=0))
     disagree = ((signs != majority[None, :]) & (signs != 0.0)).sum(
         dim=1).float()
-    return majority, disagree, float(mat.shape[1])
+    if not psum_axes:
+        return majority, disagree, float(mat.shape[1])
+    from repro_torch.core.aggregators import psum_counts
+    ncoords = torch.tensor(float(mat.shape[1]), device=mat.device)
+    return (majority, *psum_counts(disagree, ncoords, psum_axes))
 
 
-def _normalize(disagree: torch.Tensor, ncoords: float) -> torch.Tensor:
-    """Median-baselined disagreement frequency -> suspicion in [0, 1]."""
-    freq = disagree / max(ncoords, 1.0)
+def _normalize(disagree: torch.Tensor, ncoords) -> torch.Tensor:
+    """Median-baselined disagreement frequency -> suspicion in [0, 1];
+    ``ncoords`` is a float, or a tensor summed over a mesh's axes."""
+    freq = disagree / (torch.clamp(ncoords, min=1.0)
+                       if torch.is_tensor(ncoords) else max(ncoords, 1.0))
     base = vector_median(freq)
     return torch.clamp((freq - base) / torch.clamp(1.0 - base, min=1e-6),
                        0.0, 1.0)
@@ -58,10 +72,9 @@ class SignVote(AggregatorRule):
     def _reduce_plain(self, u):
         return torch.sign(torch.sign(u.float()).sum(dim=0))
 
-    def reduce_with_scores(self, u):
-        majority, disagree, n = _vote_stats(u, None)
-        return majority.reshape(u.shape[1:]), _normalize(disagree, n)
+    def reduce_sharded_with_scores(self, mat, psum_axes=()):
+        return self.reduce_sharded_gated_with_scores(mat, None, psum_axes)
 
-    def reduce_gated_with_scores(self, u, active):
-        majority, disagree, n = _vote_stats(u, active)
-        return majority.reshape(u.shape[1:]), _normalize(disagree, n)
+    def reduce_sharded_gated_with_scores(self, mat, active, psum_axes=()):
+        majority, disagree, n = _vote_stats(mat, active, psum_axes)
+        return majority.reshape(mat.shape[1:]), _normalize(disagree, n)

@@ -9,6 +9,12 @@ and enter the same topology loops.
 
 The device defaults to ``cuda``: without a GPU, ``run_experiment`` raises
 unless the caller asks for ``device="cpu"``, as the tests do.
+
+A spec with a ``mesh`` (``"DxM"``) runs as D x M ``torch.distributed``
+ranks, one per device of the reference's (data, model) mesh: inside a world
+that is already made (``torchrun``), this process is one rank; from a single
+process, ``run_experiment`` spawns the world itself
+(:mod:`repro_torch.dist.launch`) and returns rank 0's result.
 """
 from __future__ import annotations
 
@@ -63,6 +69,8 @@ class Plan:
     resume_path: Optional[str] = None
     # spec.compression when enabled, else None.
     compress_cfg: Any = None
+    # The (data, model) HostMesh this process is a rank of, or None.
+    mesh: Any = None
 
 
 @dataclasses.dataclass
@@ -99,9 +107,8 @@ class ExperimentResult:
         return None
 
 
-def resolve(spec: ScenarioSpec, *, device=None, obs: Any = None,
-            resume: Optional[str] = None) -> Plan:
-    """Validate ``spec`` and build the runtime bundle on ``device``."""
+def validate(spec: ScenarioSpec, resume: Optional[str] = None) -> None:
+    """``spec.validate()``, and the checks a resumed run adds."""
     spec.validate()
     if resume:
         if not get_topology(spec.topology).supports_resume:
@@ -112,7 +119,17 @@ def resolve(spec: ScenarioSpec, *, device=None, obs: Any = None,
             raise SpecError(
                 "resume needs spec.checkpoint_path set (the resumed run "
                 "keeps checkpointing to the same path)")
+
+
+def resolve(spec: ScenarioSpec, *, device=None, obs: Any = None,
+            resume: Optional[str] = None) -> Plan:
+    """Validate ``spec`` and build the runtime bundle on ``device``."""
+    validate(spec, resume)
     dev = resolve_device(device)
+    mesh = None
+    if spec.mesh:
+        from repro_torch.dist.mesh import make_host_mesh, parse_mesh
+        mesh = make_host_mesh(*parse_mesh(spec.mesh))
     model, batch_fn, eval_fn = _build_model_and_data(spec, dev)
 
     opt_cfg = spec.opt
@@ -150,6 +167,7 @@ def resolve(spec: ScenarioSpec, *, device=None, obs: Any = None,
         faults=tuple(spec.faults),
         resume_path=resume or None,
         compress_cfg=spec.compression if spec.compression.enabled else None,
+        mesh=mesh,
     )
 
 
@@ -163,7 +181,18 @@ def run_experiment(spec: ScenarioSpec, *, device=None, obs: Any = None,
     spec: the topology restores params, optimizer, defense state, codec
     residual, generator state, live b/q and step from it (falling back to
     its ``.prev`` on corruption) and continues from the next step, bit for
-    bit as the uninterrupted run."""
+    bit as the uninterrupted run.
+
+    With ``spec.mesh`` and no ``torch.distributed`` world, the spec is
+    validated here and then run by D x M spawned ranks over gloo on
+    ``device``; every rank must end with bit-equal params, and a rank's
+    exception fails the call."""
+    import torch.distributed as dist
+    if spec.mesh and not dist.is_initialized():
+        from repro_torch.dist.launch import run_spawned
+        validate(spec, resume)
+        resolve_device(device)
+        return run_spawned(spec, device=device, obs=obs, resume=resume)
     plan = resolve(spec, device=device, obs=obs, resume=resume)
     return make_topology(plan.topology).run(plan)
 

@@ -6,10 +6,11 @@ parses into :class:`repro_torch.defense.DefenseConfig`, ``faults`` into
 :class:`repro_torch.faults.FaultSpec` and ``compression`` into
 :class:`repro_torch.compress.CompressionSpec`.  The axes this package does not
 run yet are refused with ``NotImplementedError`` naming the ROADMAP queue
-item that brings them: ``mesh`` by :meth:`ScenarioSpec.validate`, the arch
-families not built yet by ``models.registry.build_model``.  An arch model
-trains on the token stream on every training topology and serves on the
-``serve`` topology.
+item that brings them.  A ``mesh`` (``"DxM"``, data x model) runs on
+``sync_ps`` as one ``torch.distributed`` rank per mesh device
+(``experiment/runner.py``); faults and compression refuse a mesh, as in the
+reference.  An arch model trains on the token stream on every training
+topology and serves on the ``serve`` topology.
 """
 from __future__ import annotations
 
@@ -225,8 +226,6 @@ class ScenarioSpec:
                 raise SpecError(
                     f"defense.adapt_b tunes the rule's b/q, but rule "
                     f"{self.robust.rule!r} consumes neither")
-        if self.mesh:
-            raise not_ported("device meshes (spec.mesh)", "item 10")
         if self.faults:
             try:
                 validate_faults(self.faults, m)
@@ -236,11 +235,22 @@ class ScenarioSpec:
                 raise SpecError(
                     "faults and defense.adapt_b both re-resolve the rule's "
                     "trim width (quorum vs suspicion); pick one per run")
+            if self.mesh:
+                raise SpecError(
+                    "faults model whole-worker absence; a dim-sharded mesh "
+                    "splits each worker across devices and cannot drop one "
+                    "— run faults without mesh")
         if self.compression.enabled:
             try:
                 validate_compression(self.compression)
             except CompressError as e:
                 raise SpecError(str(e)) from None
+            if self.mesh:
+                raise SpecError(
+                    "compression encodes each worker's full gradient row; "
+                    "a dim-sharded mesh splits rows across devices and the "
+                    "codec wire model no longer applies — run compression "
+                    "without mesh")
 
         if not isinstance(self.opt.lr, (int, float)):
             raise SpecError("spec.opt.lr must be a number; express "
@@ -248,6 +258,17 @@ class ScenarioSpec:
         if self.schedule not in SCHEDULES:
             raise SpecError(f"unknown schedule {self.schedule!r}; "
                             f"valid: {SCHEDULES[1:]}")
+        if self.mesh:
+            from repro_torch.dist.mesh import parse_mesh
+            try:
+                d, _ = parse_mesh(self.mesh)
+            except ValueError as e:
+                raise SpecError(str(e)) from None
+            if d != m:
+                raise SpecError(
+                    f"mesh={self.mesh!r} has a data axis of {d} but "
+                    f"num_workers={m}; the mesh data axis plays the worker "
+                    "role and the two must agree")
 
         try:
             topo = make_topology(self.topology)

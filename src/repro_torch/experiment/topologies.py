@@ -4,7 +4,10 @@ Port of ``repro/experiment/topologies.py``.
 
 * ``sync_ps``   — the paper's synchronous parameter server, with the
   defense loop, ``adapt_b``, fault injection with deadline-quorum rounds,
-  gradient compression and crash-safe checkpoints with ``resume``;
+  gradient compression and crash-safe checkpoints with ``resume``; on a
+  mesh, one rank of the distributed step (rank 0 alone evaluates and
+  writes telemetry and checkpoints; every rank reads a checkpoint to
+  resume);
 * ``async_ps``  — buffered-async PS with geometric staleness
   (``train/async_sgd.py``);
 * ``streaming`` — the memory-bounded sequential pass over workers
@@ -29,13 +32,14 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.core import registry
+from repro_torch.core.attacks import fold_seed
 from repro_torch.data.pipeline import make_worker_batches
 from repro_torch.experiment.runner import ExperimentResult, Plan
 from repro_torch.experiment.spec import SpecError
 from repro_torch.experiment.topology import Topology, register_topology
 from repro_torch.obs.metrics import make_recorder
 from repro_torch.optim.optimizers import init_opt_state
-from repro_torch.train.streaming import STREAMING_ATTACKS, fold_seed
+from repro_torch.train.streaming import STREAMING_ATTACKS
 
 
 def _mask_flips(rec, prev, now, stream: str):
@@ -146,6 +150,7 @@ class SyncPS(Topology):
     """The paper's synchronous PS loop."""
 
     name = "sync_ps"
+    supports_mesh = True
     supports_defense = True
     supports_adapt_b = True
     fault_allowlist = None      # every registered fault kind
@@ -168,12 +173,18 @@ class SyncPS(Topology):
         dcfg = plan.defense_cfg
         rule_meta = registry.get_rule(robust_cfg.rule)
         injector = make_injector(plan.faults, m, plan.seed)
+        if injector is not None and plan.mesh is not None:
+            raise SpecError("sync_ps cannot drop whole workers from a "
+                            "dim-sharded mesh; run faults without mesh")
         codec = make_codec(plan.compress_cfg)
+        # On a mesh, rank 0 alone evaluates and writes the telemetry and
+        # checkpoints.
+        writer = plan.mesh is None or plan.mesh.rank == 0
 
         def build_step(rc, workers=m):
             return make_train_step(plan.model, robust_cfg=rc,
                                    opt_cfg=plan.opt_cfg, num_workers=workers,
-                                   defense_cfg=dcfg,
+                                   mesh=plan.mesh, defense_cfg=dcfg,
                                    compress_cfg=plan.compress_cfg)
 
         def invoke(fn, params, opt_state, batch, dstate, rsub):
@@ -223,7 +234,8 @@ class SyncPS(Topology):
         prev_active = None
         start_step = 0
         t0 = time.time()
-        with make_recorder(plan.telemetry_path, plan.obs) as rec:
+        with make_recorder(plan.telemetry_path if writer else None,
+                           plan.obs) as rec:
             if plan.resume_path:
                 from repro_torch.checkpoint.io import restore_checkpoint
                 like = {"params": params, "opt": opt_state,
@@ -341,12 +353,12 @@ class SyncPS(Topology):
                     if "q_hat" in metrics:
                         row["q_hat"] = int(metrics["q_hat"])
                         row["n_active"] = int(metrics["active"].sum())
-                    if plan.eval_fn is not None:
+                    if plan.eval_fn is not None and writer:
                         row["eval"] = float(plan.eval_fn(params))
                     history.append(row)
 
                 if (plan.checkpoint_path and plan.checkpoint_every and step
-                        and step % plan.checkpoint_every == 0):
+                        and step % plan.checkpoint_every == 0 and writer):
                     from repro_torch.checkpoint.io import save_checkpoint
                     # "key" is the generator after this step's draws and
                     # "rule" the live (possibly adapted) b/q: together they
@@ -389,6 +401,9 @@ class SyncPS(Topology):
             rec.gauge("steps_per_sec",
                       (plan.steps - start_step) / max(wall, 1e-9),
                       topology=self.name)
+        if plan.mesh is not None:
+            from repro_torch.dist.launch import check_replicated
+            check_replicated(params)
 
         return ExperimentResult(
             spec=plan.spec, history=history, params=params,

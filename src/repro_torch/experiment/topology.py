@@ -5,10 +5,9 @@ shape; subclass :class:`Topology`, set the metadata classvars, implement
 ``run``, decorate with :func:`register_topology`.  The metadata drives the
 generic spec validation (:meth:`Topology.validate_spec`): which scenario
 features the loop supports (defense, adaptive b, resume, compression and
-its error-feedback state), which attacks and fault kinds it can simulate,
-whether it needs a streaming-capable rule, and which ``topology_params``
-keys it consumes.  The messages are the reference's.  No topology of this
-package takes a device mesh yet (ROADMAP queue 1 item 10).
+its error-feedback state, a device mesh), which attacks and fault kinds it
+can simulate, whether it needs a streaming-capable rule, and which
+``topology_params`` keys it consumes.  The messages are the reference's.
 """
 from __future__ import annotations
 
@@ -27,7 +26,7 @@ class Topology:
 
     # --- metadata (override in subclasses) ---
     name: ClassVar[str]
-    supports_mesh: ClassVar[bool] = False      # spec.mesh usable (item 10)
+    supports_mesh: ClassVar[bool] = False      # spec.mesh usable
     supports_defense: ClassVar[bool] = False   # spec.defense usable
     supports_adapt_b: ClassVar[bool] = False   # defense.adapt_b usable
     param_names: ClassVar[Tuple[str, ...]] = ()  # valid topology_params keys

@@ -4,7 +4,10 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface, at first use, under ``build/kernels/``
 at the root of the checkout (git-ignored).  The library name carries a hash of
 the sources and flags, so an edited kernel is rebuilt and a stale one is never
-loaded.  ``build_all`` starts one ``nvcc`` per source, all at once.
+loaded.  ``build_all`` starts one ``nvcc`` per source, all at once, holding
+an ``fcntl`` lock on ``BUILD_DIR/.lock`` around the compile and the rename
+into place: the ranks of a mesh reach the kernels at once, and one builds
+while the others wait and then load its libraries.
 
 Libraries are loaded with ``ctypes``.  The aggregate entry points have the
 signature ``int fn(const void* u, void* out, int m, long long d, int b, int
@@ -29,6 +32,7 @@ Nothing here runs at import time; the CPU tests import this module freely.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -124,13 +128,21 @@ class _Kernels:
         self.ptxas: Dict[str, str] = {}
 
     def build_all(self) -> Dict[str, Path]:
-        """Compile every source not yet built, one nvcc each, in parallel."""
+        """Compile every source not yet built, one nvcc each, in parallel,
+        under the build directory's lock (another process may be building
+        the same libraries)."""
         paths = {name: _library_path(name) for name in SOURCES}
-        todo = [n for n, p in paths.items() if not p.exists()]
-        if not todo:
+        if all(p.exists() for p in paths.values()):
             return paths
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)     # released when closed
+            self._build(nvcc, paths)
+        return paths
+
+    def _build(self, nvcc: str, paths: Dict[str, Path]) -> None:
+        todo = [n for n, p in paths.items() if not p.exists()]
         procs: List[tuple] = []
         for name in todo:
             tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
@@ -149,7 +161,6 @@ class _Kernels:
             os.replace(tmp, paths[name])
         if failed:
             raise KernelCompileError("nvcc failed:\n" + "\n".join(failed))
-        return paths
 
     def library(self, name: str) -> ctypes.CDLL:
         lib = self.libs.get(name)

@@ -11,7 +11,7 @@ Two paths behind one CLI:
   ejection mask beside the engine's queue-depth records (JSONL).
 
 The run is on ``cuda`` unless ``--device cpu`` is given.  ``--mesh`` (ROADMAP
-queue 1 item 10) and ``--metrics`` / ``--profile-dir`` (item 14) raise
+queue 1 item 10b) and ``--metrics`` / ``--profile-dir`` (item 14) raise
 ``NotImplementedError``.
 
   python -m repro_torch.launch.serve --arch granite-8b-reduced --batch 4 \\
@@ -122,7 +122,7 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     ap.add_argument("--mesh", default="",
                     help="data×model, e.g. 4x2 (not ported: ROADMAP queue "
-                         "1 item 10)")
+                         "1 item 10b)")
     ap.add_argument("--engine", action="store_true",
                     help="use the continuous-batching paged ServeEngine")
     ap.add_argument("--replicas", type=int, default=1,
@@ -146,7 +146,7 @@ def main(argv=None):
                          "queue 1 item 14)")
     args = ap.parse_args(argv)
     if args.mesh:
-        raise not_ported("serving on a device mesh (--mesh)", "item 10")
+        raise not_ported("serving on a device mesh (--mesh)", "item 10b")
     if args.metrics or args.profile_dir:
         raise not_ported("the metrics snapshot and profiler trace "
                          "(--metrics, --profile-dir)", "item 14")

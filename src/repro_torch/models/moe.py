@@ -18,7 +18,7 @@ Three choices keep the reference's semantics under ``torch.func``:
 
 The reference's data-shard token grouping only acts under a device mesh
 with a data axis, which this package does not have yet (ROADMAP queue 1
-item 10): ``no_data_grouping``, which the train step enters around its worker
+item 10b): ``no_data_grouping``, which the train step enters around its worker
 ``vmap`` as the reference's does, is a no-op until that grouping exists.
 """
 from __future__ import annotations

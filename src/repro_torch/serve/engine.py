@@ -20,7 +20,7 @@ The reference donates the KV pool to its jitted steps.  Here the steps
 write the pool in place (``index_put_`` on each layer's k/v block pool) and
 hand the same tensors back.  PyTorch runs eagerly: there is no compile, and
 the step functions are plain closures.  Meshes raise
-``NotImplementedError`` (ROADMAP queue 1 item 10).
+``NotImplementedError`` (ROADMAP queue 1 item 10b).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ from repro_torch.serve.scheduler import DECODE, Request, Scheduler
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         from repro_torch.experiment.spec import not_ported
-        raise not_ported("serving on a device mesh", "item 10")
+        raise not_ported("serving on a device mesh", "item 10b")
 
 
 def make_serve_step(model, *, mesh=None):

@@ -33,7 +33,7 @@ from repro_torch import tree as tree_util
 from repro_torch.compress.pipeline import roundtrip_matrix
 from repro_torch.compress.spec import make_codec
 from repro_torch.core import registry
-from repro_torch.core.attacks import AttackConfig, _flip_bits_f32
+from repro_torch.core.attacks import AttackConfig, _flip_bits_f32, fold_seed
 from repro_torch.core.robust import RobustConfig
 from repro_torch.optim.optimizers import OptConfig, apply_updates
 
@@ -46,12 +46,6 @@ STREAMING_ATTACKS = ("none", "gaussian", "signflip", "zero", "bitflip",
 # Rules this module has a streaming formulation for; the registry's
 # ``supports_streaming`` metadata names the same set.
 STREAMING_IMPL_RULES = ("mean", "trmean", "phocas")
-
-
-def fold_seed(seed: int, data: int) -> int:
-    """A generator seed derived from ``seed`` and ``data`` (the port's
-    analogue of ``jax.random.fold_in``): stable across processes."""
-    return zlib.crc32(f"{seed}:{data}".encode())
 
 
 def _path_salt(path: str) -> int:

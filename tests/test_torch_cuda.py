@@ -549,3 +549,17 @@ def test_lm_training_launches_phocas_and_never_flash(cuda):
     assert phocas_hopper.launches == k1 + 3
     assert flash_attention_hopper.launches == k6
     assert all(np.isfinite(r["loss"]) for r in res.history)
+
+
+@pytest.mark.cuda
+def test_kernels_on_slices_of_a_two_rank_world(cuda):
+    """Two gloo ranks on the card run K1 and K3 on their halves of a
+    matrix's columns: the halves, all_gathered, equal the whole-matrix
+    launch bit for bit, and K3's counts summed over the ranks equal its
+    counts as integers."""
+    from repro_torch.dist.launch import spawn
+    from torch_dist_ranks import kernel_slices_rank
+    for r in spawn(kernel_slices_rank, 2):
+        assert r["k1"] and r["k3"]
+        np.testing.assert_array_equal(r["counts"], r["whole_counts"])
+        assert r["counts"][3] == r["d"] and r["ncoords"] == r["d"]

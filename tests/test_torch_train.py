@@ -4,8 +4,8 @@ Five ``sync_ps`` steps of the MLP at m=8 under ``signflip`` run in both
 packages from the same initial parameters on the same batches (exported from
 the reference as numpy); per-step losses and final parameters agree at
 rtol 1e-4.  The checked-in scenario JSONs parse unchanged and run on the CPU,
-axes the port does not run yet raise ``NotImplementedError`` (LM training
-runs), and the defense
+a mesh refuses faults, a data axis other than m and other topologies with the
+reference's ``SpecError`` (LM training runs), and the defense
 axis refuses a rule that emits no scores, as in the reference.
 """
 import dataclasses
@@ -96,16 +96,20 @@ _LM = dict(model=rexp.ModelSpec(kind="arch", arch="gemma2-2b-reduced"),
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(faults=(FaultSpec(kind="crash", workers=(1,)),), mesh="8x1"),
-     "item 10"),
-    (dict(mesh="8x1"), "item 10"),
-    (dict(topology="streaming", mesh="8x1"), "item 10"),
+    pytest.param(dict(faults=(FaultSpec(kind="crash", workers=(1,)),),
+                      mesh="8x1"), "faults model whole-worker absence",
+                 id="overrides0-item 10"),
+    pytest.param(dict(mesh="4x1"), "has a data axis of 4 but num_workers=8",
+                 id="overrides1-item 10"),
+    pytest.param(dict(topology="streaming", mesh="8x1"),
+                 "does not support a device mesh", id="overrides2-item 10"),
     (dict(topology="async_ps", **_LM), None),
     (dict(topology="streaming", **_LM), None),
 ])
 def test_unported_axes_raise(overrides, item):
-    """The axes still to port raise naming their ROADMAP item; LM training
-    (``item`` None) is ported and trains."""
+    """The mesh axis is ported on sync_ps: with faults, with a data axis
+    other than m, or on another topology it raises the reference's
+    ``SpecError``.  LM training (``item`` None) is ported and trains."""
     spec = _port_spec(**overrides)
     if item is None:
         res = trun(spec, device="cpu")
@@ -113,7 +117,7 @@ def test_unported_axes_raise(overrides, item):
         assert all(torch.isfinite(x).all() for x in
                    jax.tree.leaves(res.params))
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(SpecError, match=item):
         trun(spec, device="cpu")
 
 
