@@ -182,15 +182,44 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
      process, which spawns its own 20 ranks; both 5-step runs held to the
      single-process run within rtol 1e-4, atol 1e-5; the spawn time of
      each world printed;
+11. tensor-parallel serving and training (after phase 10): the single
+   process's references first (freed before the spawn), then one world of
+   8 gloo ranks on the card holding a (2, 4) and a (4, 2) (data, model)
+   mesh; each rank builds only its ``tree_pspecs`` blocks of a model, the
+   ranks taking turns to draw the whole (``dist/sharding.py::
+   init_blocks``), and holds exactly their bytes:
+   - (i) ``generate`` on "2x4": granite-8b at full width and depth (36
+     layers, bf16), 4 prompts of 512 tokens + 32 new, batched prefill;
+     the prefill's and 31 teacher-forced decode steps' logits within 0.1
+     of the single process's ``generate`` on the same seed, the tokens
+     equal to its tokens but where its top-2 margin is below that max
+     |diff|; 36 K6 launches a rank (the prefill on its (2, 512, 8/2, 128)
+     head block); tokens/s, one decode step's ms, the peak of rank 0;
+     then K6 against its plain version at that block shape within 3e-2,
+     timed beside its bound and SDPA;
+   - (ii) the same for deepseek-v2-lite-16b cut to 2 layers (MLA and the
+     MoE: the prefill takes the data-shard grouping's grouped branch, the
+     decode its ungrouped one, the single process computing under the
+     mesh's pure description);
+   - (iii) ``sync_ps`` on "4x2", m = 4, phocas b = q = 1 under omniscient,
+     remat "full", 2 sequences of 128 tokens a worker, 5 steps on cell A
+     (gemma2-2b, 2 layers) and cell B (deepseek-v2-lite, 1 layer): every
+     rank's first worker gradient on its blocks (sampled, relative L2)
+     within 5e-2 of the single process's blocks, finite falling losses
+     within rtol 1e-3 of the single process's run, one K1 launch a step a
+     rank, K1 bit for bit against its plain version on rank 0's slice of
+     the worker matrix, rank 0's peak beside the replicated compute's
+     whole params and gradient;
 8. report: the card's name and power limit, one JSON line describing every
-   kernel (launches include rank 0's in phase 10), and as the last line
-   ``{"ok": true, "device": {...}}``.
+   kernel (launches include rank 0's in phases 10 and 11), and as the last
+   line ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN convolutions throughout.  Without a CUDA
 device the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -2866,12 +2895,561 @@ def mesh_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: tensor-parallel serving and training on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 8                     # one gloo world on the card
+TP_SERVE_MESH = (2, 4)           # (data, model) of the serving parts
+TP_TRAIN_MESH = (4, 2)           # (data, model) of the training part
+TP_SEED = 0
+# serving: arch -> (its depth, config changes); 4 prompts of 512 + 32 new.
+# granite-8b is cut from 36 layers to 8 to fit the phase's 150 s: every
+# decode step makes 2 model-axis all_reduces a layer, ~13 ms each with 8
+# processes on the card (0.93 s a step at 36 layers).  deepseek runs in
+# f32: in bf16 the mesh's and the single process's roundings move tokens
+# between experts where the router's top-6 sits at a near-tie, and the
+# logits part by 0.23-0.40 (at capacity factors 1.25 and 8.0).
+TP_SERVE = {"granite-8b": (8, {}),
+            "deepseek-v2-lite-16b": (2, {"dtype": "float32"})}
+TP_BATCH, TP_PROMPT, TP_NEW = 4, 512, 32
+# logits bound by dtype: cell B's bf16 bound, the zoo's f32 decode bound
+TP_LOGIT_ATOL = {"bfloat16": LM_DECODE_ATOL, "float32": ZOO_DECODE_TOL[0]}
+TP_FLASH = (2, 512, 8, 2, 128)   # K6 on a rank's head block at granite's
+                                 # prefill on "2x4": (B/2, S, 32/4, 8/4, hd)
+# training: cells A and B at m = 4, phocas b = q = 1 under omniscient
+TP_CELLS = ("A", "B")
+TP_M, TP_B, TP_STEPS = 4, 1, 3     # 3 steps, not 5: 4.6-6.5 s a step
+TP_LOSS_RTOL = 1e-3
+TP_FORCED = 4                    # decode steps the logits are held on
+TP_SAMPLE = 1 << 16              # gradient elements compared a leaf block
+# The first step's gradient is held in the cell's bf16 (A) and, for the
+# MoE cell B, in f32: in bf16 the router's near-ties send some tokens to
+# other experts than in the single process (expert gradient blocks 5-13 %
+# apart on an H100).  The bound is on a leaf block's sampled gradient,
+# relative L2, by that dtype (the f32 router's gradient, too, comes
+# through the model's activations).
+TP_HOLD_DTYPE = {"A": "bfloat16", "B": "float32"}
+TP_GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
+
+
+def tp_serve_desc():
+    from repro_torch.dist.sharding import Mesh
+    return Mesh(("data", "model"), TP_SERVE_MESH)
+
+
+def tp_prompts(vocab: int) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED + 1)
+    return torch.randint(0, vocab, (TP_BATCH, TP_PROMPT), generator=gen,
+                         device="cuda")
+
+
+def tp_forced(step, params, cache, prompts, teacher, steps: int,
+              rows=slice(None)):
+    """The prefill, then ``steps`` decode steps fed ``teacher``'s
+    generated tokens: each step's last-position logits (f32), and the
+    median decode step's ms (synchronized host clock)."""
+    S0 = prompts.shape[1]
+    _, lg, cache = step(params, cache, prompts[rows],
+                        torch.arange(S0, device=prompts.device))
+    logits, step_ms = [lg[:, -1].float()], []
+    for t in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lg, cache = step(params, cache,
+                            teacher[rows, S0 + t:S0 + t + 1], S0 + t)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        logits.append(lg[:, -1].float())
+    return torch.stack(logits), sorted(step_ms)[len(step_ms) // 2]
+
+
+def tp_serve_reference(name: str, layers, changes: dict) -> dict:
+    """The single process: ``generate`` on the same seed, then its
+    teacher-forced logits (prefill and decode), under the serving mesh's
+    pure description, so the MoE groups its tokens by data shard as the
+    reference does there (every rank's compute, on one process)."""
+    from repro_torch.dist.mesh import use_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import generate
+    from repro_torch.serve.engine import make_serve_step
+    model = build_model(arch_cfg(name, layers, **changes))
+    params = model.init(torch.Generator(device="cuda").manual_seed(TP_SEED))
+    prompts = tp_prompts(model.cfg.vocab_size)
+    with use_mesh(tp_serve_desc()), torch.no_grad():
+        toks = generate(model, params, prompts, TP_NEW)
+        cache = model.init_cache(TP_BATCH, TP_PROMPT + TP_NEW, "cuda")
+        logits, _ = tp_forced(make_serve_step(model), params, cache,
+                              prompts, toks, TP_NEW - 1)
+    out = {"prompts": prompts.cpu(), "tokens": toks.cpu(),
+           "logits": logits.cpu()}
+    del params, cache
+    return out
+
+
+def tp_worker_grads(model, params, batch) -> list:
+    """Per worker, the single process's gradient leaves (the train step's
+    vmap of ``grad_and_value``)."""
+    from repro_torch.models.moe import no_data_grouping
+    from repro_torch.tree import leaves
+    with no_data_grouping():
+        grads, _ = torch.func.vmap(torch.func.grad_and_value(model.loss),
+                                   in_dims=(None, 0))(params, batch)
+    return leaves(grads)
+
+
+def tp_samples(x: torch.Tensor) -> torch.Tensor:
+    """A leaf block's strided sample of at most TP_SAMPLE elements."""
+    flat = x.reshape(-1)
+    return flat[::max(1, flat.numel() // TP_SAMPLE)][:TP_SAMPLE].float() \
+        .cpu()
+
+
+def tp_train_plan(cell: str, mesh=None):
+    from repro_torch.data.pipeline import TokenStream
+    model = lm_model(cell)
+    stream = TokenStream(vocab_size=model.cfg.vocab_size, seq_len=LM_SEQ_LEN,
+                         global_batch=TP_M * LM_SEQS, seed=0, device="cuda")
+    plan = sync_plan(model, stream.batch, m=TP_M, b=TP_B, steps=TP_STEPS,
+                     tag=f"tp-{cell}", spans=False)
+    plan.mesh = mesh
+    return plan
+
+
+def tp_train_reference(cell: str) -> dict:
+    """The single process: each worker's first-step gradient (in the
+    cell's TP_HOLD_DTYPE), sampled on every model coordinate's block of
+    each leaf, and the losses of its TP_STEPS-step run."""
+    from repro_torch.data.pipeline import make_worker_batches
+    from repro_torch.dist.sharding import (Mesh, cut_leaf, spec_leaves,
+                                           tree_pspecs)
+    from repro_torch.experiment.topology import make_topology
+    from repro_torch.tree import leaves
+    plan = tp_train_plan(cell)
+    model = lm_model(cell, dtype=TP_HOLD_DTYPE[cell])
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = make_worker_batches(plan.batch_fn(0), TP_M)
+    grads = tp_worker_grads(model, params, batch)
+    specs = spec_leaves(tree_pspecs(params,
+                                    Mesh(("data", "model"), TP_TRAIN_MESH)))
+    samples = {}
+    for mc in range(TP_TRAIN_MESH[1]):
+        at = dataclasses.replace(tp_train_desc(), coords=(0, mc))
+        samples[mc] = [[tp_samples(cut_leaf(g[w], sp, at))
+                        for g, sp in zip(grads, specs)]
+                       for w in range(TP_M)]
+    del grads, params
+    torch.cuda.empty_cache()
+    res = make_topology(plan.topology).run(plan)
+    return {"samples": samples,
+            "losses": [r["loss"] for r in res.history]}
+
+
+def tp_train_desc():
+    from repro_torch.dist.mesh import HostMesh
+    return HostMesh(axis_names=("data", "model"), axis_sizes=TP_TRAIN_MESH)
+
+
+def tp_block_bytes(model, mesh) -> tuple:
+    """(this rank's exact param bytes by tree_pspecs, the whole model's)."""
+    from repro_torch.dist.sharding import spec_leaves, tree_pspecs
+    from repro_torch.tree import leaves
+    full = model.abstract_params()
+    mine = whole = 0
+    for x, sp in zip(leaves(full), spec_leaves(tree_pspecs(full, mesh))):
+        n = x.numel() * x.element_size()
+        whole += n
+        mine += n // (mesh.shape["model"] if any(sp) else 1)
+    return mine, whole
+
+
+def tp_handoff(handoff: str, name: str, obj) -> None:
+    """The parent hands ``obj`` to the world's ranks under ``name`` (whole
+    when it appears: written aside, then renamed)."""
+    tmp = os.path.join(handoff, f"{name}.part")
+    torch.save(obj, tmp)
+    os.replace(tmp, os.path.join(handoff, name))
+
+
+def tp_wait(handoff: str, name: str, timeout_s: float = 900.0):
+    """What the parent handed over under ``name``, once it is there; the
+    parent's failure ("abort") fails the rank too."""
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(handoff, name)):
+        if os.path.exists(os.path.join(handoff, "abort")):
+            raise SmokeError(f"phase 11: the parent failed before {name!r}")
+        check(time.perf_counter() - t0 < timeout_s,
+              f"phase 11: no {name!r} from the parent in {timeout_s} s")
+        time.sleep(0.1)
+    return torch.load(os.path.join(handoff, name), weights_only=False)
+
+
+def tp_serve_rank(mesh, name: str, layers, changes: dict, handoff: str
+                  ) -> dict:
+    """Parts (i) and (ii) on this rank: its blocks in turns, ``generate``
+    on the mesh (K6 launches counted around it), then the teacher-forced
+    logits; rank 0 returns the logits gathered over the data axis."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import init_blocks
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import generate
+    from repro_torch.serve.engine import MeshServing
+    from repro_torch.tree import leaves
+    model = build_model(arch_cfg(name, layers, **changes))
+    t0 = time.perf_counter()
+    blocks = init_blocks(model, TP_SEED, mesh, "cuda")
+    build_s = time.perf_counter() - t0
+    mine = sum(x.numel() * x.element_size() for x in leaves(blocks))
+    want, whole = tp_block_bytes(model, mesh)
+    check(mine == want, f"tp {name}: rank {mesh.rank} holds {mine} param "
+                        f"bytes, its blocks are {want}")
+    ref = tp_wait(handoff, "serve")[name]
+    prompts = ref["prompts"].to("cuda")
+    teacher = ref["tokens"].to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        toks, counts = launch_counts(lambda: generate(
+            model, blocks, prompts, TP_NEW, mesh=mesh))
+        gen_s = time.perf_counter() - t0
+        ms = MeshServing(model, mesh, TP_BATCH)
+        cache = ms.cache(TP_BATCH, TP_PROMPT + TP_NEW, "cuda")
+        logits, step_ms = tp_forced(ms.step(), blocks, cache, prompts,
+                                    teacher, TP_FORCED, ms.rows)
+        logits = ms.gather(logits.transpose(0, 1).contiguous())
+    out = {"counts": counts, "bytes": (mine, whole), "build_s": build_s,
+           "peak": torch.cuda.max_memory_allocated()}
+    if mesh.rank == 0:
+        print(f"  phase 11 rank 0: {name}: blocks in turns {build_s:.1f} s, "
+              f"generate {gen_s:.2f} s, decode step {step_ms:.1f} ms, peak "
+              f"{out['peak'] / 2**30:.2f} GiB", flush=True)
+        out.update(tokens=toks.cpu(), logits=logits.transpose(0, 1).cpu(),
+                   gen_s=gen_s, step_ms=step_ms)
+    del blocks, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_flash_hold(gen: torch.Generator) -> dict:
+    """K6 against its plain version at a rank's prefill head block, timed
+    beside its bound, the plain version and SDPA (rank 0, the other ranks
+    waiting at a barrier)."""
+    import torch.nn.functional as F
+    kernel, ref = wrappers()["flash_attn"]
+    B, S, H, Kv, hd = TP_FLASH
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, S, Kv, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, S, Kv, hd), generator=gen, device="cuda").bfloat16()
+    got, want = kernel(q, k, v, causal=True), ref(q, k, v, causal=True)
+    err = (got.float() - want.float()).abs().max().item()
+    check(err <= FLASH_TOL[torch.bfloat16],
+          f"tp flash {TP_FLASH}: max|kernel - plain| {err}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bnd, by, _, _ = flash_bound_ms(B, S, H, Kv, hd, torch.bfloat16, None)
+    return {"err": err, "ms": time_ms(lambda: kernel(q, k, v, causal=True)),
+            "plain_ms": time_ms(lambda: ref(q, k, v, causal=True), reps=5),
+            "sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            "bound_ms": bnd, "bound_by": by}
+
+
+def tp_train_rank(mesh, cell: str) -> dict:
+    """Part (iii) on this rank: its blocks in turns (in the cell's
+    TP_HOLD_DTYPE), its worker's first gradient on them (sampled) and K1 on
+    its slice of that worker matrix, then TP_STEPS sync_ps steps of the
+    cell (bf16; launches counted around the run)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.robust import _flat_padded
+    from repro_torch.data.pipeline import make_worker_batches
+    from repro_torch.dist.collectives import (all_to_all_scatter,
+                                              worker_slice_index)
+    from repro_torch.dist.mesh import use_mesh
+    from repro_torch.dist.sharding import init_blocks, worker_axes_of
+    from repro_torch.experiment.topologies import SyncPS
+    from repro_torch.models.moe import no_data_grouping
+    from repro_torch.tree import leaves
+    plan = tp_train_plan(cell, mesh)
+    model = lm_model(cell, dtype=TP_HOLD_DTYPE[cell])
+    blocks = init_blocks(model, 0, mesh, "cuda")
+    mine = sum(x.numel() * x.element_size() for x in leaves(blocks))
+    want, whole = tp_block_bytes(model, mesh)
+    check(mine == want, f"tp cell {cell}: rank {mesh.rank} holds {mine} "
+                        f"param bytes, its blocks are {want}")
+    wa = mesh.axes(worker_axes_of(mesh))
+    w = worker_slice_index(wa)
+    own = {k: v[w] for k, v in make_worker_batches(plan.batch_fn(0),
+                                                   TP_M).items()}
+    with use_mesh(mesh, batch_sharded=True), no_data_grouping():
+        grads, _ = torch.func.grad_and_value(model.loss)(blocks, own)
+    samples = [tp_samples(g) for g in leaves(grads)]
+    flat, _ = _flat_padded(grads, TP_M, torch.float32)
+    del grads
+    u = all_to_all_scatter(flat, wa)
+    del flat
+    k1_shape = tuple(u.shape)
+    k1_same = None
+    if mesh.rank == 0:        # the plain version over column chunks
+        kernel, ref = wrappers()["phocas"]
+        k1 = kernel(u, TP_B)
+        k1_same = all(same(k1[i:i + LM_EDGE],
+                           ref(u[:, i:i + LM_EDGE].contiguous(), TP_B))
+                      for i in range(0, u.shape[1], LM_EDGE))
+        del k1
+    del u
+    dist.barrier()
+    del blocks       # the run draws its own (bf16) blocks, in turns
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    if mesh.rank == 0:
+        print(f"  phase 11 rank 0: cell {cell}: before the run the card has "
+              f"{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB free, the "
+              f"host {host_available_gib():.1f} GiB", flush=True)
+    t0 = time.perf_counter()
+    res, counts = launch_counts(lambda: SyncPS().run(plan))
+    run_s = time.perf_counter() - t0
+    walls = [r["wall"] for r in res.history]
+    if mesh.rank == 0:
+        print(f"  phase 11 rank 0: cell {cell}: run {run_s:.1f} s, step "
+              f"walls {[round(w, 2) for w in walls]}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+    out = {"counts": counts, "bytes": (mine, whole), "samples": samples,
+           "run_bytes": tp_block_bytes(plan.model, mesh),
+           "k1": (k1_same, k1_shape),
+           "peak": torch.cuda.max_memory_allocated(),
+           "losses": [r["loss"] for r in res.history], "run_s": run_s,
+           "step_ms": sorted(1e3 * (b - a) for a, b in
+                             zip(walls, walls[1:]))[(TP_STEPS - 1) // 2],
+           "first_s": walls[0], "worker": w}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank: int, world: int, handoff: str, t_spawn: float) -> dict:
+    """One rank of phase 11's world: parts (i)-(ii) on the serving mesh
+    once the parent's serving references are there, K6 held on rank 0,
+    part (iii) on the training mesh once the parent has freed the card."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.zeros(1, device="cuda")
+    serve = make_host_mesh(*TP_SERVE_MESH)
+    train = make_host_mesh(*TP_TRAIN_MESH)
+    dist.barrier()
+    out = {"spawn_s": time.time() - t_spawn, "serve": {}, "train": {}}
+    t0 = time.perf_counter()
+    for name, (layers, changes) in TP_SERVE.items():
+        out["serve"][name] = tp_serve_rank(serve, name, layers, changes,
+                                           handoff)
+        if rank == 0:
+            print(f"  phase 11 rank 0: {name} served, "
+                  f"{time.perf_counter() - t0:.1f} s into the world",
+                  flush=True)
+    if rank == 0:
+        out["flash"] = tp_flash_hold(
+            torch.Generator(device="cuda").manual_seed(TP_SEED))
+    dist.barrier()
+    out["serve_s"] = time.perf_counter() - t0
+    tp_wait(handoff, "train")
+    t0 = time.perf_counter()
+    for cell in TP_CELLS:
+        out["train"][cell] = tp_train_rank(train, cell)
+        if rank == 0:
+            print(f"  phase 11 rank 0: cell {cell} trained, "
+                  f"{time.perf_counter() - t0:.1f} s into training",
+                  flush=True)
+    out["train_s"] = time.perf_counter() - t0
+    return out
+
+
+def tp_phase() -> dict:
+    """Phase 11: one 8-rank world on the card for parts (i)-(iii), spawned
+    in a thread while this process computes the single process's
+    references (handed to the ranks through files; the ranks train only
+    once this process has freed the card), then the holds.  Returns rank
+    0's launches of K6 and K1 on the mesh paths."""
+    import concurrent.futures
+    import gc
+    import tempfile
+
+    from repro_torch.dist.launch import spawn
+    # eight processes share the card's 80 GB: no rank keeps freed segments
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase11-") as handoff, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        world = pool.submit(spawn, tp_rank, TP_RANKS, handoff, time.time())
+        try:
+            serve_refs = {name: tp_serve_reference(name, *cut)
+                          for name, cut in TP_SERVE.items()}
+            tp_handoff(handoff, "serve", serve_refs)
+            train_refs = {cell: tp_train_reference(cell)
+                          for cell in TP_CELLS}
+            gc.collect()
+            torch.cuda.empty_cache()
+            tp_handoff(handoff, "train", None)
+        except BaseException:
+            open(os.path.join(handoff, "abort"), "w").close()
+            raise
+        ref_s = time.perf_counter() - t0
+        ranks = world.result()
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"phase 11 world: {TP_RANKS} gloo ranks on the card, ready "
+          f"{r0['spawn_s']:.2f} s after the spawn; the single process's "
+          f"references, beside it, took {ref_s:.1f} s")
+    launches = {"flash_attn": 0, "phocas": 0}
+    failed = []
+
+    def hold(cond: bool, msg: str) -> None:
+        # every hold of the phase is read before the phase fails
+        if not cond:
+            failed.append(msg)
+            print(f"  FAILED: {msg}", flush=True)
+
+    for part, (name, (layers, changes)) in zip(("i", "ii"),
+                                               TP_SERVE.items()):
+        ref = serve_refs[name]
+        got = r0["serve"][name]
+        mine, whole = got["bytes"]
+        err = (got["logits"] - ref["logits"][:TP_FORCED + 1]).abs().max() \
+            .item()
+        atol = TP_LOGIT_ATOL[changes.get("dtype", "bfloat16")]
+        hold(err <= atol, f"tp {name}: mesh logits {err} from the single "
+                          f"process (> {atol})")
+        top2 = ref["logits"].topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]).transpose(0, 1)   # (B, new)
+        toks = got["tokens"][:, TP_PROMPT:]
+        want = ref["tokens"][:, TP_PROMPT:]
+        for b in range(TP_BATCH):
+            diff = (toks[b] != want[b]).nonzero()
+            if len(diff):
+                j = int(diff[0])
+                hold(margin[b, j] < err,
+                      f"tp {name}: request {b} token {j} differs from the "
+                      f"single process at top-2 margin {margin[b, j]:.4f} "
+                      f">= max|diff| {err:.4f}")
+                print(f"  request {b} departs at new token {j}: the single "
+                      f"process's top-2 margin there {margin[b, j]:.4f} < "
+                      f"max|diff| {err:.4f}")
+        k6 = (model_layers(name, layers) if not arch_cfg(name).use_mla
+              else 0)
+        for r, rk in enumerate(ranks):
+            c = rk["serve"][name]["counts"]
+            hold(c["flash_attn"] == k6 and sum(c.values()) == k6,
+                  f"tp {name}: rank {r} launches {c}, expected {k6} K6")
+        launches["flash_attn"] += got["counts"]["flash_attn"]
+        peak = max(rk["serve"][name]["peak"] for rk in ranks)
+        print(f"  ({part}) {name} "
+              f"({model_layers(name, layers)} layers, "
+              f"{changes.get('dtype', 'bfloat16')}) on "
+              f"{TP_SERVE_MESH} (data, model): {TP_BATCH} prompts of "
+              f"{TP_PROMPT} + {TP_NEW}: generate {got['gen_s']:.2f} s "
+              f"({TP_BATCH * TP_NEW / got['gen_s']:.1f} tok/s), one decode "
+              f"step {got['step_ms']:.2f} ms (median, rank 0); logits "
+              f"(prefill and {TP_FORCED} teacher-forced decode steps) "
+              f"max|mesh - single| {err:.2e} (limit {atol}); "
+              f"tokens equal in {int((toks == want).all(1).sum())} of "
+              f"{TP_BATCH} requests, min top-2 margin "
+              f"{margin.min():.4f}; K6 {got['counts']['flash_attn']} "
+              f"launches a rank; rank 0 holds {mine / 2**30:.3f} of "
+              f"{whole / 2**30:.3f} GiB of params (its blocks, exact), "
+              f"peak {got['peak'] / 2**30:.2f} GiB (max over ranks "
+              f"{peak / 2**30:.2f}); blocks built in turns in "
+              f"{got['build_s']:.1f} s")
+    f = r0["flash"]
+    print(f"  K6 at a rank's head block {TP_FLASH} bf16: max|kernel - "
+          f"plain| {f['err']:.3e} (limit {FLASH_TOL[torch.bfloat16]}); "
+          f"kernel {f['ms']:.4f} ms, plain {f['plain_ms']:.3f} ms, sdpa "
+          f"{f['sdpa_ms']:.4f} ms (K6 / SDPA {f['ms'] / f['sdpa_ms']:.2f}), "
+          f"bound {f['bound_ms'] * 1e3:.2f} us ({f['bound_by']}), "
+          f"{f['bound_ms'] / f['ms']:.1%} of bound")
+    for cell in TP_CELLS:
+        ref = train_refs[cell]
+        got = r0["train"][cell]
+        losses = got["losses"]
+        hold(all(x == x and abs(x) != float("inf") for x in losses)
+              and losses[-1] < losses[0],
+              f"tp cell {cell}: losses {losses}")
+        hold(torch.allclose(torch.tensor(losses), torch.tensor(
+            ref["losses"]), rtol=TP_LOSS_RTOL, atol=0),
+              f"tp cell {cell}: losses {losses} vs the single process "
+              f"{ref['losses']}")
+        worst = 0.0
+        for r, rk in enumerate(ranks):
+            g = rk["train"][cell]
+            mc = r % TP_TRAIN_MESH[1]
+            want = ref["samples"][mc][g["worker"]]
+            tol = TP_GRAD_TOL[TP_HOLD_DTYPE[cell]]
+            for i, (a, b) in enumerate(zip(g["samples"], want)):
+                rel = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+                worst = max(worst, rel)
+                hold(rel <= tol,
+                      f"tp cell {cell}: rank {r}'s gradient block of leaf "
+                      f"{i} {rel:.2e} from the single process's")
+            hold(g["counts"]["phocas"] == TP_STEPS
+                  and sum(g["counts"].values()) == TP_STEPS,
+                  f"tp cell {cell}: rank {r} launches {g['counts']}")
+            hold(r != 0 or g["k1"][0],
+                  f"tp cell {cell}: K1 on rank 0's slice {g['k1'][1]} "
+                  f"differs from the plain version")
+        launches["phocas"] += got["counts"]["phocas"]
+        mine, whole = got["bytes"]
+        run_mine, run_whole = got["run_bytes"]
+        print(f"  (iii) cell {cell} {LM_CELLS[cell][0]} "
+              f"({LM_CELLS[cell][1]} layers) on {TP_TRAIN_MESH}: m = "
+              f"{TP_M}, phocas b = q = {TP_B} under omniscient, "
+              f"{TP_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"(single process {ref['losses'][0]:.4f} -> "
+              f"{ref['losses'][-1]:.4f}, within rtol {TP_LOSS_RTOL}); "
+              f"step {got['step_ms']:.1f} ms (median, rank 0; the first "
+              f"{got['first_s']:.1f} s); worker gradient blocks "
+              f"({TP_HOLD_DTYPE[cell]}) within {worst:.2e} (relative L2, "
+              f"sampled; limit {TP_GRAD_TOL[TP_HOLD_DTYPE[cell]]}) of the "
+              f"single process on all {TP_RANKS} ranks; K1 "
+              f"{got['counts']['phocas']} "
+              f"launches a rank, bit for bit on rank 0's slice "
+              f"{got['k1'][1]}; rank 0 holds {mine / 2**30:.3f} GiB of "
+              f"{TP_HOLD_DTYPE[cell]} params (the whole "
+              f"{whole / 2**30:.3f}; its blocks, exact); in the bf16 run "
+              f"{run_mine / 2**30:.3f} of {run_whole / 2**30:.3f} GiB, "
+              f"peak {got['peak'] / 2**30:.2f} GiB against the replicated "
+              f"compute's whole params and whole worker gradient, "
+              f"{2 * run_whole / 2**30:.3f} GiB, before any activation")
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s (the world, the "
+          f"references beside it: {world_s:.1f} s; serving "
+          f"{r0['serve_s']:.1f} s, training {r0['train_s']:.1f} s)")
+    check(not failed, f"phase 11: {len(failed)} holds failed: {failed}")
+    return launches
+
+
+def host_available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def model_layers(name: str, layers) -> int:
+    return arch_cfg(name).num_layers if layers is None else layers
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.kernels import build
 
@@ -2907,6 +3485,8 @@ def main() -> int:
     topology_phase()
     for k, v in mesh_phase().items():
         launches[k] = launches.get(k, 0) + v
+    for k, v in tp_phase().items():
+        launches[k] = launches.get(k, 0) + v
     trace_phase()
     report["flash_attn"] = flash_phase(gen)
     launches.update(serve_phase())
@@ -2916,6 +3496,8 @@ def main() -> int:
     for k, v in zoo_phase().items():
         launches[k] += v
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
+          f"build included")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -218,6 +218,7 @@ def robust_aggregate_dist(grad_tree, cfg: RobustConfig, worker_axes,
         agg, scores = reduce(mat, model_axes)
     elif cfg.layout == "sharded":
         mat = all_to_all_scatter(flat, worker_axes)           # (m, D/m)
+        del flat                       # the (D,) vector is in ``mat`` now
         if attack is not None:
             # Each rank is a server owning a slice of the dimensions, and
             # is attacked on its slice.
@@ -226,6 +227,7 @@ def robust_aggregate_dist(grad_tree, cfg: RobustConfig, worker_axes,
             with writing_in_place():
                 mat = attack(sgen, mat, step)
         agg, scores = reduce(mat, worker_axes + model_axes)   # (D/m,)
+        del mat
         agg = gather_slices(agg, worker_axes)                 # (D,)
     else:
         raise ValueError(f"unknown layout {cfg.layout!r}")

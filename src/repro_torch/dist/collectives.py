@@ -17,7 +17,12 @@ that axis's process group, in the reference's order of per-axis steps:
     statistics;
   * :func:`model_cuts` / :func:`cut_to_blocks` / :func:`join_blocks`: a
     rank's block of each leaf that ``tree_pspecs`` shards over the model
-    axes, and the all_gather that rebuilds the leaves.
+    axes, and the all_gather that rebuilds the leaves;
+  * :func:`copy_to_model` / :func:`reduce_from_model` /
+    :func:`gather_from_model`: the tensor-parallel layers' operators
+    (Megatron's f and g, and a gather), ``torch.autograd.Function``s that
+    differentiate under ``torch.func.grad``/``vjp``.  They carry no vmap
+    rule: a rank computes one worker group, so nothing vmaps over them.
 
 The backend is gloo on the CPU and on the card (every rank of a mesh on one
 GPU shares it, which NCCL refuses); gloo stages CUDA tensors through the
@@ -26,6 +31,13 @@ torch 2.11 and 2.13 alike: ``all_reduce``, the list form of ``all_gather``
 (``all_gather_into_tensor`` is deprecated in 2.13 for ``all_gather_single``,
 which 2.11 lacks) and ``all_to_all_single`` (gloo has no list-form
 ``all_to_all``).  Collectives over an axis of size 1 are the identity.
+The model-axis sums take bf16 and f16 operands in f32 and round once at
+the end, so a sum of tp partial products is rounded as one product is.
+gloo stages a CUDA tensor through pinned host buffers, which PyTorch's
+host allocator keeps: an all_gather or all_to_all of a CUDA tensor moves
+at most ``STAGE_BYTES`` a call, in as many calls as it takes, so that a
+rank's staging stays bounded however large the tensor (the bytes moved
+are the same).
 """
 from __future__ import annotations
 
@@ -36,6 +48,18 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree as tree_util
+
+
+# Bytes an all_gather or all_to_all call moves for a CUDA tensor.
+STAGE_BYTES = 64 << 20
+
+
+def _chunk(n_rows: int, row_len: int, t: torch.Tensor) -> int:
+    """Elements a row of an (n_rows, row_len) collective carries per call:
+    the whole row on the CPU, at most STAGE_BYTES a call on the card."""
+    if not t.is_cuda:
+        return row_len
+    return max(1, min(row_len, STAGE_BYTES // (n_rows * t.element_size())))
 
 
 def axis_size(axes: Sequence) -> int:
@@ -49,9 +73,21 @@ def _gather_cat(x: torch.Tensor, ax, dim: int) -> torch.Tensor:
     if ax.size == 1:
         return x
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(ax.size)]
-    dist.all_gather(parts, x, group=ax.group)
-    return torch.cat(parts, dim=dim)
+    if dim == 0:                # gather straight into the output's rows
+        out = x.new_empty((ax.size * x.shape[0], *x.shape[1:]))
+        parts = list(out.chunk(ax.size, 0))
+    else:
+        out, parts = None, [torch.empty_like(x) for _ in range(ax.size)]
+    flat, n = x.reshape(-1), x.numel()
+    step = _chunk(ax.size, n, x)
+    if step >= n:
+        dist.all_gather(parts, x, group=ax.group)
+    else:
+        views = [p.reshape(-1) for p in parts]
+        for a in range(0, n, step):
+            got = [v[a:a + step] for v in views]
+            dist.all_gather(got, flat[a:a + step], group=ax.group)
+    return out if out is not None else torch.cat(parts, dim=dim)
 
 
 def all_gather_axes(x: torch.Tensor, axes: Sequence,
@@ -83,7 +119,17 @@ def _all_to_all(u: torch.Tensor, ax, split_dim: int) -> torch.Tensor:
         send = u.reshape(u.shape[0], n, u.shape[1] // n).transpose(
             0, 1).contiguous()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=ax.group)
+    rows_s, rows_r = send.reshape(n, -1), recv.reshape(n, -1)
+    length = rows_s.shape[1]
+    step = _chunk(n, length, send)
+    if step >= length:
+        dist.all_to_all_single(recv, send, group=ax.group)
+    else:
+        for a in range(0, length, step):
+            piece = rows_s[:, a:a + step].contiguous()
+            got = torch.empty_like(piece)
+            dist.all_to_all_single(got, piece, group=ax.group)
+            rows_r[:, a:a + step] = got
     return recv.reshape(-1, send.shape[-1])
 
 
@@ -173,3 +219,86 @@ def join_blocks(tree, cuts: list):
     return tree_util.unflatten(tree, [
         x if c is None else all_gather_axes(x, c[1], c[0])
         for x, c in zip(tree_util.leaves(tree), cuts)])
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel operators over the model axes
+# ---------------------------------------------------------------------------
+
+def _psum_f32(x: torch.Tensor, axes) -> torch.Tensor:
+    """Sum over ``axes``, narrow float types summed in f32."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return psum_axes(x.float(), axes).to(x.dtype)
+    return psum_axes(x, axes)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, sum over the model axes backward: where a
+    replicated activation enters a rank's block of a computation."""
+
+    @staticmethod
+    def forward(x, axes):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axes = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReduceFromModel.apply(g, ctx.axes), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Sum over the model axes forward, identity backward: the partial
+    outputs of a row-parallel product."""
+
+    @staticmethod
+    def forward(x, axes):
+        return _psum_f32(x, axes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """all_gather over the model axes along ``dim`` forward, this rank's
+    block of the gradient backward (what follows is computed alike on
+    every model rank, so each holds the whole gradient)."""
+
+    @staticmethod
+    def forward(x, axes, dim):
+        return all_gather_axes(x, axes, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axes, ctx.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        part = g.chunk(axis_size(ctx.axes), ctx.dim)[
+            worker_slice_index(ctx.axes)]
+        return part.contiguous(), None, None
+
+
+def copy_to_model(x: torch.Tensor, axes) -> torch.Tensor:
+    """Megatron's f over ``axes`` (identity when there are none)."""
+    return _CopyToModel.apply(x, tuple(axes)) if axes else x
+
+
+def reduce_from_model(x: torch.Tensor, axes) -> torch.Tensor:
+    """Megatron's g over ``axes`` (identity when there are none)."""
+    return _ReduceFromModel.apply(x, tuple(axes)) if axes else x
+
+
+def gather_from_model(x: torch.Tensor, axes, dim: int = -1) -> torch.Tensor:
+    """The blocks of ``x`` over ``axes`` joined along ``dim``, in the order
+    of the ranks' joint coordinate (identity when there are none)."""
+    if not axes:
+        return x
+    return _GatherFromModel.apply(x, tuple(axes), dim % x.dim())

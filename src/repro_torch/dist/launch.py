@@ -13,6 +13,7 @@ rank uses the caller's device: all of them share one card.
 from __future__ import annotations
 
 import os
+import sys
 import tempfile
 
 import torch
@@ -35,13 +36,64 @@ def check_replicated(params) -> None:
                            " rank(s) hold other bits than rank 0")
 
 
+def _equal_along(leaves, axes) -> bool:
+    """Whether every rank of this rank's lines along ``axes`` holds the
+    bits of ``leaves`` (each line's coordinate-0 rank broadcasts them, one
+    leaf at a time)."""
+    ok = True
+    for ax in axes:
+        if ax.size == 1:
+            continue
+        src = dist.get_process_group_ranks(ax.group)[0]
+        for x in leaves:
+            mine = x.detach().reshape(-1).view(torch.uint8)
+            theirs = mine.clone()
+            dist.broadcast(theirs, src=src, group=ax.group)
+            ok = ok and torch.equal(theirs, mine)
+    return ok
+
+
+def check_blocks(params, mesh, cuts: list) -> None:
+    """The two checks of a tensor-parallel mesh run's params (this rank's
+    blocks): ranks at the same model coordinate hold the same bits, and
+    the leaves left whole (``cuts`` None) are the same bits on every model
+    rank, so a model group's joined blocks form one tree.  Raises on every
+    rank if either fails."""
+    from repro_torch import tree as tree_util
+    from repro_torch.dist.sharding import model_axes_of, worker_axes_of
+    leaves = tree_util.leaves(params)
+    whole = [x for x, c in zip(leaves, cuts) if c is None]
+    bad = torch.tensor([
+        float(not _equal_along(leaves, mesh.axes(worker_axes_of(mesh)))),
+        float(not _equal_along(whole, mesh.axes(model_axes_of(mesh))))],
+        device=leaves[0].device)
+    dist.all_reduce(bad)
+    if bad.any():
+        raise RuntimeError(
+            f"params differ between ranks: {int(bad[0])} rank(s) hold "
+            f"other blocks than the ranks at their model coordinate, "
+            f"{int(bad[1])} rank(s) other whole leaves than their model "
+            "group")
+
+
 def _rank_main(rank: int, world: int, workdir: str, fn, args) -> None:
+    # The ranks share the host's cores: each takes its share of them for
+    # its intra-op threads (gloo's CPU ranks slow down many times over
+    # when every rank runs one thread a core).
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     dist.init_process_group(
         "gloo", init_method=f"file://{os.path.join(workdir, 'rendezvous')}",
         rank=rank, world_size=world)
     try:
         out = fn(rank, world, *args)
         torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    except BaseException:
+        # The spawner re-raises one rank's error: the first to fail may be
+        # another, whose peers then fail on the closed connections.
+        import traceback
+        print(f"rank {rank} of {world} failed:\n{traceback.format_exc()}",
+              file=sys.stderr, flush=True)
+        raise
     finally:
         dist.destroy_process_group()
 

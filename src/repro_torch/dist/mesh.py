@@ -8,13 +8,23 @@ the grid (the ranks that share every coordinate but one) gets its own
 process group, so a collective "over axis a" runs in the group of ranks that
 share this rank's other coordinates.  Axes of size 1 get no group: a
 collective over them is the identity.
+
+:func:`use_mesh` makes a mesh the ambient one of the code inside, as the
+reference's ``with mesh:`` does around its jitted serve step: the model
+layers read it through :func:`model_axis_size`, :func:`data_axis_size`
+and :func:`model_axes` (``models/common.py``, ``models/moe.py``).  A pure
+:class:`repro_torch.dist.sharding.Mesh` description, with no world, is
+ambient too: it gives the axis sizes (the MoE's data-shard grouping) but
+no groups, so the layers compute whole there.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
-from typing import Any, Dict, Sequence, Tuple
+import threading
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
@@ -117,3 +127,84 @@ def _ravel(coords: Sequence[int], shape: Tuple[int, ...]) -> int:
         r = r * s + c
     return r
 
+
+# ---------------------------------------------------------------------------
+# The ambient mesh
+# ---------------------------------------------------------------------------
+
+_AMBIENT = threading.local()
+
+
+@dataclasses.dataclass(frozen=True)
+class Ambient:
+    """The mesh of the code inside :func:`use_mesh`, and whether the
+    activations' batch rows are this rank's share of a batch sharded over
+    the worker axes (else every rank holds the whole batch)."""
+    mesh: Mesh
+    batch_sharded: bool = False
+
+
+def use_mesh(mesh: Mesh, *, batch_sharded: bool = False):
+    """Make ``mesh`` the ambient mesh of the code inside (thread-local)."""
+    return ambient_as(Ambient(mesh, batch_sharded))
+
+
+@contextlib.contextmanager
+def ambient_as(value: Optional["Ambient"]):
+    """Make ``value`` (what :func:`ambient` returned, None for no mesh)
+    the ambient of the code inside: a recompute in the backward pass,
+    which the autograd engine may run on another thread, re-enters the
+    forward's."""
+    prev = getattr(_AMBIENT, "value", None)
+    _AMBIENT.value = value
+    try:
+        yield
+    finally:
+        _AMBIENT.value = prev
+
+
+def ambient() -> Optional[Ambient]:
+    """The innermost :func:`use_mesh`'s :class:`Ambient`, or None."""
+    return getattr(_AMBIENT, "value", None)
+
+
+def _axis_size(name: str) -> int:
+    am = ambient()
+    if am is None or name not in am.mesh.axis_names:
+        return 0
+    return am.mesh.shape[name]
+
+
+def model_axis_size() -> int:
+    """Size of the ambient mesh's ``model`` axis (0 when no mesh is
+    active or it has none), as the reference's."""
+    return _axis_size("model")
+
+
+def data_axis_size() -> int:
+    """Size of the ambient mesh's ``data`` axis (0 when none)."""
+    return _axis_size("data")
+
+
+def model_axes() -> Tuple[Axis, ...]:
+    """The ambient world mesh's model axes of size > 1, with their groups:
+    the axes a layer's collectives run over.  Empty without a mesh, on a
+    pure description, and when every model axis has size 1."""
+    from repro_torch.dist.sharding import model_axes_of
+    am = ambient()
+    if am is None or not isinstance(am.mesh, HostMesh):
+        return ()
+    return tuple(a for a in am.mesh.axes(model_axes_of(am.mesh))
+                 if a.size > 1)
+
+
+def data_axis() -> Optional[Axis]:
+    """The ambient world mesh's ``data`` axis when the batch is sharded
+    over it and it has size > 1, else None."""
+    am = ambient()
+    if (am is None or not am.batch_sharded
+            or not isinstance(am.mesh, HostMesh)
+            or "data" not in am.mesh.axis_names):
+        return None
+    ax = am.mesh.axis("data")
+    return ax if ax.size > 1 else None

@@ -14,6 +14,11 @@ by the reference's names) into a tree of :class:`P` using the reference's
 name and shape rules, with replication wherever a dimension does not divide;
 ``leaf_rule`` overrides the decision per leaf (:func:`param_pspec_fsdp` is
 the FSDP rule); :func:`cache_pspec` is the KV-cache analogue.
+
+:func:`shard_params` and :func:`shard_cache` cut a whole tree to this
+rank's blocks by those specs (the reference device-puts it with them);
+:func:`init_blocks` builds a model's blocks with the ranks taking turns,
+so that no two ranks hold the whole model at once.
 """
 from __future__ import annotations
 
@@ -192,6 +197,92 @@ def param_pspec_fsdp(name: str, leaf, mesh: Mesh) -> Optional[P]:
                 spec[d] = group if len(group) > 1 else group[0]
                 return P(*spec)
     return P()
+
+
+# ---------------------------------------------------------------------------
+# Cutting trees to this rank's blocks
+# ---------------------------------------------------------------------------
+
+def block_index(mesh: Mesh, names: Sequence[str]) -> int:
+    """This rank's joint (row-major) coordinate on the axes ``names`` of a
+    world mesh (one with ``coords``)."""
+    idx = 0
+    for n in names:
+        i = mesh.axis_names.index(n)
+        idx = idx * mesh.axis_sizes[i] + mesh.coords[i]
+    return idx
+
+
+def block_shape(shape: Sequence[int], spec: P, mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of one block of a leaf of ``shape`` cut by ``spec``."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            names = (entry,) if isinstance(entry, str) else tuple(entry)
+            out[dim] //= _axes_size(mesh, names)
+    return tuple(out)
+
+
+def cut_leaf(x, spec: P, mesh: Mesh):
+    """This rank's block of ``x`` by ``spec``, a copy (so that the whole can
+    be freed); ``x`` itself when ``spec`` replicates it."""
+    if all(e is None for e in spec):
+        return x
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            names = (entry,) if isinstance(entry, str) else tuple(entry)
+            size = x.shape[dim] // _axes_size(mesh, names)
+            x = x.narrow(dim, block_index(mesh, names) * size, size)
+    return x.clone()
+
+
+def shard_params(params, mesh: Mesh, full=None):
+    """This rank's blocks of ``params`` by :func:`tree_pspecs` of ``full``
+    (a tree of the whole leaves' shapes, such as
+    ``Model.abstract_params()``; by default ``params``).  A leaf that is
+    already its block passes as it is; a leaf with no shape (the
+    optimizer's step count) too."""
+    full = params if full is None else full
+    specs = spec_leaves(tree_pspecs(full, mesh))
+    from repro_torch import tree as tree_util
+    out = []
+    for x, f, spec in zip(tree_util.leaves(params), tree_util.leaves(full),
+                          specs):
+        if not hasattr(x, "shape") or tuple(x.shape) != tuple(f.shape):
+            want = block_shape(f.shape, spec, mesh)
+            if hasattr(x, "shape") and tuple(x.shape) != want:
+                raise ValueError(f"a leaf of shape {tuple(x.shape)} is "
+                                 f"neither the whole {tuple(f.shape)} nor "
+                                 f"its block {want}")
+            out.append(x)
+        else:
+            out.append(cut_leaf(x, spec, mesh))
+    return tree_util.unflatten(params, out)
+
+
+def shard_cache(cache, mesh: Mesh):
+    """This rank's blocks of a whole KV cache by :func:`cache_pspec`."""
+    return _map_with_path(
+        lambda path, leaf: cut_leaf(leaf, cache_pspec(path, leaf, mesh),
+                                    mesh), cache)
+
+
+def init_blocks(model, seed: int, mesh: Mesh, device):
+    """This rank's blocks of ``model.init`` from a generator on ``device``
+    seeded with ``seed``: the ranks of the world take turns to draw the
+    whole model, cut their blocks and free the rest, with a barrier
+    between turns, so one whole model at most exists at a time."""
+    import torch
+    import torch.distributed as dist
+    out = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            gen = torch.Generator(device=device).manual_seed(seed)
+            out = shard_params(model.init(gen), mesh)
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
 
 
 # ---------------------------------------------------------------------------

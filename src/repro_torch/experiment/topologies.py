@@ -180,6 +180,15 @@ class SyncPS(Topology):
         # On a mesh, rank 0 alone evaluates and writes the telemetry and
         # checkpoints.
         writer = plan.mesh is None or plan.mesh.rank == 0
+        # On a tensor-parallel mesh the params and optimizer state stay
+        # this rank's blocks; they are joined for eval, checkpoints and
+        # the result.
+        layout = None
+        if plan.mesh is not None:
+            from repro_torch.train.step import MeshParams
+            layout = MeshParams(plan.model, plan.mesh)
+        tp = layout is not None and layout.tp
+        join = layout.join if tp else (lambda tree: tree)
 
         def build_step(rc, workers=m):
             return make_train_step(plan.model, robust_cfg=rc,
@@ -210,6 +219,13 @@ class SyncPS(Topology):
         if init_state is not None:
             params, opt_state, *rest = init_state
             defense_state = rest[0] if rest else None
+            if tp:
+                params, opt_state = (layout.shard(params),
+                                     layout.shard(opt_state))
+        elif tp:
+            from repro_torch.dist.sharding import init_blocks
+            params = init_blocks(plan.model, plan.seed, plan.mesh, dev)
+            opt_state = init_opt_state(plan.opt_cfg, params)
         else:
             gen = torch.Generator(device=dev).manual_seed(plan.seed)
             params = plan.model.init(gen)
@@ -238,7 +254,7 @@ class SyncPS(Topology):
                            plan.obs) as rec:
             if plan.resume_path:
                 from repro_torch.checkpoint.io import restore_checkpoint
-                like = {"params": params, "opt": opt_state,
+                like = {"params": join(params), "opt": join(opt_state),
                         "key": attack_gen.get_state(),
                         "rule": _rule_tree(robust_cfg)}
                 if defense_state is not None:
@@ -251,6 +267,9 @@ class SyncPS(Topology):
                     plan.resume_path, like,
                     optional=("key", "rule", "compress"), port_only=("key",))
                 params, opt_state = tree["params"], tree["opt"]
+                if tp:
+                    params, opt_state = (layout.shard(params),
+                                         layout.shard(opt_state))
                 attack_gen.set_state(tree["key"])
                 defense_state = tree.get("defense", defense_state)
                 resid = tree.get("compress", resid)
@@ -353,17 +372,20 @@ class SyncPS(Topology):
                     if "q_hat" in metrics:
                         row["q_hat"] = int(metrics["q_hat"])
                         row["n_active"] = int(metrics["active"].sum())
-                    if plan.eval_fn is not None and writer:
-                        row["eval"] = float(plan.eval_fn(params))
+                    if plan.eval_fn is not None:
+                        whole = join(params)
+                        if writer:
+                            row["eval"] = float(plan.eval_fn(whole))
                     history.append(row)
 
                 if (plan.checkpoint_path and plan.checkpoint_every and step
-                        and step % plan.checkpoint_every == 0 and writer):
+                        and step % plan.checkpoint_every == 0
+                        and (writer or tp)):
                     from repro_torch.checkpoint.io import save_checkpoint
                     # "key" is the generator after this step's draws and
                     # "rule" the live (possibly adapted) b/q: together they
                     # make resume continue bit for bit.
-                    tree = {"params": params, "opt": opt_state,
+                    tree = {"params": join(params), "opt": join(opt_state),
                             "key": attack_gen.get_state(),
                             "rule": _rule_tree(robust_cfg)}
                     if defense_state is not None:
@@ -372,7 +394,9 @@ class SyncPS(Topology):
                         # the EF residual is run state: dropping it would
                         # re-inject already-compensated error
                         tree["compress"] = resid
-                    save_checkpoint(plan.checkpoint_path, tree, step=step)
+                    if writer:
+                        save_checkpoint(plan.checkpoint_path, tree,
+                                        step=step)
 
                 if adapt:
                     q_hat = int(metrics["q_hat"])
@@ -401,7 +425,11 @@ class SyncPS(Topology):
             rec.gauge("steps_per_sec",
                       (plan.steps - start_step) / max(wall, 1e-9),
                       topology=self.name)
-        if plan.mesh is not None:
+        if tp:
+            from repro_torch.dist.launch import check_blocks
+            check_blocks(params, plan.mesh, layout.cuts)
+            params, opt_state = join(params), join(opt_state)
+        elif plan.mesh is not None:
             from repro_torch.dist.launch import check_replicated
             check_replicated(params)
 

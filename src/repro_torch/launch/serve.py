@@ -10,12 +10,21 @@ Two paths behind one CLI:
   and ``--telemetry`` streams the per-replica scores, reputation and
   ejection mask beside the engine's queue-depth records (JSONL).
 
-The run is on ``cuda`` unless ``--device cpu`` is given.  ``--mesh`` (ROADMAP
-queue 1 item 10b) and ``--metrics`` / ``--profile-dir`` (item 14) raise
+The run is on ``cuda`` unless ``--device cpu`` is given.  ``--mesh DxM``
+serves the dense tier on a (data, model) mesh of D x M ranks: from a
+process with no ``torch.distributed`` world it spawns them (gloo, every
+rank on the one device), under ``torchrun`` each process is a rank.  The
+requests shard over the data axis, the KV heads and the dense, MoE and MLA
+layers over the model axis; each rank builds only its blocks of the
+params, the ranks taking turns; rank 0 prints the ``tok/s`` line and the
+tokens as without a mesh.  The paged engine takes no mesh.
+``--metrics`` / ``--profile-dir`` (ROADMAP queue 1 item 14) raise
 ``NotImplementedError``.
 
   python -m repro_torch.launch.serve --arch granite-8b-reduced --batch 4 \\
       --prompt-len 8 --new-tokens 16
+  python -m repro_torch.launch.serve --arch granite-8b-reduced --batch 4 \\
+      --mesh 2x2 --device cpu
   python -m repro_torch.launch.serve --arch granite-8b-reduced --engine \\
       --replicas 3 --robust-rule phocas --corrupt 1 --max-batch 8 \\
       --telemetry results/serve.jsonl
@@ -23,6 +32,7 @@ queue 1 item 10b) and ``--metrics`` / ``--profile-dir`` (item 14) raise
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -40,15 +50,17 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _run_dense(args, model, params, device):
+def _run_dense(args, model, params, device, mesh=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     prompts = torch.randint(0, model.cfg.vocab_size,
                             (args.batch, args.prompt_len), generator=gen,
                             device=device)
     t0 = time.time()
-    out = generate(model, params, prompts, args.new_tokens)
+    out = generate(model, params, prompts, args.new_tokens, mesh=mesh)
     _sync(device)
     dt = time.time() - t0
+    if mesh is not None and mesh.rank != 0:
+        return
     tok_s = args.batch * args.new_tokens / dt
     print(f"[serve] {args.arch}: generated {tuple(out.shape)} in {dt:.2f}s "
           f"({tok_s:.1f} tok/s)")
@@ -58,7 +70,7 @@ def _run_dense(args, model, params, device):
             rec.log("serve", 0, arch=args.arch, batch=args.batch,
                     prompt_len=args.prompt_len,
                     new_tokens=args.new_tokens, wall_s=dt, tok_s=tok_s,
-                    mesh="none")
+                    mesh=args.mesh or "none")
     print(out[:, args.prompt_len:])
 
 
@@ -121,8 +133,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--mesh", default="",
-                    help="data×model, e.g. 4x2 (not ported: ROADMAP queue "
-                         "1 item 10b)")
+                    help="data×model, e.g. 4x2: serve the dense tier on "
+                         "D x M ranks")
     ap.add_argument("--engine", action="store_true",
                     help="use the continuous-batching paged ServeEngine")
     ap.add_argument("--replicas", type=int, default=1,
@@ -145,20 +157,53 @@ def main(argv=None):
                     help="profiler trace directory (not ported: ROADMAP "
                          "queue 1 item 14)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise not_ported("serving on a device mesh (--mesh)", "item 10b")
     if args.metrics or args.profile_dir:
         raise not_ported("the metrics snapshot and profiler trace "
                          "(--metrics, --profile-dir)", "item 14")
+    engine = args.engine or args.replicas > 1
+    if args.mesh and engine:
+        raise SystemExit("--mesh serves the dense tier; the paged engine "
+                         "takes no mesh")
 
     device = resolve_device(args.device)
     model = build_model(get_arch(args.arch))
+    if args.mesh:
+        import torch.distributed as dist
+
+        from repro_torch.dist.mesh import make_host_mesh, parse_mesh
+        d, mm = parse_mesh(args.mesh)
+        if not dist.is_initialized():
+            from repro_torch.dist.launch import spawn
+            print(spawn(_serve_rank, d * mm,
+                        sys.argv[1:] if argv is None else list(argv))[0],
+                  end="")
+            return
+        mesh = make_host_mesh(d, mm)
+        if model.tensor_parallel:
+            from repro_torch.dist.sharding import init_blocks
+            params = init_blocks(model, args.seed, mesh, device)
+        else:
+            params = model.init(
+                torch.Generator(device=device).manual_seed(args.seed))
+        _run_dense(args, model, params, device, mesh)
+        return
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen)
-    if args.engine or args.replicas > 1:
+    if engine:
         _run_engine(args, model, params, device)
     else:
         _run_dense(args, model, params, device)
+
+
+def _serve_rank(rank: int, world: int, argv) -> str:
+    """One spawned rank of ``--mesh``: this CLI in the world made; returns
+    what it printed, which the spawning process prints for rank 0."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return out.getvalue()
 
 
 if __name__ == "__main__":

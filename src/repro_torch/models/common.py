@@ -26,6 +26,21 @@ Three differences from the reference, each forced by PyTorch:
   ``attention_block``), every other call and every call on the CPU take
   ``_attend``, the reference's default.
 
+On a mesh (``dist/mesh.py::use_mesh`` over a world) the layers compute
+tensor-parallel on the blocks that ``dist/sharding.py::tree_pspecs`` gives
+this rank, which they read off the leaves' shapes: a column-parallel leaf
+(``wq wk wv wi wg wkv_a wk_rope wk_b wv_b lm_head``) cut on its output
+features gives this rank's block of the output, a row-parallel ``wo`` cut
+on its input features takes the block and its partial output is summed
+over the model axes (``dist/collectives.py``'s Megatron operators), and
+the vocab-sharded ``table`` is looked up on this rank's rows and summed.
+Attention runs on this rank's heads when every q and KV column block
+falls on head boundaries (``H % tp == 0`` and ``Kv % tp == 0``, so every
+GQA group stays whole); otherwise the blocks are gathered and every rank
+attends over all heads, which gives the values of the reference's
+padded-heads branch.  A whole leaf (``tree_pspecs`` replicates a dim that
+does not divide) computes whole.
+
 :func:`linear` also serves the ``"dots"`` remat policy of
 ``models/stack.py``: inside :func:`record_dots` it keeps each product's
 output, and inside :func:`replay_dots` it hands the kept outputs back in the
@@ -40,6 +55,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist import collectives as coll
+from repro_torch.dist.mesh import model_axes
 
 # Query-chunk length for attention: bounds the live (B,H,qc,T) score tensor.
 ATTN_QUERY_CHUNK = 1024
@@ -144,8 +162,71 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (out * p["scale"].float()).to(x.dtype)
 
 
-def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+def embed(p: dict, tokens: torch.Tensor, vocab: Optional[int] = None
+          ) -> torch.Tensor:
+    """Rows of ``p["table"]``.  With ``vocab`` (the whole row count) a
+    table cut to this rank's rows looks up the tokens that fall in them,
+    zeroes the others and sums over the model axes."""
+    table = p["table"]
+    if vocab is None or table.shape[0] == vocab:
+        return table[tokens]
+    axes = block_axes()
+    rows = table.shape[0]
+    local = tokens - coll.worker_slice_index(axes) * rows
+    mine = (local >= 0) & (local < rows)
+    out = table[local.clamp(0, rows - 1)] * mine[..., None].to(table.dtype)
+    return coll.reduce_from_model(out, axes)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel projections
+# ---------------------------------------------------------------------------
+
+def block_axes():
+    """The model axes a parameter block was cut over: the ambient world
+    mesh's (``dist/mesh.py::use_mesh``)."""
+    axes = model_axes()
+    if not axes:
+        raise RuntimeError("a model-sharded parameter block reached a layer "
+                           "outside use_mesh of a world mesh")
+    return axes
+
+
+def is_block(p: dict, n: int, dim: int = -1) -> bool:
+    """Whether the linear leaf ``p`` holds a block of its ``n`` whole
+    features on ``dim`` (-1: output, -2: input)."""
+    return p["w"].shape[dim] != n
+
+
+def col_linear(p: dict, x, xc, n: int, *, keep_block: bool = False):
+    """``x @ w`` of a column-parallel leaf of ``n`` whole output features.
+    A block takes ``xc`` (``x`` through ``copy_to_model``) and gives this
+    rank's block of the output, gathered over the model axes unless
+    ``keep_block``; a whole leaf takes ``x``."""
+    if not is_block(p, n):
+        return linear(p, x)
+    y = linear(p, xc)
+    return y if keep_block else coll.gather_from_model(y, block_axes(), -1)
+
+
+def row_linear(p: dict, h, n: int):
+    """``h @ w`` of a row-parallel leaf of ``n`` whole input features.  A
+    block sums its partial output over the model axes: ``h`` is this
+    rank's block of the input, or the whole input, of which it takes this
+    rank's columns (through ``copy_to_model``)."""
+    if not is_block(p, n, -2):
+        return linear(p, h)
+    axes = block_axes()
+    if h.shape[-1] == n:
+        rows = p["w"].shape[-2]
+        i = coll.worker_slice_index(axes)
+        h = coll.copy_to_model(h, axes)[..., i * rows:(i + 1) * rows]
+    return coll.reduce_from_model(linear(p, h), axes)
+
+
+def model_copy(x):
+    """``x`` through ``copy_to_model`` on a mesh, ``x`` itself off one."""
+    return coll.copy_to_model(x, model_axes())
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -259,16 +340,34 @@ def _cache_positions(size: int, pos: int, window: Optional[int],
     return torch.where(p >= 0, p, -1)
 
 
+def _gqa_qkv(p, cfg, x):
+    """q, k, v of a GQA layer as (B, S, heads, hd), with the head counts:
+    this rank's heads when every block is head-aligned (and the k/v of a
+    sharded cache), all of them otherwise (blocks gathered)."""
+    B, S, d = x.shape
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xc = model_copy(x)
+    blocks = [is_block(p[n], w) for n, w in
+              (("wq", H * hd), ("wk", Kv * hd), ("wv", Kv * hd))]
+    tp = coll.axis_size(block_axes()) if any(blocks) else 1
+    local = all(blocks) and H % tp == 0 and Kv % tp == 0
+    q = col_linear(p["wq"], x, xc, H * hd, keep_block=local)
+    k = col_linear(p["wk"], x, xc, Kv * hd, keep_block=local)
+    v = col_linear(p["wv"], x, xc, Kv * hd, keep_block=local)
+    if local:
+        H, Kv = H // tp, Kv // tp
+    return (q.reshape(B, S, H, hd), k.reshape(B, S, Kv, hd),
+            v.reshape(B, S, Kv, hd))
+
+
 def attention_block(p, cfg, x, *, positions, window, cache=None):
     """x: (B,S,d).  Training (no cache) when cache is None; cached otherwise:
     decode (S==1, positions (1,)) or batched prefill (S==S0 contiguous
     positions, S0 <= the layer's ring size — engine-gated).  The cache is
-    written in place and returned."""
+    written in place and returned.  On a mesh the cache holds this rank's
+    KV heads when they are sharded (``cache_pspec``)."""
     B, S, d = x.shape
-    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = linear(p["wq"], x).reshape(B, S, H, hd)
-    k = linear(p["wk"], x).reshape(B, S, Kv, hd)
-    v = linear(p["wv"], x).reshape(B, S, Kv, hd)
+    q, k, v = _gqa_qkv(p, cfg, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -292,7 +391,8 @@ def attention_block(p, cfg, x, *, positions, window, cache=None):
                              positions, k_pos[:T], causal=True,
                              window=window, cap=cfg.attn_logit_softcap,
                              flash=True)
-    return linear(p["wo"], out.reshape(B, S, H * hd)), cache
+    H, hd = cfg.num_heads, cfg.head_dim
+    return row_linear(p["wo"], out.reshape(B, S, -1), H * hd), cache
 
 
 # ---------------------------------------------------------------------------
@@ -430,12 +530,22 @@ def _mla_attend(cfg, q_nope, q_rope, k_nope, v, krope, q_pos, k_pos):
 
 def _mla_attend_chunked(p, cfg, q_nope, q_rope, ckv, krope, q_pos, k_pos,
                         chunk=ATTN_QUERY_CHUNK):
-    B, Sq, H = q_nope.shape[:3]
+    """q_nope/q_rope hold this rank's heads or all of them; ``wk_b`` and
+    ``wv_b`` expand the (whole) latent to the same heads."""
+    B, Sq, Hq = q_nope.shape[:3]
     T = ckv.shape[1]
+    H = cfg.num_heads
+    nope, vdim = cfg.qk_nope_head_dim, cfg.v_head_dim
+    local = Hq != H
+    ckv_c = model_copy(ckv)
+    if local:                   # a replicated operand of this rank's heads
+        krope = model_copy(krope)
     # Expand latent -> per-head keys/values once (chunk-invariant); only the
     # (B,H,chunk,T) score tensor is made again per query chunk.
-    k_nope = linear(p["wk_b"], ckv).reshape(B, T, H, cfg.qk_nope_head_dim)
-    v = linear(p["wv_b"], ckv).reshape(B, T, H, cfg.v_head_dim)
+    k_nope = col_linear(p["wk_b"], ckv, ckv_c, H * nope,
+                        keep_block=local).reshape(B, T, Hq, nope)
+    v = col_linear(p["wv_b"], ckv, ckv_c, H * vdim,
+                   keep_block=local).reshape(B, T, Hq, vdim)
     if Sq <= chunk or Sq % chunk != 0:
         return _mla_attend(cfg, q_nope, q_rope, k_nope, v, krope, q_pos,
                            k_pos)
@@ -449,16 +559,25 @@ def mla_block(p, cfg, x, *, positions, cache=None):
     """x: (B,S,d).  Training when cache is None; otherwise decode or a
     batched prefill from position 0, as :func:`attention_block`.  The latent
     cache (``ckv`` (B,T,rank), ``krope`` (B,T,rope)) is written in place
-    and returned.  MLA layers are global (no window)."""
+    and returned.  MLA layers are global (no window).  On a mesh the
+    latent and the shared rope key are gathered whole (``wkv_a`` and
+    ``wk_rope`` cut them mid-vector), so every rank caches them whole."""
     B, S, d = x.shape
     H = cfg.num_heads
-    nope, rdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q = linear(p["wq"], x).reshape(B, S, H, nope + rdim)
+    nope, rdim, vdim = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                        cfg.v_head_dim)
+    xc = model_copy(x)
+    blocks = [is_block(p["wq"], H * (nope + rdim)),
+              is_block(p["wk_b"], H * nope), is_block(p["wv_b"], H * vdim)]
+    tp = coll.axis_size(block_axes()) if any(blocks) else 1
+    local = all(blocks) and H % tp == 0
+    q = col_linear(p["wq"], x, xc, H * (nope + rdim), keep_block=local)
+    q = q.reshape(B, S, -1, nope + rdim)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
-    ckv_new = linear(p["wkv_a"], x)                     # (B,S,rank)
-    krope_new = rope(linear(p["wk_rope"], x)[:, :, None], positions,
-                     cfg.rope_theta)[:, :, 0]           # (B,S,rdim)
+    ckv_new = col_linear(p["wkv_a"], x, xc, cfg.kv_lora_rank)  # (B,S,rank)
+    krope_new = rope(col_linear(p["wk_rope"], x, xc, rdim)[:, :, None],
+                     positions, cfg.rope_theta)[:, :, 0]       # (B,S,rdim)
 
     if cache is None:
         out = _mla_attend_chunked(p, cfg, q_nope, q_rope, ckv_new, krope_new,
@@ -473,7 +592,7 @@ def mla_block(p, cfg, x, *, positions, cache=None):
         k_pos = torch.where(t <= last, t, -1)
         out = _mla_attend_chunked(p, cfg, q_nope, q_rope, cache["ckv"],
                                   cache["krope"], positions, k_pos)
-    return linear(p["wo"], out.reshape(B, S, H * cfg.v_head_dim)), cache
+    return row_linear(p["wo"], out.reshape(B, S, -1), H * vdim), cache
 
 
 # ---------------------------------------------------------------------------
@@ -491,5 +610,13 @@ def init_mlp(gen: torch.Generator, cfg, d_ff: Optional[int] = None,
     }
 
 
-def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
-    return linear(p["wo"], F.silu(linear(p["wg"], x)) * linear(p["wi"], x))
+def mlp_block(p, x: torch.Tensor, d_ff: Optional[int] = None
+              ) -> torch.Tensor:
+    """The GLU MLP; given its whole hidden width ``d_ff``, leaves cut on it
+    compute tensor-parallel (``wi``/``wg`` column, ``wo`` row)."""
+    if d_ff is None or not is_block(p["wi"], d_ff):
+        return linear(p["wo"], F.silu(linear(p["wg"], x))
+                      * linear(p["wi"], x))
+    xc = model_copy(x)
+    h = F.silu(linear(p["wg"], xc)) * linear(p["wi"], xc)
+    return row_linear(p["wo"], h, d_ff)

@@ -13,6 +13,11 @@ reference.
 
 ``init(gen, cfg)`` draws the parameters from a ``torch.Generator`` on the
 device they go to.  Caches are written in place (``models/common.py``).
+
+On a mesh the dense, MoE and MLA layers compute on this rank's blocks
+(``models/common.py``): the vocab-sharded table and ``lm_head`` (or
+gemma2's tied table) give vocab blocks of the logits, which are gathered
+before the final softcap, so the loss and the argmax see every logit.
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ def init(gen: torch.Generator, cfg) -> dict:
 
 
 def _embed_tokens(params, cfg, tokens) -> torch.Tensor:
-    return C.embed(params["embed"], tokens) * math.sqrt(cfg.d_model)
+    return (C.embed(params["embed"], tokens, cfg.vocab_size)
+            * math.sqrt(cfg.d_model))
 
 
 def _embed_inputs(params, cfg, batch) -> torch.Tensor:
@@ -60,9 +66,12 @@ def _embed_inputs(params, cfg, batch) -> torch.Tensor:
 def _logits(params, cfg, x) -> torch.Tensor:
     x = C.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"]["table"].T
+        table = params["embed"]["table"]
+        logits = C.col_linear({"w": table.T}, x, C.model_copy(x),
+                              cfg.vocab_size)
     else:
-        logits = C.linear(params["lm_head"], x)
+        logits = C.col_linear(params["lm_head"], x, C.model_copy(x),
+                              cfg.vocab_size)
     return C.softcap(logits.float(), cfg.final_logit_softcap)
 
 

@@ -35,6 +35,25 @@ class Model:
     decode_step_paged: Optional[Callable] = None
     prefill_paged: Optional[Callable] = None
 
+    def abstract_params(self):
+        """The parameter tree as fake tensors: the whole leaves' shapes and
+        dtypes, with no storage (what ``tree_pspecs`` reads)."""
+        import torch
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            return self.init(torch.Generator())
+
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether the layers compute on model-sharded blocks on a mesh:
+        the decoder-only GQA and MLA families with a dense or MoE FFN.
+        The SSM, hybrid, encoder-decoder and VLM families (and the paper's
+        MLP and CNN, which have no ``cfg``) compute whole on every rank of
+        a model axis."""
+        c = self.cfg
+        return c is not None and not (c.is_ssm or c.hybrid or c.is_encdec
+                                      or c.num_patches)
+
     @property
     def supports_paged(self) -> bool:
         from repro_torch.models.stack import paged_supported

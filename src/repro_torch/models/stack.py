@@ -20,6 +20,14 @@ train step batch it.  "full" keeps only the period's input; "dots" also
 keeps the output of every ``linear`` product, the products without batch
 dimensions that ``dots_with_no_batch_dims_saveable`` saves, and recomputes
 the rest (``models/common.py::record_dots``).
+
+On a mesh a period's layers issue collectives over the model axes
+(``models/common.py``); the remat backward's recompute issues them a
+second time.  Every rank of a model group runs the same layers on the
+same shapes, so they issue the same collectives in the same order.  The
+recompute re-enters the forward's ambient mesh and MoE grouping switch:
+on a CUDA device the autograd engine runs the backward on a thread of its
+own, where the forward's thread-local settings are not set.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import contextlib
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.dist.mesh import ambient, ambient_as
 from repro_torch.models import common as C
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -82,7 +91,8 @@ def _ffn(p, cfg, x):
     if cfg.is_moe:
         f, aux = M.moe_block(p["ffn"], cfg, h)
     else:
-        f, aux = C.mlp_block(p["ffn"], h), torch.zeros((), device=x.device)
+        f = C.mlp_block(p["ffn"], h, cfg.d_ff)
+        aux = torch.zeros((), device=x.device)
     if cfg.use_post_norms:
         f = C.rmsnorm(p["post_ln2"], f, cfg.norm_eps)
     return x + f, aux
@@ -171,6 +181,7 @@ class _RematPeriod(torch.autograd.Function):
         fn, dots, x, *leaves = inputs
         kept = tuple(output[2:])
         ctx.fn, ctx.dots, ctx.n = fn, dots, len(leaves)
+        ctx.ambient, ctx.grouping = ambient(), M.grouping_enabled()
         ctx.save_for_backward(x, *leaves, *kept)
         if kept:
             ctx.mark_non_differentiable(*kept)
@@ -181,7 +192,9 @@ class _RematPeriod(torch.autograd.Function):
         x, leaves = saved[0], saved[1:1 + ctx.n]
         replay = (C.replay_dots(saved[1 + ctx.n:]) if ctx.dots
                   else contextlib.nullcontext())
-        with replay:
+        grouping = (contextlib.nullcontext() if ctx.grouping
+                    else M.no_data_grouping())
+        with replay, ambient_as(ctx.ambient), grouping:
             _, vjp = torch.func.vjp(ctx.fn, x, *leaves)
             grads = vjp((gy, gaux))
         # ``torch.func.grad`` runs its backward with create_graph=True, so

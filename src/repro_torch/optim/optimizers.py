@@ -52,23 +52,24 @@ def tree_norm(tree) -> torch.Tensor:
                           for x in tree_util.leaves(tree)))
 
 
-def _clip(cfg: OptConfig, grads):
+def _clip(cfg: OptConfig, grads, norm):
     if not cfg.grad_clip:
         return grads
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(tree_norm(grads),
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(norm(grads),
                                                     min=1e-12), max=1.0)
     return tree_util.map(lambda g: g * scale.to(g.dtype), grads)
 
 
-def apply_updates(cfg: OptConfig, params, grads, state):
-    """Returns (new_params, new_state); inputs are not modified."""
+def apply_updates(cfg: OptConfig, params, grads, state, norm=tree_norm):
+    """Returns (new_params, new_state); inputs are not modified.  ``norm``
+    is the gradient tree's global norm for clipping (a mesh step's trees
+    are this rank's blocks)."""
     step = state["step"] + 1
     lr = cfg.lr_at(step)
-    grads = _clip(cfg, grads)
-    f32 = lambda t: tree_util.map(lambda x: x.float(), t)  # noqa: E731
+    grads = _clip(cfg, grads, norm)
 
     if cfg.name == "sgd":
-        upd = f32(grads)
+        upd = grads                 # made f32 leaf by leaf in upd_leaf
         new_state = {"step": step}
     elif cfg.name == "momentum":
         mu = tree_util.map(lambda m, g: cfg.momentum * m + g.float(),
@@ -90,7 +91,7 @@ def apply_updates(cfg: OptConfig, params, grads, state):
         new_state = {"step": step, "mu": mu, "nu": nu}
 
     def upd_leaf(p, u):
-        u = u * lr
+        u = u.float() * lr
         if cfg.name == "adamw" and cfg.weight_decay and p.dim() >= 2:
             u = u + lr * cfg.weight_decay * p.float()
         return (p.float() - u).to(p.dtype)

@@ -19,8 +19,18 @@ Two tiers:
 The reference donates the KV pool to its jitted steps.  Here the steps
 write the pool in place (``index_put_`` on each layer's k/v block pool) and
 hand the same tensors back.  PyTorch runs eagerly: there is no compile, and
-the step functions are plain closures.  Meshes raise
-``NotImplementedError`` (ROADMAP queue 1 item 10b).
+the step functions are plain closures.
+
+On a (data, model) mesh (a ``dist/mesh.py::HostMesh`` over a world, one
+rank per device) the dense tier runs as one rank of the mesh:
+``shard_params`` and ``shard_cache`` cut the params and the cache to this
+rank's blocks (``dist/sharding.py``: the request batch over the worker
+axes when it divides, the KV heads over the model axes when they
+divide), the step runs under ``use_mesh``, so the dense, MoE and MLA
+layers compute tensor-parallel on the blocks, and the tokens are
+all_gathered over the data axis at the end.  The SSM, hybrid, enc-dec
+and VLM families compute whole on every rank of a model axis (a notice
+is printed on rank 0).  The paged tier takes no mesh, as the reference's.
 """
 from __future__ import annotations
 
@@ -30,29 +40,87 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.dist.mesh import use_mesh
+from repro_torch.dist.sharding import (model_axes_of, shard_cache,
+                                       shard_params, worker_axes_of)
 from repro_torch.serve.cache import BLOCK_TOKENS, PagedKVCache
 from repro_torch.serve.robust_decode import RobustDecoder
 from repro_torch.serve.scheduler import DECODE, Request, Scheduler
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        from repro_torch.experiment.spec import not_ported
-        raise not_ported("serving on a device mesh", "item 10b")
-
-
-def make_serve_step(model, *, mesh=None):
+def make_serve_step(model, *, mesh=None, batch_sharded: bool = False):
     """Returns ``serve_step(params, cache, tokens, pos) -> (next_tokens,
     logits, cache)``.  With tokens (B,1) and an int pos it is one decode
     step; with tokens (B,S0) and pos = arange(S0) it is a batched prefill
-    whose next_tokens continue the prompt."""
-    _refuse_mesh(mesh)
+    whose next_tokens continue the prompt.  With ``mesh`` the step runs
+    under ``use_mesh`` on this rank's blocks; ``batch_sharded`` says the
+    tokens are this rank's rows of a batch sharded over the worker axes."""
 
     def serve_step(params, cache, tokens, pos):
         logits, cache = model.decode_step(params, cache, tokens, pos)
         return logits[:, -1].argmax(-1)[:, None], logits, cache
 
-    return serve_step
+    if mesh is None:
+        return serve_step
+
+    def stepped(params, cache, tokens, pos):
+        with use_mesh(mesh, batch_sharded=batch_sharded):
+            return serve_step(params, cache, tokens, pos)
+
+    return stepped
+
+
+class MeshServing:
+    """How the dense tier serves ``model`` on ``mesh``: this rank's rows of
+    a batch of B, its blocks of the params and cache, and the step."""
+
+    def __init__(self, model, mesh, batch: int):
+        self.mesh, self.model = mesh, model
+        self.worker_axes = mesh.axes(worker_axes_of(mesh))
+        from repro_torch.dist.collectives import (axis_size,
+                                                  worker_slice_index)
+        d = axis_size(self.worker_axes)
+        self.sharded = d > 1 and batch % d == 0
+        n = batch // d if self.sharded else batch
+        start = worker_slice_index(self.worker_axes) * n if self.sharded \
+            else 0
+        self.rows = slice(start, start + n)
+        self.tp = model.tensor_parallel
+        if (not self.tp and mesh.rank == 0
+                and axis_size(mesh.axes(model_axes_of(mesh))) > 1):
+            print(f"[mesh] {model.cfg.name}: the {model.cfg.family} family "
+                  "computes whole on every model rank (replicated compute)")
+
+    def params(self, params):
+        if not self.tp:
+            return params
+        return shard_params(params, self.mesh,
+                            full=self.model.abstract_params())
+
+    def cache(self, batch: int, total: int, device):
+        cache = self.model.init_cache(batch, total, device)
+        if self.tp:
+            return shard_cache(cache, self.mesh)
+        return shard_cache(cache, _data_only(self.mesh))
+
+    def step(self):
+        return make_serve_step(self.model, mesh=self.mesh if self.tp
+                               else None, batch_sharded=self.sharded)
+
+    def gather(self, toks):
+        from repro_torch.dist.collectives import all_gather_axes
+        return all_gather_axes(toks, self.worker_axes, 0) if self.sharded \
+            else toks
+
+
+def _data_only(mesh):
+    """``mesh`` with its model axes seen as size 1: the cache of a family
+    that computes whole keeps every KV head."""
+    import dataclasses
+    from repro_torch.dist.sharding import MODEL_AXIS_NAMES
+    return dataclasses.replace(mesh, axis_sizes=tuple(
+        1 if n in MODEL_AXIS_NAMES else s
+        for n, s in zip(mesh.axis_names, mesh.axis_sizes)))
 
 
 def batched_prefill_supported(cfg, prompt_len: int) -> bool:
@@ -69,16 +137,26 @@ def generate(model, params, prompts: torch.Tensor, max_new_tokens: int,
     """Greedy batched generation.  prompts: (B, S0) integer tensor on the
     params' device.  Prefills the whole prompt in one forward pass when the
     architecture allows it (else the stepwise loop), then decodes greedily.
-    Returns (B, S0 + max_new_tokens) int64."""
-    _refuse_mesh(mesh)
+    Returns (B, S0 + max_new_tokens) int64.
+
+    With ``mesh`` (a ``HostMesh`` over the world) this process is one rank:
+    ``params`` are the whole tree or this rank's blocks (``shard_params``),
+    ``prompts`` the whole batch; every rank returns the whole batch's
+    tokens."""
     B, S0 = prompts.shape
     total = S0 + max_new_tokens if max_len is None else max_len
     if not (S0 > 1 and batched_prefill_supported(model.cfg, S0)):
         return generate_stepwise(model, params, prompts, max_new_tokens,
-                                 max_len=max_len)
+                                 max_len=max_len, mesh=mesh)
     prompts = prompts.long()
-    cache = model.init_cache(B, total, prompts.device)
-    step = make_serve_step(model)
+    ms = None if mesh is None else MeshServing(model, mesh, B)
+    if ms is not None:
+        params, prompts = ms.params(params), prompts[ms.rows]
+        cache = ms.cache(B, total, prompts.device)
+        step = ms.step()
+    else:
+        cache = model.init_cache(B, total, prompts.device)
+        step = make_serve_step(model)
     nxt, _, cache = step(params, cache, prompts,
                          torch.arange(S0, device=prompts.device))
     toks = torch.cat([prompts, nxt], dim=1)
@@ -87,7 +165,7 @@ def generate(model, params, prompts: torch.Tensor, max_new_tokens: int,
         nxt, _, cache = step(params, cache, nxt, t)
         toks = torch.cat([toks, nxt], dim=1)
         t += 1
-    return toks
+    return toks if ms is None else ms.gather(toks)
 
 
 def generate_stepwise(model, params, prompts: torch.Tensor,
@@ -95,13 +173,18 @@ def generate_stepwise(model, params, prompts: torch.Tensor,
                       mesh=None) -> torch.Tensor:
     """Step the prompt token by token, then decode greedily: the fallback
     for architectures batched prefill cannot cover and the oracle
-    :func:`generate` is held to."""
-    _refuse_mesh(mesh)
+    :func:`generate` is held to.  ``mesh`` as in :func:`generate`."""
     B, S0 = prompts.shape
     total = S0 + max_new_tokens if max_len is None else max_len
     prompts = prompts.long()
-    cache = model.init_cache(B, total, prompts.device)
-    step = make_serve_step(model)
+    ms = None if mesh is None else MeshServing(model, mesh, B)
+    if ms is not None:
+        params, prompts = ms.params(params), prompts[ms.rows]
+        cache = ms.cache(B, total, prompts.device)
+        step = ms.step()
+    else:
+        cache = model.init_cache(B, total, prompts.device)
+        step = make_serve_step(model)
     toks = prompts
     nxt = prompts[:, :1]
     for t in range(total - 1):
@@ -111,7 +194,7 @@ def generate_stepwise(model, params, prompts: torch.Tensor,
             toks = torch.cat([toks, nxt], dim=1)
         if toks.shape[1] >= total:
             break
-    return toks
+    return toks if ms is None else ms.gather(toks)
 
 
 def _pow2(n: int) -> int:

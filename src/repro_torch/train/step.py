@@ -17,14 +17,28 @@ Port of ``repro/train/step.py::make_train_step``:
 
 On a mesh (``mesh``, a :class:`repro_torch.dist.mesh.HostMesh`) this process
 is one rank: it computes the gradient of its own worker group,
-``batch[worker_slice_index]``, cuts each leaf that ``tree_pspecs`` shards
-over the model axes to its block (a replicated leaf stays whole, as the
-reference's ``P(worker_axes, *pspec)`` in_specs give it), aggregates through
-``core/robust.py::robust_aggregate_dist`` in the config's layout, and
-all_gathers the blocks over the model axes, so the optimizer sees the whole
-aggregate on every rank.  The forward and backward pass are replicated
-within a model group: the values are the reference's, the memory per rank
-is not (tensor-parallel compute is ROADMAP queue 1 item 10b).
+``batch[worker_slice_index]``, on its blocks of the leaves that
+``tree_pspecs`` shards over the model axes (a replicated leaf whole, as the
+reference's ``P(worker_axes, *pspec)`` in_specs give it), and aggregates
+through ``core/robust.py::robust_aggregate_dist`` in the config's layout.
+Two computes, and the step prints on rank 0 which one it runs:
+
+- tensor-parallel (:attr:`Model.tensor_parallel` models, the dense, MoE
+  and MLA decoders, on a model axis > 1): the params and the optimizer
+  state stay cut to this rank's blocks across steps (:class:`MeshParams`
+  cuts and joins them); the forward and backward pass run under
+  ``use_mesh`` on the blocks, so they give the gradient's blocks, and the
+  optimizer updates the blocks.  The Megatron operators of
+  ``dist/collectives.py`` have no vmap rule, so the rank's one worker group
+  goes through ``torch.func.grad_and_value`` without the worker ``vmap``;
+- replicated (every other model, or a model axis of 1): the params are
+  whole on every rank, the forward and backward pass run whole, each
+  model-sharded leaf of the gradient is cut to this rank's block for the
+  aggregation and the aggregate's blocks are all_gathered over the model
+  axes, so the optimizer sees the whole aggregate on every rank.
+
+Either way the values are the reference's, a replicated leaf's whole
+gradient counted on every model rank included (ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -37,6 +51,58 @@ from repro_torch.core.robust import (RobustConfig, aggregate_stacked_tree,
                                      robust_aggregate_dist)
 from repro_torch.models.moe import no_data_grouping
 from repro_torch.optim.optimizers import OptConfig, apply_updates, tree_norm
+
+
+class MeshParams:
+    """Where a mesh step keeps ``model``'s params and optimizer state: cut
+    to this rank's blocks when the step computes tensor-parallel
+    (``tp``), whole otherwise.  ``shard``/``join`` move a params-shaped
+    tree (or an optimizer state, whose ``step`` count stays as it is)
+    between the two; ``norm`` is the whole tree's L2 norm from the
+    blocks."""
+
+    def __init__(self, model, mesh):
+        from repro_torch.dist.collectives import axis_size, model_cuts
+        from repro_torch.dist.sharding import model_axes_of
+        self.mesh = mesh
+        self.model_axes = mesh.axes(model_axes_of(mesh))
+        self.tp = (getattr(model, "tensor_parallel", False)
+                   and axis_size(self.model_axes) > 1)
+        if self.tp:
+            self.full = model.abstract_params()
+            self.cuts = model_cuts(self.full, mesh)
+
+    def _each(self, fn, tree):
+        if isinstance(tree, dict) and "step" in tree:
+            return {k: (v if k == "step" else fn(v)) for k, v in tree.items()}
+        return fn(tree)
+
+    def shard(self, tree):
+        """This rank's blocks of a whole tree (a leaf that already is its
+        block passes as it is)."""
+        if not self.tp:
+            return tree
+        from repro_torch.dist.sharding import shard_params
+        return self._each(lambda t: shard_params(t, self.mesh, self.full),
+                          tree)
+
+    def join(self, tree):
+        """The whole tree from every model rank's blocks (a collective)."""
+        if not self.tp:
+            return tree
+        from repro_torch.dist.collectives import join_blocks
+        return self._each(lambda t: join_blocks(t, self.cuts), tree)
+
+    def norm(self, tree) -> torch.Tensor:
+        if not self.tp:
+            return tree_norm(tree)
+        from repro_torch.dist.collectives import psum_axes
+        sq = [torch.sum(torch.square(x.float()))
+              for x in tree_util.leaves(tree)]
+        zero = torch.zeros((), device=sq[0].device)
+        cut = sum((q for q, c in zip(sq, self.cuts) if c is not None), zero)
+        whole = sum((q for q, c in zip(sq, self.cuts) if c is None), zero)
+        return torch.sqrt(psum_axes(cut, self.model_axes) + whole)
 
 
 def make_train_step(model, *, robust_cfg: RobustConfig, opt_cfg: OptConfig,
@@ -75,21 +141,24 @@ def make_train_step(model, *, robust_cfg: RobustConfig, opt_cfg: OptConfig,
                                       with_scores=with_scores,
                                       step=train_step)
 
+    norm = tree_norm
     if mesh is not None:
         if codec is not None:
             raise ValueError(
                 "gradient compression encodes whole worker rows and cannot "
                 "run under a dim-sharded mesh; pass mesh=None")
-        grads_of, aggregate = _mesh_stages(mesh, robust_cfg, m,
-                                           worker_grads)
+        grads_of, aggregate, norm = _mesh_stages(
+            mesh, robust_cfg, m, worker_grads, model)
 
     def step(params, opt_state, batch, gen):
         grads, losses = grads_of(params, batch)
         agg = aggregate(grads, gen, None, False, opt_state["step"])
-        params, opt_state = apply_updates(opt_cfg, params, agg, opt_state)
+        del grads
+        params, opt_state = apply_updates(opt_cfg, params, agg, opt_state,
+                                          norm=norm)
         metrics = {"loss": losses.mean(),
                    "loss_per_worker": losses,
-                   "grad_norm": tree_norm(agg)}
+                   "grad_norm": norm(agg)}
         return params, opt_state, metrics
 
     def defense_step(params, opt_state, batch, gen, defense):
@@ -98,11 +167,13 @@ def make_train_step(model, *, robust_cfg: RobustConfig, opt_cfg: OptConfig,
         grads, losses = grads_of(params, batch)
         agg, scores = aggregate(grads, gen, defense["active"], True,
                                 opt_state["step"])
+        del grads
         defense = update_reputation(defense, scores, defense_cfg)
-        params, opt_state = apply_updates(opt_cfg, params, agg, opt_state)
+        params, opt_state = apply_updates(opt_cfg, params, agg, opt_state,
+                                          norm=norm)
         metrics = {"loss": losses.mean(),
                    "loss_per_worker": losses,
-                   "grad_norm": tree_norm(agg),
+                   "grad_norm": norm(agg),
                    "suspicion": scores,
                    "reputation": defense["reputation"],
                    "active": defense["active"],
@@ -114,10 +185,11 @@ def make_train_step(model, *, robust_cfg: RobustConfig, opt_cfg: OptConfig,
         grads, losses = grads_of(params, batch)
         agg, resid = aggregate_compressed_tree(
             grads, robust_cfg, codec, resid, gen, step=opt_state["step"])
-        params, opt_state = apply_updates(opt_cfg, params, agg, opt_state)
+        params, opt_state = apply_updates(opt_cfg, params, agg, opt_state,
+                                          norm=norm)
         metrics = {"loss": losses.mean(),
                    "loss_per_worker": losses,
-                   "grad_norm": tree_norm(agg)}
+                   "grad_norm": norm(agg)}
         return params, opt_state, resid, metrics
 
     def compress_defense_step(params, opt_state, batch, gen, defense, resid):
@@ -128,10 +200,11 @@ def make_train_step(model, *, robust_cfg: RobustConfig, opt_cfg: OptConfig,
             grads, robust_cfg, codec, resid, gen, active=defense["active"],
             with_scores=True, step=opt_state["step"])
         defense = update_reputation(defense, scores, defense_cfg)
-        params, opt_state = apply_updates(opt_cfg, params, agg, opt_state)
+        params, opt_state = apply_updates(opt_cfg, params, agg, opt_state,
+                                          norm=norm)
         metrics = {"loss": losses.mean(),
                    "loss_per_worker": losses,
-                   "grad_norm": tree_norm(agg),
+                   "grad_norm": norm(agg),
                    "suspicion": scores,
                    "reputation": defense["reputation"],
                    "active": defense["active"],
@@ -144,12 +217,15 @@ def make_train_step(model, *, robust_cfg: RobustConfig, opt_cfg: OptConfig,
     return step if defense_cfg is None else defense_step
 
 
-def _mesh_stages(mesh, robust_cfg: RobustConfig, m: int, worker_grads):
-    """The mesh step's ``(grads_of, aggregate)``: this rank's worker
-    gradient (and every worker's loss), and its robust aggregation."""
+def _mesh_stages(mesh, robust_cfg: RobustConfig, m: int, worker_grads,
+                 model):
+    """The mesh step's ``(grads_of, aggregate, norm)``: this rank's worker
+    gradient (and every worker's loss), its robust aggregation, and the
+    aggregate's norm."""
     from repro_torch.dist.collectives import (all_gather_axes, axis_size,
                                               cut_to_blocks, join_blocks,
                                               model_cuts, worker_slice_index)
+    from repro_torch.dist.mesh import use_mesh
     from repro_torch.dist.sharding import model_axes_of, worker_axes_of
     wa = mesh.axes(worker_axes_of(mesh))
     ma = mesh.axes(model_axes_of(mesh))
@@ -157,12 +233,30 @@ def _mesh_stages(mesh, robust_cfg: RobustConfig, m: int, worker_grads):
         raise ValueError(f"num_workers={m} != mesh worker axes size "
                          f"{axis_size(wa)}")
     widx = worker_slice_index(wa)
+    layout = MeshParams(model, mesh)
+    if mesh.rank == 0:
+        name = model.cfg.name if model.cfg is not None else "the model"
+        print(f"[mesh] {name} on {dict(mesh.shape)}: " + (
+            "tensor-parallel compute on this rank's blocks" if layout.tp
+            else "replicated compute (the whole forward and backward pass "
+                 "on every rank of a model group)"))
+    value_and_grad = torch.func.grad_and_value(model.loss)
 
-    def mesh_grads_of(params, batch):
+    def check_groups(batch):
         groups = tree_util.leaves(batch)[0].shape[0]
         if groups != m:
             raise ValueError(f"batch has {groups} worker groups, expected "
                              f"m={m}")
+
+    def tp_grads_of(params, batch):
+        check_groups(batch)
+        own = tree_util.map(lambda x: x[widx], batch)
+        with use_mesh(mesh, batch_sharded=True), no_data_grouping():
+            grads, loss = value_and_grad(params, own)
+        return grads, all_gather_axes(loss[None], wa)
+
+    def mesh_grads_of(params, batch):
+        check_groups(batch)
         # Worker widx's group, as a stack of one through the local vmap.
         own = tree_util.map(lambda x: x[widx:widx + 1], batch)
         with no_data_grouping():
@@ -171,12 +265,15 @@ def _mesh_stages(mesh, robust_cfg: RobustConfig, m: int, worker_grads):
                 all_gather_axes(loss, wa))
 
     def aggregate(grads, gen, active, with_scores, train_step):
-        cuts = model_cuts(grads, mesh)
-        out = robust_aggregate_dist(cut_to_blocks(grads, cuts), robust_cfg,
-                                    wa, ma, gen, active=active,
-                                    with_scores=with_scores, step=train_step)
+        cuts = None if layout.tp else model_cuts(grads, mesh)
+        local = grads if layout.tp else cut_to_blocks(grads, cuts)
+        out = robust_aggregate_dist(local, robust_cfg, wa, ma, gen,
+                                    active=active, with_scores=with_scores,
+                                    step=train_step)
         agg, scores = out if with_scores else (out, None)
-        agg = join_blocks(agg, cuts)
+        if not layout.tp:
+            agg = join_blocks(agg, cuts)
         return (agg, scores) if with_scores else agg
 
-    return mesh_grads_of, aggregate
+    return (tp_grads_of if layout.tp else mesh_grads_of), aggregate, \
+        layout.norm

@@ -437,8 +437,16 @@ def test_serve_cli_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--arch", ARCH])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(["--arch", ARCH, "--mesh", "2x1", "--device", "cpu"])
+    # On a mesh (two spawned CPU ranks) the CLI prints the tokens of the
+    # run without one.
+    dense = ["--arch", ARCH, "--batch", "2", "--prompt-len", "4",
+             "--new-tokens", "3", "--device", "cpu"]
+    cli.main(dense)
+    plain = capsys.readouterr().out
+    cli.main(dense + ["--mesh", "2x1"])
+    meshed = capsys.readouterr().out
+    assert "generated (2, 7)" in meshed
+    assert meshed.split("tok/s)\n")[1] == plain.split("tok/s)\n")[1]
     with pytest.raises(NotImplementedError, match="item 14"):
         cli.main(["--arch", ARCH, "--profile-dir", "p", "--device", "cpu"])
     cli.main(["--arch", ARCH, "--engine", "--replicas", "3", "--corrupt",
