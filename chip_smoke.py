@@ -210,9 +210,32 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
      rank, K1 bit for bit against its plain version on rank 0's slice of
      the worker matrix, rank 0's peak beside the replicated compute's
      whole params and gradient;
+12. the launch CLIs as users run them (after phase 9): ``python -m``
+   subprocesses from the repo root with PYTHONPATH=src, each with
+   ``--metrics`` and ``--profile-dir``, loading the kernels phase 1 built:
+   - (i) ``repro_torch.launch.train --scenario`` of the defended MLP cell
+     (m = 20, d = 118,282, 30 steps), beside (iii): exit 0 and ``[train]
+     done``; the snapshot parses with ``parse_exposition`` and holds
+     span_ms (a rule="phocas" sample), steps, q_hat, resilience_margin,
+     step_flops, step_bytes and device_peak_bytes_in_use; the Chrome trace
+     has one K3 event inside each of the 30 ``train_step`` spans and one in
+     ``compiled_cost``'s ``step_cost`` range; ``python -m
+     repro_torch.obs.report`` of its JSONL exits 0 and prints its ejection
+     timeline;
+   - (ii) gemma2-2b at full width and depth (26 layers, bf16) through the
+     flags: m = 3 workers of one 128-token sequence, phocas b = q = 1 under
+     omniscient, remat full, 3 steps: the step time, peak, step_flops
+     (held within [1, 2] x 6·N·T·m and given as TFLOP/s against the dense
+     bf16 peak), step_bytes as GB/s against HBM3's, one K1 event inside
+     each step span;
+   - (iii) ``repro_torch.launch.serve`` of granite-8b at full width and
+     depth in bf16, 2 prompts of 512 tokens + 8 new: prefill and decode
+     spans in the snapshot, 36 K6 events (one prefill) in the trace;
+   the K1/K3/K6 events of the three traces are added to the launches;
 8. report: the card's name and power limit, one JSON line describing every
-   kernel (launches include rank 0's in phases 10 and 11), and as the last
-   line ``{"ok": true, "device": {...}}``.
+   kernel (launches include rank 0's in phases 10 and 11 and the kernel
+   events of phase 12's traces), and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN convolutions throughout.  Without a CUDA
 device the script exits non-zero and prints no result.
@@ -236,32 +259,30 @@ BF16_TC_OPS_PER_S = 989e12       # H100 SXM bf16/f16 tensor cores, dense
 SHAPES = ((20, 118_282), (20, 2_430_826))   # MLP and CNN worker matrices
 BS = (0, 2, 6, 8, 9)
 ATOL = 1e-4
-# Per kernel: its source, the TPU kernel it replaces, the main-path shape and
-# b its numbers are reported at, and the compares it does per coordinate for
-# m workers (K3 takes m distances, counts those below the best window's score
-# and walks the workers once, about 4m; K4 counts the keys below its two
-# thresholds and walks the workers once, about 8m).
+# Per kernel: its source, the TPU kernel it replaces, and the main-path shape
+# and b its numbers are reported at (the operations and bytes of its bound
+# are the port's own reckoning, ``kernels/build.py::matrix_cost`` and
+# ``::flash_cost``).
 KERNEL_META = {
     "phocas": {"source": "src/repro_torch/kernels/csrc/phocas.cu",
                "replaces": "src/repro/kernels/phocas/kernel.py:106",
-               "shape": SHAPES[0], "b": 8, "compares": lambda m: m},
+               "shape": SHAPES[0], "b": 8},
     "trmean": {"source": "src/repro_torch/kernels/csrc/trmean.cu",
                "replaces": "src/repro/kernels/trmean/kernel.py:108",
-               "shape": SHAPES[1], "b": 6, "compares": lambda m: m},
+               "shape": SHAPES[1], "b": 6},
     "phocas_counts": {
         "source": "src/repro_torch/kernels/csrc/phocas_counts.cu",
         "replaces": "src/repro/kernels/phocas/kernel.py:128",
-        "shape": SHAPES[0], "b": 8, "compares": lambda m: 4 * m},
+        "shape": SHAPES[0], "b": 8},
     "trmean_counts": {
         "source": "src/repro_torch/kernels/csrc/trmean_counts.cu",
         "replaces": "src/repro/kernels/trmean/kernel.py:130",
-        "shape": SHAPES[1], "b": 6, "compares": lambda m: 8 * m},
-    # K5 does m(m+1)/2 multiply-adds (two operations each) per coordinate
-    # and writes an (m, m) f32 matrix; its numbers are at the CNN width.
+        "shape": SHAPES[1], "b": 6},
+    # K5's numbers are at the CNN width.
     "krum_gram": {
         "source": "src/repro_torch/kernels/csrc/krum_gram.cu",
         "replaces": "src/repro/kernels/krum/kernel.py:36",
-        "shape": SHAPES[1], "b": None, "compares": lambda m: m * (m + 1)},
+        "shape": SHAPES[1], "b": None},
     # K6's numbers are at granite-8b's prefill shape (flash_phase).
     "flash_attn": {
         "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
@@ -398,13 +419,13 @@ def bound_ms(kname: str, m: int, d: int, elem_bytes: int) -> tuple:
     """Least time for the function: each input read once and each output
     written once (the (d,) f32 aggregate, and m counts for K3/K4; the
     (m, m) f32 distances for K5) at the card's memory rate, or its compares
-    (K5: multiply-adds, two operations each) at the card's f32 rate."""
-    if kname == "krum_gram":
-        out_bytes = m * m * 4
-    else:
-        out_bytes = d * 4 + (m * 4 if kname.endswith("_counts") else 0)
-    t_bytes = (m * d * elem_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = KERNEL_META[kname]["compares"](m) * d / F32_OPS_PER_S * 1e3
+    (K5: multiply-adds, two operations each) at the card's f32 rate, as
+    ``build.matrix_cost`` counts them (K1/K2 m compares a coordinate, K3
+    about 4m, K4 about 8m, K5 m(m+1))."""
+    from repro_torch.kernels.build import matrix_cost
+    ops, nbytes = matrix_cost(kname, m, d, elem_bytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -1183,7 +1204,7 @@ def traced_run(tag: str, spec, spans: bool = True, **kw):
     spec = dataclasses.replace(spec, telemetry_path=path)
     t0 = time.perf_counter()
     res, counts = launch_counts(lambda: run_experiment(
-        spec, obs=ObsConfig() if spans else None, **kw))
+        spec, obs=ObsConfig(profile_cost=False) if spans else None, **kw))
     wall = time.perf_counter() - t0
     records = read_jsonl(path)
     if not spans:
@@ -1520,15 +1541,14 @@ FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
 
 
 def flash_bound_ms(B, S, H, Kv, hd, dtype, window) -> tuple:
-    """Least time for one call: q, k, v read once and o written once at the
-    card's memory rate, or 4 * hd operations per unmasked (query, key) pair
-    and head at the tensor cores' bf16 rate (f32: the f32 rate, as the
-    kernel runs f32 outside the tensor cores)."""
+    """Least time for one causal call (S queries, S keys): q, k, v read
+    once and o written once at the card's memory rate, or 4 * hd operations
+    per unmasked (query, key) pair and head at the tensor cores' bf16 rate
+    (f32: the f32 rate, as the kernel runs f32 outside the tensor cores),
+    as ``build.flash_cost`` counts them."""
+    from repro_torch.kernels.build import flash_cost
     es = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * B * S * H * hd + 2 * B * S * Kv * hd) * es
-    w = window or S
-    pairs = sum(min(i + 1, w) for i in range(S))
-    ops = 4 * hd * B * H * pairs
+    ops, nbytes = flash_cost(B, S, S, H, Kv, hd, es, True, window)
     rate = BF16_TC_OPS_PER_S if dtype != torch.float32 else F32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
@@ -1847,7 +1867,8 @@ def sync_plan(model, batch_fn, *, m: int, b: int, steps: int,
         num_workers=m, steps=steps, seed=0, record_every=1,
         defense_cfg=DefenseConfig() if defended else None,
         telemetry_path=path if spans else None,
-        obs=ObsConfig() if spans else None, device="cuda")
+        obs=ObsConfig(profile_cost=False) if spans else None,
+        device="cuda")
 
 
 def lm_plan(cell: str, *, steps: int, remat: str = "full",
@@ -2001,15 +2022,15 @@ def lm_trace(cell: str, steps: int = 3) -> None:
               f"  n={e.count:6d}  {e.key[:80]}")
 
 
-def k1_lm_phase(tag: str, plan) -> None:
+def k1_lm_phase(tag: str, plan, timed: bool = True) -> None:
     """K1 and K3 on the (m, D) worker matrix of ``plan`` at its phocas b
     (the gradients of its first batch at the initial parameters, the
     plan's attack's rows written in place): each aggregate equal to its
     plain version bit for bit on the matrix's first and last LM_EDGE
     columns (the last at element offsets past 2^31), read from the whole
     matrix's launch; K3's counts equal to the plain counts summed as
-    integers over column chunks of the whole matrix; then both timed on
-    the whole matrix beside their bound."""
+    integers over column chunks of the whole matrix; then, with
+    ``timed``, both timed on the whole matrix beside their bound."""
     import gc
 
     from repro_torch.core.attacks import make_attack, writing_in_place
@@ -2052,19 +2073,23 @@ def k1_lm_phase(tag: str, plan) -> None:
           f"{tag}: plain counts sum to {int(plain.sum())}, not b*d")
     check(torch.equal(counts, plain.float()),
           f"{tag}: K3 counts {counts.tolist()} != plain {plain.tolist()}")
-    t = time_ms(lambda: phocas_hopper(u, b), reps=5)
-    t3 = time_ms(lambda: phocas_counts_hopper(u, b), reps=5)
-    floor = time_ms(lambda: torch.sum(u, 0), reps=5)
-    b1, by1 = bound_ms("phocas", m, d, 4)
-    b3, by3 = bound_ms("phocas_counts", m, d, 4)
-    print(f"K1 and K3 at {tag}, element offsets to {m * d:,} (past 2^31 = "
-          f"{2**31:,}): aggregates equal to the plain versions bit for bit "
-          f"on the first and last {LM_EDGE:,} columns; K3 counts "
-          f"{plain.tolist()} equal to the plain counts over "
-          f"{-(-d // LM_COUNT_CHUNK)} column chunks (compared as K3's f32 "
-          f"output); K1 {t:.3f} ms (bound {b1:.3f} ms by {by1}, "
-          f"{100 * b1 / t:.0f}%), K3 {t3:.3f} ms (bound {b3:.3f} ms by "
-          f"{by3}, {100 * b3 / t3:.0f}%), torch.sum(u, 0) {floor:.3f} ms")
+    held = (f"K1 and K3 at {tag}, element offsets to {m * d:,} (past 2^31 "
+            f"= {2**31:,}): aggregates equal to the plain versions bit for "
+            f"bit on the first and last {LM_EDGE:,} columns; K3 counts "
+            f"{plain.tolist()} equal to the plain counts over "
+            f"{-(-d // LM_COUNT_CHUNK)} column chunks (compared as K3's f32 "
+            f"output)")
+    if not timed:
+        print(f"{held}; last columns from {d - LM_EDGE:,}")
+    else:
+        t = time_ms(lambda: phocas_hopper(u, b), reps=5)
+        t3 = time_ms(lambda: phocas_counts_hopper(u, b), reps=5)
+        floor = time_ms(lambda: torch.sum(u, 0), reps=5)
+        b1, by1 = bound_ms("phocas", m, d, 4)
+        b3, by3 = bound_ms("phocas_counts", m, d, 4)
+        print(f"{held}; K1 {t:.3f} ms (bound {b1:.3f} ms by {by1}, "
+              f"{100 * b1 / t:.0f}%), K3 {t3:.3f} ms (bound {b3:.3f} ms by "
+              f"{by3}, {100 * b3 / t3:.0f}%), torch.sum(u, 0) {floor:.3f} ms")
     del u, counts
     gc.collect()
     torch.cuda.empty_cache()
@@ -3430,6 +3455,324 @@ def tp_phase() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the launch CLIs, as users run them
+# ---------------------------------------------------------------------------
+
+CLI_DIR = os.path.join(REPO, "build", "chip_smoke", "cli")
+CLI_MLP_STEPS = 30
+# The series every training snapshot must hold (the defended MLP's).
+CLI_SERIES = ("repro_span_ms", "repro_steps", "repro_q_hat",
+              "repro_resilience_margin", "repro_step_flops",
+              "repro_step_bytes", "repro_device_peak_bytes_in_use")
+CLI_GEMMA_M, CLI_GEMMA_SEQ, CLI_GEMMA_STEPS = 3, 128, 3
+CLI_GEMMA = ["--arch", "gemma2-2b", "--workers", str(CLI_GEMMA_M), "--b", "1",
+             "--q", "1", "--attack", "omniscient", "--global-batch",
+             str(CLI_GEMMA_M), "--seq-len", str(CLI_GEMMA_SEQ), "--remat",
+             "full", "--steps", str(CLI_GEMMA_STEPS), "--lr", "0.5"]
+CLI_SERVE = ["--arch", "granite-8b", "--batch", "2", "--prompt-len", "512",
+             "--new-tokens", "8"]
+# A kernel's events in a trace carry its demangled symbol, e.g. ``void
+# phocas_kernel<20, float>(float const*, ...)``.
+KERNEL_SYMBOLS = {"phocas": ("phocas_kernel<",),
+                  "phocas_counts": ("phocas_counts_kernel<",),
+                  "flash_attn": ("flash_fwd_mma<", "flash_fwd_f32<")}
+
+
+def cli_start(tag: str, module: str, args: list) -> dict:
+    """Start ``python -m module args`` from the repo root with
+    PYTHONPATH=src, its output to CLI_DIR/<tag>.out."""
+    path = os.path.join(CLI_DIR, f"{tag}.out")
+    out = open(path, "w")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=REPO,
+                            env=env, stdout=out, stderr=subprocess.STDOUT)
+    return {"tag": tag, "proc": proc, "file": out, "path": path,
+            "t0": time.perf_counter()}
+
+
+def cli_stop(run: dict) -> None:
+    if run["proc"].poll() is None:
+        run["proc"].kill()
+        run["proc"].wait()
+    run["file"].close()
+
+
+def cli_wait(run: dict, timeout_s: float = 300.0) -> str:
+    """Wait for a started CLI; its output, or a failed check if it exited
+    with another code than 0."""
+    try:
+        rc = run["proc"].wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        cli_stop(run)
+    run["s"] = time.perf_counter() - run["t0"]
+    with open(run["path"]) as f:
+        text = f.read()
+    check(rc == 0, f"cli {run['tag']}: exit {rc} after {run['s']:.1f} s:\n"
+                   f"{text[-6000:]}")
+    return text
+
+
+def load_trace(profile_dir: str) -> list:
+    path = os.path.join(profile_dir, "trace.json")
+    check(os.path.exists(path), f"no profiler trace at {path}")
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def launch_times(events: list) -> list:
+    """The trace's kernel events, each with ``launch_ts``: the host time of
+    its launch (its runtime event, by correlation id), or its device start
+    where the trace has no runtime event for it."""
+    launches = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    return [{**e, "launch_ts": launches.get(
+                e.get("args", {}).get("correlation"), e["ts"])}
+            for e in events if e.get("cat") == "kernel"]
+
+
+def kernel_events(events: list, kname: str) -> list:
+    """The trace's kernel events of ``kname`` (:func:`launch_times`)."""
+    return [e for e in launch_times(events)
+            if any(s in e["name"] for s in KERNEL_SYMBOLS[kname])]
+
+
+def annotation_ranges(events: list, name: str) -> list:
+    """(start, end) host times of the ``record_function`` ranges ``name``
+    (the spans, and ``compiled_cost``'s ``step_cost``)."""
+    return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "user_annotation"
+                  and e.get("name") == name)
+
+
+def in_ranges(kernels: list, ranges: list) -> list:
+    return [[k for k in kernels if a <= k["launch_ts"] <= b]
+            for a, b in ranges]
+
+
+def per_range(kernels: list, ranges: list) -> list:
+    return [len(ks) for ks in in_ranges(kernels, ranges)]
+
+
+def step_breakdown(events: list, steps: list, top: int = 5) -> str:
+    """The device's busy share of the step spans and their top kernels by
+    device time, from the kernels launched inside them."""
+    inside = [k for ks in in_ranges(launch_times(events), steps) for k in ks]
+    by_name: dict = {}
+    for e in inside:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    busy = sum(by_name.values())
+    span = sum(b - a for a, b in steps)
+    head = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return (f"{len(inside) / len(steps):.0f} kernels a step, device busy "
+            f"{busy / span:.1%} of the step spans; top: " + "; ".join(
+                f"{name[:60]} {dur / busy:.1%}" for name, dur in head))
+
+
+def snapshot_families(path: str) -> dict:
+    from repro_torch.obs import parse_exposition
+    check(os.path.exists(path), f"no metrics snapshot at {path}")
+    with open(path) as f:
+        return parse_exposition(f.read())
+
+
+def gauge(fams: dict, name: str) -> float:
+    check(name in fams and fams[name]["samples"],
+          f"snapshot lacks {name}")
+    return fams[name]["samples"][0][2]
+
+
+def span_names(fams: dict) -> set:
+    return {lab.get("name") for _, lab, _ in fams["repro_span_ms"]["samples"]}
+
+
+def cli_mlp_checks(out: str, launches: dict) -> None:
+    """The defended MLP through ``launch.train --scenario``: the snapshot's
+    series, one K3 launch inside each step's span and one in the step-cost
+    count."""
+    check("[train] done" in out, f"cli mlp: no '[train] done' in:\n{out}")
+    fams = snapshot_families(os.path.join(CLI_DIR, "mlp.prom"))
+    missing = [n for n in CLI_SERIES if n not in fams]
+    check(not missing, f"cli mlp: snapshot lacks {missing}")
+    check(any(lab.get("rule") == "phocas"
+              for _, lab, _ in fams["repro_span_ms"]["samples"]),
+          "cli mlp: no span_ms sample with rule=phocas")
+    events = load_trace(os.path.join(CLI_DIR, "mlp-prof"))
+    k3, k1 = (kernel_events(events, k) for k in ("phocas_counts", "phocas"))
+    steps = annotation_ranges(events, "train_step")
+    cost = annotation_ranges(events, "step_cost")
+    in_steps = per_range(k3, steps)
+    check(len(steps) == CLI_MLP_STEPS and in_steps == [1] * CLI_MLP_STEPS,
+          f"cli mlp: {len(steps)} train_step spans, K3 events in them "
+          f"{in_steps}")
+    check(per_range(k3, cost) == [1] and len(k3) == CLI_MLP_STEPS + 1,
+          f"cli mlp: K3 events {len(k3)}, in the step-cost count "
+          f"{per_range(k3, cost)}")
+    launches["phocas_counts"] += len(k3)
+    launches["phocas"] += len(k1)
+    k1_steps = sum(per_range(k1, steps))
+    steps_n = gauge(fams, "repro_steps")
+    print(f"  (i) defended MLP (m = 20, d = 118,282, phocas b = 8 under "
+          f"signflip q = 8), {CLI_MLP_STEPS} steps through "
+          f"launch.train --scenario: repro_steps {steps_n:.0f}, q_hat "
+          f"{gauge(fams, 'repro_q_hat'):.0f}, step_flops "
+          f"{gauge(fams, 'repro_step_flops'):.4g}, step_bytes "
+          f"{gauge(fams, 'repro_step_bytes'):.4g}, device peak "
+          f"{gauge(fams, 'repro_device_peak_bytes_in_use') / 2**20:.1f} "
+          f"MiB; trace: {len(steps)} train_step spans with one K3 event "
+          f"each, K1 events in {k1_steps} of them (the steps that began "
+          f"with a worker ejected), one K3 in the step-cost count")
+
+
+def cli_serve_checks(out: str, launches: dict) -> None:
+    """granite-8b through ``launch.serve``: the snapshot's prefill and
+    decode spans, K6 in the trace once a layer (the prefill)."""
+    from repro_torch.configs import get_arch
+    layers = get_arch("granite-8b").num_layers
+    check("[serve] granite-8b: generated (2, 520)" in out,
+          f"cli serve: unexpected output:\n{out}")
+    fams = snapshot_families(os.path.join(CLI_DIR, "serve.prom"))
+    check({"prefill", "decode"} <= span_names(fams),
+          f"cli serve: span names {span_names(fams)}")
+    events = load_trace(os.path.join(CLI_DIR, "serve-prof"))
+    k6 = kernel_events(events, "flash_attn")
+    check(len(k6) == layers, f"cli serve: {len(k6)} K6 events, expected "
+                             f"{layers} (one prefill)")
+    launches["flash_attn"] += len(k6)
+    sums = {lab["name"]: v for n, lab, v in fams["repro_span_ms"]["samples"]
+            if n.endswith("_sum")}
+    counts = {lab["name"]: v for n, lab, v in
+              fams["repro_span_ms"]["samples"] if n.endswith("_count")}
+    line = next(x for x in out.splitlines() if x.startswith("[serve]"))
+    print(f"  (iii) alone on the card: {line.strip()}; prefill span {sums['prefill']:.1f} ms, "
+          f"decode span {sums['decode'] / counts['decode']:.2f} ms (mean of "
+          f"{counts['decode']:.0f}); K6 {len(k6)} events, "
+          f"{sum(e['dur'] for e in k6) / 1e3:.2f} ms of device time")
+
+
+def cli_gemma_checks(out: str, launches: dict) -> None:
+    """gemma2-2b at full width and depth through the flags: one K1 launch
+    inside each step's span, step_flops within [1, 2] x 6·N·T·m."""
+    import re
+
+    from repro_torch.defense import read_jsonl
+    check("[train] done" in out, f"cli gemma: no '[train] done' in:\n{out}")
+    n_params = int(re.search(r"\[train\] gemma2-2b\S*: ([\d,]+) params",
+                             out).group(1).replace(",", ""))
+    fams = snapshot_families(os.path.join(CLI_DIR, "gemma.prom"))
+    flops = gauge(fams, "repro_step_flops")
+    nbytes = gauge(fams, "repro_step_bytes")
+    peak = gauge(fams, "repro_device_peak_bytes_in_use")
+    ms = sorted(r["ms"] for r in read_jsonl(os.path.join(CLI_DIR,
+                                                         "gemma.jsonl"))
+                if r["kind"] == "span" and r["name"] == "train_step")
+    check(len(ms) == CLI_GEMMA_STEPS, f"cli gemma: {len(ms)} step spans")
+    step_s = ms[len(ms) // 2] / 1e3
+    events = load_trace(os.path.join(CLI_DIR, "gemma-prof"))
+    k1 = kernel_events(events, "phocas")
+    steps = annotation_ranges(events, "train_step")
+    in_steps = per_range(k1, steps)
+    check(in_steps == [1] * CLI_GEMMA_STEPS,
+          f"cli gemma: K1 events in the train_step spans {in_steps}")
+    launches["phocas"] += len(k1)
+    reckoning = 6 * n_params * CLI_GEMMA_SEQ * CLI_GEMMA_M
+    check(reckoning <= flops <= 2 * reckoning,
+          f"cli gemma: step_flops {flops:.4g} outside [1, 2] x 6·N·T·m = "
+          f"{reckoning:.4g}")
+    print(f"  (ii) gemma2-2b, {n_params:,} params (26 layers, bf16), m = "
+          f"{CLI_GEMMA_M}, {CLI_GEMMA_SEQ} tokens a worker, remat full, "
+          f"phocas b = q = 1 under omniscient, {CLI_GEMMA_STEPS} steps "
+          f"through the flags: step {ms[len(ms) // 2]:.1f} ms (median "
+          f"synchronized span; all {[round(x, 1) for x in ms]}), device "
+          f"peak {peak / 2**30:.2f} GiB; step_flops {flops:.4g} = "
+          f"{flops / reckoning:.3f} x 6·N·T·m ({reckoning:.4g}), "
+          f"{flops / step_s / 1e12:.1f} TFLOP/s = "
+          f"{flops / step_s / BF16_TC_OPS_PER_S:.1%} of the dense bf16 "
+          f"peak; step_bytes {nbytes:.4g}, {nbytes / step_s / 1e9:.0f} "
+          f"GB/s = {nbytes / step_s / HBM_BYTES_PER_S:.1%} of HBM3's; "
+          f"K1 events {len(k1)} (one in each of the {CLI_GEMMA_STEPS} "
+          f"step spans, {len(k1) - CLI_GEMMA_STEPS} in the step-cost "
+          f"count), {sum(e['dur'] for e in k1) / 1e3:.1f} ms of device "
+          f"time")
+    print(f"      trace (profiler on): {step_breakdown(events, steps)}")
+
+
+def cli_k1_hold() -> None:
+    """K1 and K3 held on the matrix the gemma2-2b CLI run launches K1 on:
+    (CLI_GEMMA_M, D) f32 at b = 1 under omniscient, D = 2,614,341,888 past
+    2^31 columns (:func:`k1_lm_phase`, untimed: the MLP CLI shares the
+    card meanwhile; the trace of the CLI run times K1 there)."""
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models.registry import build_model
+    model = build_model(arch_cfg("gemma2-2b"), remat="full")
+    stream = TokenStream(vocab_size=model.cfg.vocab_size,
+                         seq_len=CLI_GEMMA_SEQ, global_batch=CLI_GEMMA_M,
+                         seed=0, device="cuda")
+    k1_lm_phase("the gemma2-2b CLI run's shape", sync_plan(
+        model, stream.batch, m=CLI_GEMMA_M, b=1, steps=1, tag="cli-k1",
+        spans=False), timed=False)
+
+
+def cli_phase() -> dict:
+    """The train, serve and report CLIs as subprocesses on the card: the
+    granite-8b serve CLI alone; then the defended MLP through a scenario
+    file beside K1's hold at the gemma2-2b run's shape (in this process);
+    then gemma2-2b training beside the report of the MLP's JSONL.
+    Returns the K1/K3/K6 events of their traces, their launches."""
+    import shutil
+    t0 = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+    path = lambda *x: os.path.join(CLI_DIR, *x)  # noqa: E731
+    spec = dataclasses.replace(
+        paper_spec("mlp", CLI_MLP_STEPS, defended=True),
+        telemetry_path=path("mlp.jsonl"))
+    spec.save(path("mlp.json"))
+    obs = lambda tag: ["--metrics", path(f"{tag}.prom"),  # noqa: E731
+                       "--profile-dir", path(f"{tag}-prof")]
+    train, serve = "repro_torch.launch.train", "repro_torch.launch.serve"
+    launches = {"phocas": 0, "phocas_counts": 0, "flash_attn": 0}
+    runs = []
+    print(f"phase 12: the launch CLIs on the card (subprocesses, "
+          f"PYTHONPATH=src)")
+    try:
+        # Each run's output is checked while the next one runs.
+        runs.append(cli_start("serve", serve, CLI_SERVE + obs("serve")))
+        serve_out = cli_wait(runs[0])
+        runs.append(cli_start("mlp", train,
+                              ["--scenario", path("mlp.json")] + obs("mlp")))
+        cli_serve_checks(serve_out, launches)
+        t_hold = time.perf_counter()
+        cli_k1_hold()
+        t_hold = time.perf_counter() - t_hold
+        mlp_out = cli_wait(runs[1])
+        runs.append(cli_start("gemma", train, CLI_GEMMA + [
+            "--telemetry", path("gemma.jsonl")] + obs("gemma")))
+        runs.append(cli_start("report", "repro_torch.obs.report",
+                              [path("mlp.jsonl")]))
+        cli_mlp_checks(mlp_out, launches)
+        report = cli_wait(runs[3])
+        check("ejection timeline:" in report
+              and "ejection timeline: none" not in report,
+              f"cli report: no ejections in:\n{report}")
+        events = [x for x in report.splitlines() if " ejected (" in x]
+        print(f"  report of the MLP's JSONL (python -m "
+              f"repro_torch.obs.report): {len(events)} ejections, first "
+              f"{events[0].strip()!r}")
+        cli_gemma_checks(cli_wait(runs[2], timeout_s=600.0), launches)
+    finally:
+        for run in runs:
+            cli_stop(run)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s (serve "
+          f"{runs[0]['s']:.1f} s alone, then mlp {runs[1]['s']:.1f} s "
+          f"beside the K1 hold {t_hold:.1f} s, then gemma "
+          f"{runs[2]['s']:.1f} s; launches from the traces {launches})")
+    return launches
+
+
 def host_available_gib() -> float:
     with open("/proc/meminfo") as f:
         for line in f:
@@ -3494,6 +3837,8 @@ def main() -> int:
     for k, v in lm_phase().items():
         launches[k] += v
     for k, v in zoo_phase().items():
+        launches[k] += v
+    for k, v in cli_phase().items():
         launches[k] += v
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "

@@ -97,8 +97,10 @@ def gaussian_attack(gen, u: torch.Tensor, q: int,
 def omniscient_attack(gen, u: torch.Tensor, q: int,
                       scale: float = 1e20) -> torch.Tensor:
     """Replace the first q rows with -scale * sum(correct grads) (§5.1.2)."""
-    correct_sum = u[q:].sum(dim=0, keepdim=True)
-    return _with_rows(u, q, (-scale * correct_sum).expand(q, -1))
+    # scaled in place: at an LM's width the sum is gigabytes, and a scaled
+    # copy beside it is the step's peak
+    bad = u[q:].sum(dim=0, keepdim=True).mul_(-scale)
+    return _with_rows(u, q, bad.expand(q, -1))
 
 
 def signflip_attack(gen, u: torch.Tensor, q: int,

@@ -8,7 +8,10 @@ raises fails the call (``torch.multiprocessing`` ends the others and
 re-raises its error here).  ``run_experiment`` of a spec with a ``mesh``
 calls :func:`run_spawned` when no world exists: D x M ranks each run
 ``run_experiment`` as their rank, and rank 0's result is returned.  Every
-rank uses the caller's device: all of them share one card.
+rank uses the caller's device: all of them share one card.  Each rank gets
+the caller's ``ObsConfig``: rank 0 alone writes the telemetry and the
+metrics snapshot, and with a ``profile_dir`` every rank runs inside its own
+profiler window (``<profile_dir>/rank<r>``).
 """
 from __future__ import annotations
 
@@ -111,15 +114,18 @@ def spawn(fn, world: int, *args) -> list:
                            weights_only=False) for r in range(world)]
 
 
-def _run_rank(rank: int, world: int, spec, device, obs, resume):
+def _run_rank(rank: int, world: int, spec, device, verbose, obs, resume):
     from repro_torch.experiment.runner import run_experiment
-    res = run_experiment(spec, device=device, obs=obs, resume=resume)
+    from repro_torch.obs.profile import profile_trace
+    with profile_trace(obs.profile_dir if obs is not None else None):
+        res = run_experiment(spec, device=device, verbose=verbose, obs=obs,
+                             resume=resume)
     return res if rank == 0 else None
 
 
-def run_spawned(spec, *, device=None, obs=None, resume=None):
+def run_spawned(spec, *, device=None, verbose=False, obs=None, resume=None):
     """Run ``spec`` (whose ``mesh`` is ``"DxM"``) in a world of D x M
     spawned ranks; returns rank 0's ``ExperimentResult``."""
     from repro_torch.dist.mesh import parse_mesh
     d, mm = parse_mesh(spec.mesh)
-    return spawn(_run_rank, d * mm, spec, device, obs, resume)[0]
+    return spawn(_run_rank, d * mm, spec, device, verbose, obs, resume)[0]

@@ -60,6 +60,8 @@ class Plan:
     topology_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
     checkpoint_path: Optional[str] = None
     checkpoint_every: int = 0
+    # Print the history rows as the run goes (the train CLI sets it).
+    verbose: bool = False
     # Observability switches (repro_torch.obs.ObsConfig | None): a property
     # of the invocation, not of the spec.
     obs: Any = None
@@ -121,8 +123,8 @@ def validate(spec: ScenarioSpec, resume: Optional[str] = None) -> None:
                 "keeps checkpointing to the same path)")
 
 
-def resolve(spec: ScenarioSpec, *, device=None, obs: Any = None,
-            resume: Optional[str] = None) -> Plan:
+def resolve(spec: ScenarioSpec, *, device=None, verbose: bool = False,
+            obs: Any = None, resume: Optional[str] = None) -> Plan:
     """Validate ``spec`` and build the runtime bundle on ``device``."""
     validate(spec, resume)
     dev = resolve_device(device)
@@ -163,6 +165,7 @@ def resolve(spec: ScenarioSpec, *, device=None, obs: Any = None,
         topology_params=dict(spec.topology_params),
         checkpoint_path=spec.checkpoint_path or None,
         checkpoint_every=spec.checkpoint_every,
+        verbose=verbose,
         obs=obs,
         faults=tuple(spec.faults),
         resume_path=resume or None,
@@ -171,12 +174,15 @@ def resolve(spec: ScenarioSpec, *, device=None, obs: Any = None,
     )
 
 
-def run_experiment(spec: ScenarioSpec, *, device=None, obs: Any = None,
+def run_experiment(spec: ScenarioSpec, *, device=None, verbose: bool = False,
+                   obs: Any = None,
                    resume: Optional[str] = None) -> ExperimentResult:
     """THE entry point: validate + resolve ``spec`` on ``device`` (default
     ``cuda``), dispatch to its topology plugin, return the
-    :class:`ExperimentResult`.  ``obs`` (a ``repro_torch.obs.ObsConfig`` or
-    None) arms the metrics registry and span tracer for this run.
+    :class:`ExperimentResult`.  ``verbose`` prints the history rows as they
+    are recorded.  ``obs`` (a ``repro_torch.obs.ObsConfig`` or None) arms
+    the metrics registry and span tracer for this run; the launch CLIs map
+    their ``--metrics``/``--profile-dir`` flags onto it.
     ``resume`` names a checkpoint written by an earlier run of the same
     spec: the topology restores params, optimizer, defense state, codec
     residual, generator state, live b/q and step from it (falling back to
@@ -186,14 +192,18 @@ def run_experiment(spec: ScenarioSpec, *, device=None, obs: Any = None,
     With ``spec.mesh`` and no ``torch.distributed`` world, the spec is
     validated here and then run by D x M spawned ranks over gloo on
     ``device``; every rank must end with bit-equal params, and a rank's
-    exception fails the call."""
+    exception fails the call.  Each rank gets ``obs``: rank 0 writes the
+    JSONL and the snapshot, and with ``obs.profile_dir`` every rank opens
+    its own profiler window (``<profile_dir>/rank<r>``)."""
     import torch.distributed as dist
     if spec.mesh and not dist.is_initialized():
         from repro_torch.dist.launch import run_spawned
         validate(spec, resume)
         resolve_device(device)
-        return run_spawned(spec, device=device, obs=obs, resume=resume)
-    plan = resolve(spec, device=device, obs=obs, resume=resume)
+        return run_spawned(spec, device=device, verbose=verbose, obs=obs,
+                           resume=resume)
+    plan = resolve(spec, device=device, verbose=verbose, obs=obs,
+                   resume=resume)
     return make_topology(plan.topology).run(plan)
 
 

@@ -4,9 +4,10 @@ Port of ``repro/experiment/spec.py``.  The port reads the reference's JSON
 unchanged (``examples/scenarios/*.json``), so every field is kept; ``defense``
 parses into :class:`repro_torch.defense.DefenseConfig`, ``faults`` into
 :class:`repro_torch.faults.FaultSpec` and ``compression`` into
-:class:`repro_torch.compress.CompressionSpec`.  The axes this package does not
-run yet are refused with ``NotImplementedError`` naming the ROADMAP queue
-item that brings them.  A ``mesh`` (``"DxM"``, data x model) runs on
+:class:`repro_torch.compress.CompressionSpec`.  Every axis of the
+reference's spec runs; :func:`not_ported` is the ``NotImplementedError`` an
+axis the port did not run yet would be refused with, naming its ROADMAP
+queue item.  A ``mesh`` (``"DxM"``, data x model) runs on
 ``sync_ps`` as one ``torch.distributed`` rank per mesh device
 (``experiment/runner.py``); faults and compression refuse a mesh, as in the
 reference.  An arch model trains on the token stream on every training
@@ -135,8 +136,7 @@ class ScenarioSpec:
     def validate(self) -> "ScenarioSpec":
         """Check this spec against the port's registries.
 
-        Raises :class:`SpecError` for a bad spec and ``NotImplementedError``
-        for an axis the port does not run yet.  Returns ``self``.
+        Raises :class:`SpecError` for a bad spec.  Returns ``self``.
         """
         from repro_torch.core import registry
         from repro_torch.experiment.topology import make_topology

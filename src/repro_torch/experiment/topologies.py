@@ -18,8 +18,12 @@ Port of ``repro/experiment/topologies.py``.
 Each loop threads the Recorder of ``make_recorder(plan.telemetry_path,
 plan.obs)``: JSONL records, counters (``steps``, ``ejections``,
 ``readmissions``, ``adaptations``, fault counts), gauges (``q_hat``,
-``resilience_margin``, ``present_workers``, ``steps_per_sec``) and timed
-spans.  The deprecated legacy shims (``Trainer``, ``run_async_training``,
+``resilience_margin``, ``present_workers``, ``steps_per_sec``, and on
+sync_ps the step's cost ``step_flops``/``step_bytes`` and device memory
+``device_bytes_in_use``/``device_peak_bytes_in_use``) and timed spans; on
+a mesh rank 0 alone writes the JSONL and the metrics snapshot.  With
+``plan.verbose`` the loops print their history rows as the reference's do.
+The deprecated legacy shims (``Trainer``, ``run_async_training``,
 ``run_streaming_training``) enter the same loops through
 ``runner.plan_from_parts``.
 """
@@ -71,6 +75,26 @@ def _defense_gauges(rec, *, rule_name: str, m: int, q_hat: int,
     bound = _delta_bound(rule_name, m, q_hat, b, 1.0)
     if bound is not None:
         rec.gauge("delta_bound_unit_var", bound, rule=rule_name)
+
+
+def _profile_step_cost(rec, plan: Plan, step_fn, args) -> None:
+    """One-shot FLOPs/bytes gauges for the train step (one extra call of
+    the step under the counting modes of ``obs/profile.py::compiled_cost``,
+    so gated on obs.profile_cost)."""
+    if not (rec.metrics_enabled and plan.obs is not None
+            and getattr(plan.obs, "profile_cost", False)):
+        return
+    from repro_torch.obs.profile import compiled_cost
+    for name, v in compiled_cost(step_fn, *args).items():
+        rec.gauge(f"step_{name}", v)
+
+
+def _rank_obs(plan: Plan, writer: bool):
+    """``plan.obs`` for this process's Recorder: a mesh rank other than 0
+    keeps its metrics but writes no snapshot."""
+    if plan.obs is None or writer or not plan.obs.metrics_path:
+        return plan.obs
+    return dataclasses.replace(plan.obs, metrics_path=None)
 
 
 def _fault_round(rec, injector, step: int):
@@ -248,10 +272,12 @@ class SyncPS(Topology):
         history: list = []
         metrics: dict = {}
         prev_active = None
+        profiled_cost = False
         start_step = 0
+        verbose = plan.verbose and writer
         t0 = time.time()
         with make_recorder(plan.telemetry_path if writer else None,
-                           plan.obs) as rec:
+                           _rank_obs(plan, writer)) as rec:
             if plan.resume_path:
                 from repro_torch.checkpoint.io import restore_checkpoint
                 like = {"params": join(params), "opt": join(opt_state),
@@ -283,6 +309,10 @@ class SyncPS(Topology):
                 rec.log("resume", ck_step, path=plan.resume_path,
                         fallback=bool(used_prev), b=b_r, q=q_r)
                 rec.count("resumes")
+                if verbose:
+                    src = "prev checkpoint" if used_prev else "checkpoint"
+                    print(f"resumed from {src} at step {ck_step} "
+                          f"({plan.resume_path})", flush=True)
             for step in range(start_step, plan.steps):
                 batch = make_worker_batches(plan.batch_fn(step), m)
                 fr = _fault_round(rec, injector, step)
@@ -338,6 +368,14 @@ class SyncPS(Topology):
                                  if stateful else sub_r)
                     m_step, rc_step = fr.m_eff, rc_eff
                 else:
+                    if not profiled_cost:
+                        profiled_cost = True
+                        args = (params, opt_state, batch, attack_gen)
+                        if defense_state is not None:
+                            args += (defense_state,)
+                        if codec is not None:
+                            args += (resid,)
+                        _profile_step_cost(rec, plan, step_fn, args)
                     with rec.span("train_step", step_num=step,
                                   rule=robust_cfg.rule) as sp:
                         params, opt_state, defense_state, resid, metrics = \
@@ -377,6 +415,18 @@ class SyncPS(Topology):
                         if writer:
                             row["eval"] = float(plan.eval_fn(whole))
                     history.append(row)
+                    if rec.metrics_enabled:
+                        from repro_torch.obs.profile import sample_into
+                        sample_into(rec)
+                    if verbose:
+                        msg = (f"step {step:5d}  loss {row['loss']:.4f}  "
+                               f"gnorm {row['grad_norm']:.3e}")
+                        if "q_hat" in row:
+                            msg += (f"  qhat {row['q_hat']}  "
+                                    f"active {row['n_active']}")
+                        if "eval" in row:
+                            msg += f"  eval {row['eval']:.4f}"
+                        print(msg, flush=True)
 
                 if (plan.checkpoint_path and plan.checkpoint_every and step
                         and step % plan.checkpoint_every == 0
@@ -421,6 +471,10 @@ class SyncPS(Topology):
                             rec.log("adapt", step, b=new_b, q=new_q,
                                     q_hat=q_hat)
                             rec.count("adaptations")
+                            if verbose:
+                                print(f"step {step:5d}  [adapt] "
+                                      f"q_hat={q_hat} -> b={new_b} "
+                                      f"q={new_q} (re-build)", flush=True)
             wall = time.time() - t0
             rec.gauge("steps_per_sec",
                       (plan.steps - start_step) / max(wall, 1e-9),
@@ -536,6 +590,9 @@ class AsyncPS(Topology):
                     if plan.eval_fn is not None:
                         row["eval"] = float(plan.eval_fn(state["params"]))
                     history.append(row)
+                    if plan.verbose and "eval" in row:
+                        print(f"step {i:5d}  eval {row['eval']:.4f}",
+                              flush=True)
             wall = time.time() - t0
             rec.gauge("steps_per_sec", plan.steps / max(wall, 1e-9),
                       topology=self.name)
@@ -633,6 +690,11 @@ class Streaming(Topology):
                     if plan.eval_fn is not None:
                         row["eval"] = float(plan.eval_fn(params))
                     history.append(row)
+                    if plan.verbose:
+                        msg = f"step {i:5d}  loss {row['loss']:.4f}"
+                        if "eval" in row:
+                            msg += f"  eval {row['eval']:.4f}"
+                        print(msg, flush=True)
             wall = time.time() - t0
             rec.gauge("steps_per_sec", plan.steps / max(wall, 1e-9),
                       topology=self.name)

@@ -12,7 +12,7 @@ while the others wait and then load its libraries.
 Libraries are loaded with ``ctypes``.  The aggregate entry points have the
 signature ``int fn(const void* u, void* out, int m, long long d, int b, int
 dtype, void* stream)``; the ``*_counts`` ones take a ``void* counts`` (an (m,)
-int32 buffer, zeroed) after ``out``.  Each enqueues one launch on ``stream``
+int64 buffer, zeroed) after ``out``.  Each enqueues one launch on ``stream``
 and returns ``cudaGetLastError()``.  :func:`launch` checks the matrix, passes
 PyTorch's current stream and raises on a non-zero code.  The Krum Gram kernel
 has its own signature, ``int repro_krum_gram(const void* u, void* out, void*
@@ -27,10 +27,17 @@ strides passed as nine scalars in elements over (batch, position, head);
 ``window`` and ``cap`` are 0 when unset (:func:`launch_flash`).  There is no
 fallback: a missing ``nvcc``, a failed build or a failed launch raises.
 
+A launch made under :func:`counting_costs` adds the kernel's operations and
+bytes, by the reckoning of its bound (:func:`matrix_cost`,
+:func:`flash_cost`), to the open count: ``obs/profile.py::compiled_cost``
+counts a step's work with PyTorch dispatch modes, which do not see a kernel
+launched through ctypes.
+
 Nothing here runs at import time; the CPU tests import this module freely.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -38,7 +45,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -72,6 +79,16 @@ GRAM_BLOCKS_PER_SM = 2
 # their totals (64 MiB); where even one block's partials and the totals
 # exceed it (m > 2,896), the kernel runs one block.
 GRAM_SCRATCH_FLOATS = 1 << 24
+# Operations per coordinate of the (m, d) kernels for m workers, the
+# reckoning of their bounds: K1/K2 one compare per worker; K3 takes m
+# distances, counts those below the best window's score and walks the
+# workers once, about 4m; K4 counts the keys below its two thresholds and
+# walks the workers once, about 8m; K5 does m(m+1)/2 multiply-adds, two
+# operations each.
+OPS_PER_COORDINATE = {"phocas": lambda m: m, "trmean": lambda m: m,
+                      "phocas_counts": lambda m: 4 * m,
+                      "trmean_counts": lambda m: 8 * m,
+                      "krum_gram": lambda m: m * (m + 1)}
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -95,6 +112,54 @@ def _argtypes(name: str) -> list:
     if name == "flash_attn":
         return _FLASH_ARGTYPES
     return _COUNTS_ARGTYPES if _has_counts(name) else _ARGTYPES
+
+
+def matrix_cost(name: str, m: int, d: int, elem_bytes: int) -> tuple:
+    """(operations, bytes) of one launch of kernel ``name`` on an (m, d)
+    matrix: the matrix read once and the outputs written once (the (d,) f32
+    aggregate and, for K3/K4, m counts; K5's (m, m) f32 distances)."""
+    if name == "krum_gram":
+        out_bytes = m * m * 4
+    else:
+        out_bytes = d * 4 + (m * 4 if _has_counts(name) else 0)
+    return (OPS_PER_COORDINATE[name](m) * d,
+            m * d * elem_bytes + out_bytes)
+
+
+def flash_cost(B: int, S: int, T: int, H: int, Kv: int, hd: int,
+               elem_bytes: int, causal: bool, window) -> tuple:
+    """(operations, bytes) of one K6 call: q, k, v read once and o written
+    once; 4 * hd operations (two products of hd multiply-adds) per unmasked
+    (query, key) pair and head."""
+    pairs = 0
+    for i in range(S):
+        hi = min(i, T - 1) if causal else T - 1
+        lo = max(0, i - window + 1) if window else 0
+        pairs += max(0, hi - lo + 1)
+    return (4 * hd * B * H * pairs,
+            (2 * B * S * H * hd + 2 * B * T * Kv * hd) * elem_bytes)
+
+
+_COST_COUNT: Optional[dict] = None
+
+
+@contextlib.contextmanager
+def counting_costs():
+    """Count the operations (``"flops"``) and ``"bytes"`` of every kernel
+    launched inside the block, by :func:`matrix_cost` and
+    :func:`flash_cost`; yields the count."""
+    global _COST_COUNT
+    _COST_COUNT = {"flops": 0.0, "bytes": 0.0}
+    try:
+        yield _COST_COUNT
+    finally:
+        _COST_COUNT = None
+
+
+def _add_cost(cost: tuple) -> None:
+    if _COST_COUNT is not None:
+        _COST_COUNT["flops"] += cost[0]
+        _COST_COUNT["bytes"] += cost[1]
 
 
 class KernelCompileError(RuntimeError):
@@ -241,6 +306,8 @@ def launch_gram(u: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"krum_gram kernel launch failed with CUDA error "
                            f"{rc} (m={m}, d={d}, nblocks={nblocks}, "
                            f"dtype={u.dtype})")
+    if _COST_COUNT is not None:
+        _add_cost(matrix_cost("krum_gram", m, d, u.element_size()))
     return out
 
 
@@ -264,6 +331,9 @@ def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attn kernel launch failed with CUDA error "
                            f"{rc} (q {tuple(q.shape)}, k {tuple(k.shape)}, "
                            f"dtype={q.dtype})")
+    if _COST_COUNT is not None:
+        _add_cost(flash_cost(B, S, T, H, Kv, hd, q.element_size(), causal,
+                             window))
     return out
 
 
@@ -271,14 +341,14 @@ def launch(name: str, u: torch.Tensor, b: int):
     """Launch ``repro_<name>`` on a CUDA (m, d) matrix.
 
     Returns the (d,) f32 aggregate, and for a ``*_counts`` kernel also the
-    (m,) drop counts, accumulated in int32 and returned as f32.
+    (m,) drop counts, accumulated in int64 and returned as f32.
     """
     _check_cuda(name, u)
     m, d = u.shape
     out = torch.empty((d,), dtype=torch.float32, device=u.device)
     bufs = [out]
     if _has_counts(name):
-        bufs.append(torch.zeros((m,), dtype=torch.int32, device=u.device))
+        bufs.append(torch.zeros((m,), dtype=torch.int64, device=u.device))
     fn = getattr(KERNELS.library(name), f"repro_{name}")
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
@@ -287,6 +357,8 @@ def launch(name: str, u: torch.Tensor, b: int):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{rc} (m={m}, d={d}, b={b}, dtype={u.dtype})")
+    if _COST_COUNT is not None:
+        _add_cost(matrix_cost(name, m, d, u.element_size()))
     if len(bufs) == 1:
         return out
     return out, bufs[1].float()

@@ -26,9 +26,10 @@
 // K1's time at the MLP width on an H100.  At a boundary distance tie the
 // aggregate (leftmost window) and the counts (index-stable rank) can name
 // different workers; the reference's plain path does the same.  The drops
-// are counted in int32: a warp ballot and __popc per worker, a shared tally
-// per block, and one atomicAdd per worker and block into the (m,) buffer
-// that the wrapper zeroes.  For 64 < m the column moves to shared
+// are counted with a warp ballot and __popc per worker, an int32 shared
+// tally per block, and one atomicAdd per worker and block into the (m,)
+// 64-bit buffer that the wrapper zeroes (past 2^31 coordinates a worker's
+// count outgrows int32).  For 64 < m the column moves to shared
 // memory and the counts come from a sort of (distance, worker) pairs
 // (selection_wide.cuh).
 #include "selection_wide.cuh"
@@ -38,7 +39,8 @@ namespace repro_torch {
 template <int N, typename T>
 __global__ void __launch_bounds__(kThreads)
     phocas_counts_kernel(const T* __restrict__ u, float* __restrict__ out,
-                         int* __restrict__ counts, int m, long long d,
+                         unsigned long long* __restrict__ counts, int m,
+                         long long d,
                          int b) {
   __shared__ int tally[N];
   __shared__ float stage[window_slots<N>() * kThreads];
@@ -63,7 +65,7 @@ __global__ void __launch_bounds__(kThreads)
 
 using namespace repro_torch;
 
-// u: row-major (m, d) of `dtype`; out: (d,) f32; counts: (m,) int32, zeroed
+// u: row-major (m, d) of `dtype`; out: (d,) f32; counts: (m,) 64-bit, zeroed
 // by the caller.  Enqueues one launch on `stream` and returns
 // cudaGetLastError() (0 on success).  The caller has checked 0 <= b <= (m+1)/2
 // - 1 and that the column fits a block's shared memory (kernels/build.py
@@ -77,16 +79,16 @@ extern "C" int repro_phocas_counts(const void* u, void* out, void* counts,
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (m > kRegisterMaxM) {
-    return launch_wide<kWidePhocasCounts>(u, static_cast<float*>(out),
-                                           static_cast<int*>(counts), m, d, b,
-                                           dtype, stream);
+    return launch_wide<kWidePhocasCounts>(
+        u, static_cast<float*>(out), static_cast<unsigned long long*>(counts),
+        m, d, b, dtype, stream);
   }
   const unsigned grid = static_cast<unsigned>((d + kThreads - 1) / kThreads);
   const int rc = dispatch_register(m, dtype, [&](auto inst) {
     using I = decltype(inst);
     phocas_counts_kernel<I::N, typename I::T><<<grid, kThreads, 0, stream>>>(
         static_cast<const typename I::T*>(u), static_cast<float*>(out),
-        static_cast<int*>(counts), m, d, b);
+        static_cast<unsigned long long*>(counts), m, d, b);
   });
   return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

@@ -389,14 +389,16 @@ __device__ __forceinline__ void zero_tally(int* tally) {
   __syncthreads();
 }
 
-// Add the block's tally to the (m,) int32 counts in device memory: one
-// integer atomicAdd per worker and block, so the counts do not depend on the
-// order in which blocks finish.
-__device__ __forceinline__ void flush_tally(const int* tally, int m,
-                                            int* __restrict__ counts) {
+// Add the block's int32 tally to the (m,) 64-bit counts in device memory
+// (a worker can be dropped at more than 2^31 coordinates of a D past 2^31):
+// one integer atomicAdd per worker and block, so the counts do not depend on
+// the order in which blocks finish.
+__device__ __forceinline__ void flush_tally(
+    const int* tally, int m, unsigned long long* __restrict__ counts) {
   __syncthreads();
   if (threadIdx.x < m && tally[threadIdx.x] != 0) {
-    atomicAdd(&counts[threadIdx.x], tally[threadIdx.x]);
+    atomicAdd(&counts[threadIdx.x],
+              static_cast<unsigned long long>(tally[threadIdx.x]));
   }
 }
 

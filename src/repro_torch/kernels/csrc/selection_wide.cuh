@@ -33,8 +33,8 @@
 // the staged column, sorts (distance, index) pairs a second time and drops
 // positions >= m - b.  The drops go into a shared int tally (integer atomics
 // in shared memory), then one integer atomicAdd per worker and block into the
-// (m,) counts: no float atomics, and counts that do not depend on the order
-// in which blocks run.
+// (m,) 64-bit counts: no float atomics, and counts that do not depend on the
+// order in which blocks run.
 //
 // Both read the aggregate with the register kernels' arithmetic: NaN was
 // mapped to +inf, the kept window is summed in ascending order as a masked
@@ -323,7 +323,8 @@ __global__ void __launch_bounds__(kWideMaxWarps * 32)
 template <int kKind, typename T>
 __global__ void __launch_bounds__(kWideMaxWarps * 32)
     wide_kernel(const T* __restrict__ u, float* __restrict__ out,
-                int* __restrict__ counts, int m, long long d, int b, int p,
+                unsigned long long* __restrict__ counts, int m, long long d,
+                int b, int p,
                 int cols) {
   constexpr bool kCounts = wide_has_counts(kKind);
   constexpr bool kPhocas = kKind == kWidePhocas || kKind == kWidePhocasCounts;
@@ -389,7 +390,9 @@ __global__ void __launch_bounds__(kWideMaxWarps * 32)
   if (kCounts) {
     __syncthreads();
     for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      if (tally[i] != 0) atomicAdd(&counts[i], tally[i]);
+      if (tally[i] != 0) {
+        atomicAdd(&counts[i], static_cast<unsigned long long>(tally[i]));
+      }
     }
   }
 }
@@ -426,7 +429,8 @@ inline int launch_warp_sort(const void* u, float* out, int m, long long d,
 }
 
 template <int kKind, typename T>
-inline int launch_wide_typed(const void* u, float* out, int* counts, int m,
+inline int launch_wide_typed(const void* u, float* out,
+                             unsigned long long* counts, int m,
                              long long d, int b, const WideLayout& l,
                              cudaStream_t stream) {
   const long long blocks = (d + l.cols - 1) / l.cols;
@@ -451,7 +455,8 @@ inline int launch_wide_typed(const void* u, float* out, int* counts, int m,
 // one column does not fit a block's shared memory (the wrappers raise first,
 // at kernels/build.py's MAX_M) or the dtype is unknown.
 template <int kKind>
-inline int launch_wide(const void* u, float* out, int* counts, int m,
+inline int launch_wide(const void* u, float* out, unsigned long long* counts,
+                       int m,
                        long long d, int b, int dtype, cudaStream_t stream) {
   const WideLayout l = wide_layout(kKind, m);
   if (l.cols < 1) return static_cast<int>(cudaErrorInvalidValue);

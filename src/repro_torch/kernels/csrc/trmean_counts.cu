@@ -25,9 +25,10 @@
 // (about 570 at m = 20) with both register arrays live: 3.5x K2's time at the
 // CNN width on an H100.  What remains over K2's time is the walk, issued for
 // every coordinate: per worker a few compares, a ballot and a tally update.
-// The drops are counted in int32: a warp ballot and __popc per worker, a
+// The drops are counted with a warp ballot and __popc per worker, an int32
 // shared tally per block, and one atomicAdd per worker and block into the
-// (m,) buffer that the wrapper zeroes.  The TPU's 128-lane counts row,
+// (m,) 64-bit buffer that the wrapper zeroes (past 2^31 coordinates a
+// worker's count outgrows int32).  The TPU's 128-lane counts row,
 // per-block partial counts and extraction variant are TPU layout and are
 // not carried over.  For 64 < m the column moves to shared memory
 // and the counts come from a sort of (value, worker) pairs
@@ -39,7 +40,8 @@ namespace repro_torch {
 template <int N, typename T>
 __global__ void __launch_bounds__(kThreads)
     trmean_counts_kernel(const T* __restrict__ u, float* __restrict__ out,
-                         int* __restrict__ counts, int m, long long d,
+                         unsigned long long* __restrict__ counts, int m,
+                         long long d,
                          int b) {
   __shared__ int tally[N];
   zero_tally<N>(tally);
@@ -61,7 +63,7 @@ __global__ void __launch_bounds__(kThreads)
 
 using namespace repro_torch;
 
-// u: row-major (m, d) of `dtype`; out: (d,) f32; counts: (m,) int32, zeroed
+// u: row-major (m, d) of `dtype`; out: (d,) f32; counts: (m,) 64-bit, zeroed
 // by the caller.  Enqueues one launch on `stream` and returns
 // cudaGetLastError() (0 on success).  The caller has checked 0 <= b <= (m+1)/2
 // - 1 and that the column fits a block's shared memory (kernels/build.py
@@ -75,16 +77,16 @@ extern "C" int repro_trmean_counts(const void* u, void* out, void* counts,
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (m > kRegisterMaxM) {
-    return launch_wide<kWideTrmeanCounts>(u, static_cast<float*>(out),
-                                           static_cast<int*>(counts), m, d, b,
-                                           dtype, stream);
+    return launch_wide<kWideTrmeanCounts>(
+        u, static_cast<float*>(out), static_cast<unsigned long long*>(counts),
+        m, d, b, dtype, stream);
   }
   const unsigned grid = static_cast<unsigned>((d + kThreads - 1) / kThreads);
   const int rc = dispatch_register(m, dtype, [&](auto inst) {
     using I = decltype(inst);
     trmean_counts_kernel<I::N, typename I::T><<<grid, kThreads, 0, stream>>>(
         static_cast<const typename I::T*>(u), static_cast<float*>(out),
-        static_cast<int*>(counts), m, d, b);
+        static_cast<unsigned long long*>(counts), m, d, b);
   });
   return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

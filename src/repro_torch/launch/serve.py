@@ -18,8 +18,13 @@ requests shard over the data axis, the KV heads and the dense, MoE and MLA
 layers over the model axis; each rank builds only its blocks of the
 params, the ranks taking turns; rank 0 prints the ``tok/s`` line and the
 tokens as without a mesh.  The paged engine takes no mesh.
-``--metrics`` / ``--profile-dir`` (ROADMAP queue 1 item 14) raise
-``NotImplementedError``.
+
+``--metrics PATH`` arms the obs layer (the ``prefill``/``decode`` spans, the
+engine's counters and gauges, ``serve_tokens_per_sec``) and writes its
+Prometheus-style snapshot to PATH at the end; ``--profile-dir DIR`` writes a
+``torch.profiler`` Chrome trace of the generation to ``DIR/trace.json``
+(``DIR/rank<r>/trace.json`` on a mesh, where rank 0 alone writes the
+snapshot).
 
   python -m repro_torch.launch.serve --arch granite-8b-reduced --batch 4 \\
       --prompt-len 8 --new-tokens 16
@@ -40,7 +45,6 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.experiment.runner import resolve_device
-from repro_torch.experiment.spec import not_ported
 from repro_torch.models.registry import build_model
 from repro_torch.serve import generate
 
@@ -50,27 +54,50 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _obs_config(args):
+    """ObsConfig from the --metrics/--profile-dir flags, or None."""
+    if not (args.metrics or args.profile_dir):
+        return None
+    from repro_torch.obs import ObsConfig
+    return ObsConfig(enabled=True, trace=True,
+                     metrics_path=args.metrics or None,
+                     profile_dir=args.profile_dir or None)
+
+
 def _run_dense(args, model, params, device, mesh=None):
+    from repro_torch.obs import make_recorder, set_default_recorder
+    from repro_torch.obs.profile import profile_trace
     gen = torch.Generator(device=device).manual_seed(args.seed)
     prompts = torch.randint(0, model.cfg.vocab_size,
                             (args.batch, args.prompt_len), generator=gen,
                             device=device)
-    t0 = time.time()
-    out = generate(model, params, prompts, args.new_tokens, mesh=mesh)
-    _sync(device)
-    dt = time.time() - t0
-    if mesh is not None and mesh.rank != 0:
-        return
-    tok_s = args.batch * args.new_tokens / dt
-    print(f"[serve] {args.arch}: generated {tuple(out.shape)} in {dt:.2f}s "
-          f"({tok_s:.1f} tok/s)")
-    if args.telemetry:
-        from repro_torch.obs import make_recorder
-        with make_recorder(args.telemetry) as rec:
-            rec.log("serve", 0, arch=args.arch, batch=args.batch,
-                    prompt_len=args.prompt_len,
-                    new_tokens=args.new_tokens, wall_s=dt, tok_s=tok_s,
-                    mesh=args.mesh or "none")
+    lead = mesh is None or mesh.rank == 0
+    # rank 0's recorder times generate's prefill/decode spans and writes
+    # the telemetry and the snapshot
+    obs = _obs_config(args) if lead else None
+    with make_recorder((args.telemetry or None) if lead else None,
+                       obs) as rec:
+        set_default_recorder(rec if obs is not None else None)
+        try:
+            t0 = time.time()
+            with profile_trace(args.profile_dir or None):
+                out = generate(model, params, prompts, args.new_tokens,
+                               mesh=mesh)
+                _sync(device)
+            dt = time.time() - t0
+        finally:
+            set_default_recorder(None)
+        if not lead:
+            return
+        tok_s = args.batch * args.new_tokens / dt
+        print(f"[serve] {args.arch}: generated {tuple(out.shape)} in "
+              f"{dt:.2f}s ({tok_s:.1f} tok/s)")
+        rec.log("serve", 0, arch=args.arch, batch=args.batch,
+                prompt_len=args.prompt_len, new_tokens=args.new_tokens,
+                wall_s=dt, tok_s=tok_s, mesh=args.mesh or "none")
+        rec.gauge("serve_tokens_per_sec", tok_s)
+    if args.metrics:
+        print(f"[serve] wrote metrics snapshot {args.metrics}")
     print(out[:, args.prompt_len:])
 
 
@@ -93,7 +120,8 @@ def _run_engine(args, model, params, device):
 
     max_seq_len = args.prompt_len + args.new_tokens
     rng = np.random.default_rng(args.seed)
-    with make_recorder(args.telemetry or None) as rec:
+    from repro_torch.obs.profile import profile_trace
+    with make_recorder(args.telemetry or None, _obs_config(args)) as rec:
         engine = ServeEngine(model, params, max_slots=args.max_batch,
                              max_seq_len=max_seq_len, decoder=decoder,
                              telemetry=rec)
@@ -103,9 +131,14 @@ def _run_engine(args, model, params, device):
                              (args.prompt_len,)).tolist(),
                 args.new_tokens)
         t0 = time.time()
-        done = engine.run()
-        _sync(device)
+        with profile_trace(args.profile_dir or None):
+            done = engine.run()
+            _sync(device)
         dt = time.time() - t0
+        rec.gauge("serve_tokens_per_sec",
+                  sum(len(r.generated) for r in done) / max(dt, 1e-9))
+    if args.metrics:
+        print(f"[serve] wrote metrics snapshot {args.metrics}")
     toks = sum(len(r.generated) for r in done)
     lat = sorted(r.latency_ms() for r in done)
     mode = (f"robust k={args.replicas} {args.robust_rule}"
@@ -151,15 +184,14 @@ def main(argv=None):
                     help="JSONL path for serve + robust-decode score "
                          "telemetry")
     ap.add_argument("--metrics", default="",
-                    help="metrics exposition snapshot (not ported: ROADMAP "
-                         "queue 1 item 14)")
+                    help="arm the obs layer: write a Prometheus-style "
+                         "exposition snapshot to this path at run end "
+                         "(implies span tracing; see repro_torch.obs)")
     ap.add_argument("--profile-dir", default="",
-                    help="profiler trace directory (not ported: ROADMAP "
-                         "queue 1 item 14)")
+                    help="capture a torch.profiler Chrome trace of the run "
+                         "into this directory (trace.json; rank<r>/ on a "
+                         "mesh)")
     args = ap.parse_args(argv)
-    if args.metrics or args.profile_dir:
-        raise not_ported("the metrics snapshot and profiler trace "
-                         "(--metrics, --profile-dir)", "item 14")
     engine = args.engine or args.replicas > 1
     if args.mesh and engine:
         raise SystemExit("--mesh serves the dense tier; the paged engine "

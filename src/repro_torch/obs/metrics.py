@@ -4,9 +4,8 @@
 Two objects:
 
 * :class:`MetricsRegistry` — in-process counters, gauges, and fixed-bucket
-  histograms, keyed by ``(name, labels)``.  Pure stdlib.  (The
-  reference exports it as a Prometheus-style text snapshot with
-  ``obs/export.py``, which comes with ROADMAP queue 1 item 14.)
+  histograms, keyed by ``(name, labels)``.  Pure stdlib; exported as a
+  Prometheus-style text snapshot by ``obs/export.py``.
 
 * :class:`Recorder` — the bus every instrumented path threads: ``emit()``
   (alias ``log()``, signature-compatible with the legacy
@@ -28,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import numbers
 from bisect import bisect_left
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.obs.schema import check_kind
 
@@ -89,6 +88,14 @@ class Histogram:
         self.counts[bisect_left(self.bounds, v)] += 1
         self.sum += v
         self.count += 1
+
+    def cumulative(self) -> List[int]:
+        """Per-``le`` cumulative counts, +Inf last (the exposition view)."""
+        out, acc = [], 0
+        for c in self.counts:
+            acc += c
+            out.append(acc)
+        return out
 
 
 _KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
@@ -152,11 +159,12 @@ class ObsConfig:
 
     ``enabled`` turns the metrics registry on; ``trace`` additionally arms
     span timing (host wall-clock with ``torch.cuda.synchronize`` at span
-    close — see obs/trace.py for the async-dispatch contract).  The
-    reference's ``metrics_path`` (exposition snapshot), ``profile_dir``
-    (profiler window) and ``profile_cost`` (compiled-step cost) come with
-    ROADMAP queue 1 item 14: :func:`make_recorder` refuses the first two,
-    and nothing reads the third.
+    close — see obs/trace.py for the async-dispatch contract);
+    ``metrics_path`` is where the Prometheus-style exposition snapshot lands
+    when the Recorder closes; ``profile_dir`` is where a ``torch.profiler``
+    window around the run writes its Chrome trace (obs/profile.py);
+    ``profile_cost`` counts the train step's FLOPs and bytes once, by one
+    extra call of the step (``obs/profile.py::compiled_cost``).
     """
     enabled: bool = True
     trace: bool = True
@@ -193,11 +201,13 @@ class Recorder:
 
     def __init__(self, sinks: Sequence = (), registry:
                  Optional[MetricsRegistry] = None, trace: bool = False,
+                 metrics_path: Optional[str] = None,
                  owned: Sequence = ()):
         self._sinks = list(sinks)
         self._owned = list(owned)
         self.registry = registry
         self.trace_enabled = bool(trace) and registry is not None
+        self.metrics_path = metrics_path
         self._closed = False
 
     @property
@@ -263,9 +273,16 @@ class Recorder:
 
     # -- lifecycle ---------------------------------------------------------
 
+    def snapshot(self) -> str:
+        """The Prometheus-style exposition of the current registry state."""
+        from repro_torch.obs.export import render_prometheus
+        if self.registry is None:
+            return ""
+        return render_prometheus(self.registry)
+
     def close(self) -> None:
         """Flush: dump the registry as ``metric`` records onto the JSONL
-        sinks, close owned sinks."""
+        sinks, write the exposition snapshot, close owned sinks."""
         if self._closed:
             return
         self._closed = True
@@ -276,6 +293,9 @@ class Recorder:
                     self._write("metric", -1, name=name, type=type_name,
                                 value=float(value),
                                 labels=dict(labels_key))
+        if self.metrics_path and self.registry is not None:
+            from repro_torch.obs.export import write_snapshot
+            write_snapshot(self.registry, self.metrics_path)
         for sink in self._owned:
             sink.close()
         self._owned = []
@@ -309,10 +329,6 @@ def make_recorder(telemetry_path: Optional[str] = None,
     when ``obs.enabled``.  Both off returns a disabled (but fresh,
     independently closeable) Recorder."""
     from repro_torch.defense.telemetry import TelemetryWriter
-    if obs is not None and (obs.metrics_path or obs.profile_dir):
-        from repro_torch.experiment.spec import not_ported
-        raise not_ported("the metrics snapshot and profiler window "
-                         "(ObsConfig.metrics_path / profile_dir)", "item 14")
     sinks, owned = [], []
     if telemetry_path:
         writer = TelemetryWriter(telemetry_path)
@@ -322,4 +338,6 @@ def make_recorder(telemetry_path: Optional[str] = None,
         else None
     return Recorder(sinks=sinks, registry=registry,
                     trace=obs.trace if obs is not None else False,
+                    metrics_path=obs.metrics_path if obs is not None
+                    else None,
                     owned=owned)

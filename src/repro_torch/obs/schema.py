@@ -13,7 +13,7 @@ at its call site instead of silently forking the record stream.
 """
 from __future__ import annotations
 
-from typing import Dict, FrozenSet
+from typing import Dict, FrozenSet, List
 
 # kind -> well-known fields (beyond the envelope keys "t"/"kind"/"step").
 SCHEMA: Dict[str, FrozenSet[str]] = {
@@ -57,6 +57,10 @@ SCHEMA: Dict[str, FrozenSet[str]] = {
                            "hint"}),
 }
 
+# Envelope keys every record carries (written by the sink, not the caller).
+ENVELOPE = ("t", "kind", "step")
+
+
 def check_kind(kind: str) -> str:
     """Validate a record kind against the registry; returns it unchanged."""
     if kind not in SCHEMA:
@@ -65,3 +69,20 @@ def check_kind(kind: str) -> str:
             f"{', '.join(sorted(SCHEMA))} (register new kinds in "
             "repro_torch/obs/schema.py)")
     return kind
+
+
+def validate_record(rec: dict) -> List[str]:
+    """Problems with one decoded JSONL record (empty list = valid).
+
+    Checks the envelope (``t``/``kind``/``step`` present, kind registered)
+    — the per-kind field sets are advisory, so extra or missing payload
+    fields are NOT errors.
+    """
+    problems = []
+    for key in ENVELOPE:
+        if key not in rec:
+            problems.append(f"missing envelope key {key!r}")
+    kind = rec.get("kind")
+    if kind is not None and kind not in SCHEMA:
+        problems.append(f"unregistered kind {kind!r}")
+    return problems

@@ -35,6 +35,11 @@ def _stack() -> list:
     return stack
 
 
+def current_path() -> str:
+    """The active span path ("" outside any span) — test/debug hook."""
+    return "/".join(_stack())
+
+
 class _NullSpan:
     """The shared zero-cost span: returned for every ``span()`` call while
     tracing is off.  A singleton so disabled instrumentation allocates
@@ -100,3 +105,23 @@ class Span:
         self._recorder._span_done(self.path, ms, self.labels,
                                   self.step_num)
         return False
+
+
+# -- module-level convenience ------------------------------------------------
+
+_default_recorder = None
+
+
+def set_default_recorder(recorder) -> None:
+    """Install the process-default Recorder :func:`span` binds to (None
+    disarms it), so library code can open spans without threading the
+    Recorder through every signature."""
+    global _default_recorder
+    _default_recorder = recorder
+
+
+def span(name: str, step_num: Optional[int] = None, **labels):
+    """A span on the process-default Recorder (no-op when none is set)."""
+    if _default_recorder is None:
+        return NULL_SPAN
+    return _default_recorder.span(name, step_num=step_num, **labels)

@@ -142,7 +142,12 @@ def generate(model, params, prompts: torch.Tensor, max_new_tokens: int,
     With ``mesh`` (a ``HostMesh`` over the world) this process is one rank:
     ``params`` are the whole tree or this rank's blocks (``shard_params``),
     ``prompts`` the whole batch; every rank returns the whole batch's
-    tokens."""
+    tokens.
+
+    The prefill and each decode step run inside ``prefill``/``decode``
+    spans of the process-default Recorder (``obs.set_default_recorder``,
+    which the serve CLI sets under ``--metrics``; no-ops otherwise)."""
+    from repro_torch.obs.trace import span
     B, S0 = prompts.shape
     total = S0 + max_new_tokens if max_len is None else max_len
     if not (S0 > 1 and batched_prefill_supported(model.cfg, S0)):
@@ -157,12 +162,15 @@ def generate(model, params, prompts: torch.Tensor, max_new_tokens: int,
     else:
         cache = model.init_cache(B, total, prompts.device)
         step = make_serve_step(model)
-    nxt, _, cache = step(params, cache, prompts,
-                         torch.arange(S0, device=prompts.device))
+    with span("prefill", step_num=0, prompt_len=S0, batch=B) as sp:
+        nxt, _, cache = sp.sync(step(params, cache, prompts,
+                                     torch.arange(S0,
+                                                  device=prompts.device)))
     toks = torch.cat([prompts, nxt], dim=1)
     t = S0
     while toks.shape[1] < total:
-        nxt, _, cache = step(params, cache, nxt, t)
+        with span("decode", step_num=t - S0 + 1, batch=B) as sp:
+            nxt, _, cache = sp.sync(step(params, cache, nxt, t))
         toks = torch.cat([toks, nxt], dim=1)
         t += 1
     return toks if ms is None else ms.gather(toks)

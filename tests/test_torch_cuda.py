@@ -530,6 +530,25 @@ def test_phocas_counts_kernel_past_2_31_elements(cuda):
     assert torch.equal(counts, plain.float())
 
 
+@pytest.mark.parametrize("kernel,dropped,agg", [
+    (phocas_counts_hopper, (0, 0, 1), 0.5),
+    (trmean_counts_hopper, (1, 0, 1), 1.0)])
+@pytest.mark.cuda
+def test_counts_kernels_past_2_31_columns(cuda, kernel, dropped, agg):
+    """K3 and K4 on a (3, d) matrix with d past 2^31, rows 0, 1 and 100 at
+    every coordinate, b = 1: Phocas drops worker 2 and the trimmed mean
+    workers 0 and 2 at every coordinate, so a count reaches d, past what
+    int32 holds (d is a multiple of 2^20, exact in f32)."""
+    d, n = (1 << 31) + (1 << 20), 1 << 20
+    u = torch.empty((3, d), dtype=torch.bfloat16, device=cuda)
+    for i, v in enumerate((0.0, 1.0, 100.0)):
+        u[i].fill_(v)
+    got, counts = kernel(u, 1)
+    for cols in (slice(d - n, d), slice(0, n)):
+        assert bool((got[cols] == agg).all())
+    assert counts.tolist() == [float(d * x) for x in dropped]
+
+
 @pytest.mark.cuda
 def test_lm_training_launches_phocas_and_never_flash(cuda):
     """An arch model trains on the card through run_experiment: one K1

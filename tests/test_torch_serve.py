@@ -358,10 +358,12 @@ def test_engine_validation(models):
 
 def test_replica_telemetry_and_metrics(models, tmp_path):
     from repro_torch.defense.telemetry import read_jsonl
-    from repro_torch.obs import ObsConfig, make_recorder
+    from repro_torch.obs import ObsConfig, make_recorder, parse_exposition
     tm, tp, tbad = models[3], models[4], models[5]
     path = str(tmp_path / "tel.jsonl")
-    with make_recorder(path, ObsConfig(enabled=True, trace=True)) as rec:
+    snap = tmp_path / "m.prom"
+    with make_recorder(path, ObsConfig(enabled=True, trace=True,
+                                       metrics_path=str(snap))) as rec:
         engine = ServeEngine(tm, (tbad, tp, tp), max_slots=1, max_seq_len=24,
                              block_tokens=4,
                              decoder=RobustDecoder(rule="phocas", k=3),
@@ -377,8 +379,12 @@ def test_replica_telemetry_and_metrics(models, tmp_path):
         {r["kind"] for r in records}
     scored = [r for r in records if r["kind"] == "robust_decode"]
     assert scored[-1]["scores"][0] > max(scored[-1]["scores"][1:])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_recorder(None, ObsConfig(metrics_path=str(tmp_path / "m")))
+    # the recorder's close wrote the snapshot of the same registry
+    fams = parse_exposition(snap.read_text())
+    assert fams["repro_ejections"]["samples"] == [
+        ("repro_ejections", {"stream": "robust_decode"}, 1.0)]
+    assert ("repro_span_ms_count", {"k": "3", "name": "decode", "slots": "1"},
+            19.0) in fams["repro_span_ms"]["samples"]
 
 
 # ---------------------------------------------------------------------------
@@ -432,7 +438,8 @@ def test_serve_spec_validation(change, err):
         spec.validate()
 
 
-def test_serve_cli_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch, capsys):
+def test_serve_cli_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch, capsys,
+                                                        tmp_path):
     from repro_torch.launch import serve as cli
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -447,8 +454,11 @@ def test_serve_cli_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch, capsys):
     meshed = capsys.readouterr().out
     assert "generated (2, 7)" in meshed
     assert meshed.split("tok/s)\n")[1] == plain.split("tok/s)\n")[1]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["--arch", ARCH, "--profile-dir", "p", "--device", "cpu"])
+    prof = tmp_path / "prof"
+    cli.main(dense + ["--profile-dir", str(prof)])
+    assert capsys.readouterr().out.split("tok/s)\n")[1] == \
+        plain.split("tok/s)\n")[1]
+    assert (prof / "trace.json").stat().st_size > 0
     cli.main(["--arch", ARCH, "--engine", "--replicas", "3", "--corrupt",
               "1", "--batch", "2", "--prompt-len", "4", "--new-tokens", "16",
               "--device", "cpu"])

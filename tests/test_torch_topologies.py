@@ -111,7 +111,8 @@ def test_sync_ps_recorder_matches_reference(monkeypatch):
     ref_rec = _capture(rexp.topologies, monkeypatch)
     rexp.topologies.SyncPS().run(plan)
 
-    tplan = tresolve(_port(spec), device="cpu", obs=ObsConfig())
+    tplan = tresolve(_port(spec), device="cpu",
+                     obs=ObsConfig(profile_cost=False))
     tplan.batch_fn = lambda s: {"x": torch.tensor(batches[s]["x"]),
                                 "y": torch.tensor(batches[s]["y"]).long()}
     port_rec = _capture(ttopo, monkeypatch)

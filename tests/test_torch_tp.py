@@ -153,7 +153,9 @@ def world(tmp_path_factory):
             batches=[jax.tree.map(np.asarray, plan.batch_fn(s))
                      for s in range(rspec.steps)],
             resume_dir=(str(tmp_path_factory.mktemp("tp"))
-                        if arch == TRAIN[0] else None))
+                        if arch == TRAIN[0] else None),
+            cost_path=(str(tmp_path_factory.mktemp("cost") / "m.prom")
+                       if arch == TRAIN[0] else None))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(spawn, tp_rank, MESH[0] * MESH[1], serve_cases,
                             train_cases)
@@ -240,6 +242,22 @@ def test_mesh_resume_equals_the_uninterrupted_run(world):
     _, ranks = world
     got = ranks[0]["train"][TRAIN[0]]
     assert got["resumed"].tobytes() == got["params"].tobytes()
+
+
+def test_mesh_step_cost_leaves_the_run_alone(world):
+    """With metrics on, every rank of the (2, 2) mesh counts the step once
+    (an extra call through the model axis's collectives, under the
+    counting modes); rank 0's snapshot has the count, and the run's
+    losses and params are the bits of the run without it."""
+    from repro_torch.obs import parse_exposition
+    _, ranks = world
+    got = ranks[0]["train"][TRAIN[0]]
+    assert got["counted"]["losses"] == got["losses"]
+    assert got["counted"]["params"].tobytes() == got["params"].tobytes()
+    with open(got["counted"]["path"]) as fh:
+        fams = parse_exposition(fh.read())
+    for name in ("repro_step_flops", "repro_step_bytes"):
+        assert fams[name]["samples"][0][2] > 0
 
 
 @pytest.mark.parametrize("arch", TRAIN)

@@ -56,12 +56,16 @@ def _serve(mesh, arch, changes, params, prompts, new_tokens) -> dict:
             "param_bytes": _bytes(blocks), "batch_sharded": ms.sharded}
 
 
-def _train(spec_json, init, batches, resume_dir=None) -> dict:
+def _train(spec_json, init, batches, resume_dir=None,
+           cost_path=None) -> dict:
     """The spec's sync_ps run on this world from the reference's params
     on its batches; then one momentum step of the mesh train step from
     this rank's blocks, whose params and optimizer state are counted.
     With ``resume_dir``: the run again, killed after its second step
-    (checkpointed every step), then resumed to the end."""
+    (checkpointed every step), then resumed to the end.  With
+    ``cost_path``: the run again with metrics on and the step's cost
+    counted (one extra call of the step on every rank, through the model
+    axis's collectives), rank 0 writing the snapshot there."""
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.data.pipeline import make_worker_batches
     from repro_torch.experiment import ScenarioSpec, resolve
@@ -102,6 +106,16 @@ def _train(spec_json, init, batches, resume_dir=None) -> dict:
         plan = resolve(whole, device="cpu", resume=path)
         plan.batch_fn = lambda s: feed[s]
         out["resumed"] = _flat(SyncPS().run(plan).params)
+    if cost_path is not None:
+        from repro_torch.obs import ObsConfig
+        plan = resolve(spec, device="cpu", obs=ObsConfig(
+            metrics_path=cost_path, profile_cost=True))
+        plan.batch_fn = lambda s: feed[s]
+        counted = SyncPS().run(plan, init_state=(
+            params, init_opt_state(plan.opt_cfg, params)))
+        out["counted"] = {"losses": [r["loss"] for r in counted.history],
+                          "params": _flat(counted.params),
+                          "path": cost_path}
     return out
 
 
