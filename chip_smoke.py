@@ -182,34 +182,47 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
      process, which spawns its own 20 ranks; both 5-step runs held to the
      single-process run within rtol 1e-4, atol 1e-5; the spawn time of
      each world printed;
-11. tensor-parallel serving and training (after phase 10): the single
-   process's references first (freed before the spawn), then one world of
+11. tensor-parallel serving and training (after phase 10): one world of
    8 gloo ranks on the card holding a (2, 4) and a (4, 2) (data, model)
-   mesh; each rank builds only its ``tree_pspecs`` blocks of a model, the
-   ranks taking turns to draw the whole (``dist/sharding.py::
-   init_blocks``), and holds exactly their bytes:
-   - (i) ``generate`` on "2x4": granite-8b at full width and depth (36
-     layers, bf16), 4 prompts of 512 tokens + 32 new, batched prefill;
-     the prefill's and 31 teacher-forced decode steps' logits within 0.1
-     of the single process's ``generate`` on the same seed, the tokens
-     equal to its tokens but where its top-2 margin is below that max
-     |diff|; 36 K6 launches a rank (the prefill on its (2, 512, 8/2, 128)
+   mesh, spawned while this process computes the single process's
+   references (freed before the ranks train); each rank builds only its
+   ``tree_pspecs`` blocks of a model, the ranks taking turns to draw the
+   whole (``dist/sharding.py::init_blocks``), and holds exactly their
+   bytes; every part prints its time:
+   - (i) ``generate`` on "2x4": granite-8b at full width cut to 8 layers,
+     bf16, 4 prompts of 512 tokens + 32 new, batched prefill; the
+     prefill's and 4 teacher-forced decode steps' logits within 0.1 of
+     the single process's ``generate`` on the same seed, the tokens equal
+     to its tokens but where its top-2 margin is below that max |diff|;
+     one K6 launch a layer a rank (the prefill on its (2, 512, 8/2, 128)
      head block); tokens/s, one decode step's ms, the peak of rank 0;
-     then K6 against its plain version at that block shape within 3e-2,
-     timed beside its bound and SDPA;
-   - (ii) the same for deepseek-v2-lite-16b cut to 2 layers (MLA and the
-     MoE: the prefill takes the data-shard grouping's grouped branch, the
-     decode its ungrouped one, the single process computing under the
-     mesh's pure description);
+   - (ii) the same for deepseek-v2-lite-16b cut to 2 layers, in f32 (MLA
+     and the MoE: the prefill takes the data-shard grouping's grouped
+     branch, the decode its ungrouped one, the single process computing
+     under the mesh's pure description);
+   - (iv) the same for mamba2-2.7b, hymba-1.5b, whisper-large-v3 (its
+     cache cut on its own batch dim) and internvl2-26b, cut to 2 layers
+     (whisper 2 + 2), 4 prompts of 32 tokens + 8 new stepped token by
+     token (internvl2: 512, a batched prefill with K6); then K6 against
+     its plain version at granite's and internvl2's head blocks, (2, 512,
+     8, 2, 128) and (2, 512, 12, 2, 128), within 3e-2, timed beside its
+     bound and SDPA;
    - (iii) ``sync_ps`` on "4x2", m = 4, phocas b = q = 1 under omniscient,
-     remat "full", 2 sequences of 128 tokens a worker, 5 steps on cell A
-     (gemma2-2b, 2 layers) and cell B (deepseek-v2-lite, 1 layer): every
-     rank's first worker gradient on its blocks (sampled, relative L2)
-     within 5e-2 of the single process's blocks, finite falling losses
-     within rtol 1e-3 of the single process's run, one K1 launch a step a
-     rank, K1 bit for bit against its plain version on rank 0's slice of
-     the worker matrix, rank 0's peak beside the replicated compute's
-     whole params and gradient;
+     remat "full", 2 sequences a worker, 3 steps on cell A (gemma2-2b, 2
+     layers) and cell B (deepseek-v2-lite, 1 layer) and (v) 2 steps on
+     cells C-E (mamba2-2.7b, hymba-1.5b, whisper-large-v3 2 + 2, phase
+     9's lengths and rates): every rank's first worker gradient on its
+     blocks (sampled, relative L2) within 5e-2 of the single process's
+     blocks (B in f32, 1e-3), its worker loss within rtol 1e-3, finite
+     losses within rtol 1e-3 of the single process's run, one K1 launch a
+     step a rank, K1 bit for bit against its plain version on rank 0's
+     slice of the worker matrix, rank 0's peak beside the replicated
+     compute's whole params and gradient; cell F (internvl2-26b, 1 layer)
+     holds its first gradient and loss only (its whole table and lm_head
+     on 8 ranks leave no room for the f32 worker matrices);
+   - (vi) one cell A step on "4x2" with the residual stream's sequence
+     sharded over the model axis (``REPRO_SEQ_SHARD``): its loss within
+     rtol 1e-3 of the first step without it, one K1 launch a rank;
 12. the launch CLIs as users run them (after phase 9): ``python -m``
    subprocesses from the repo root with PYTHONPATH=src, each with
    ``--metrics`` and ``--profile-dir``, loading the kernels phase 1 built:
@@ -2210,7 +2223,7 @@ ZOO_CELLS = {
 }
 ZOO_DECODE = {"C": 512, "D": 96, "E": 32}   # f32 decode-vs-forward tokens
 ZOO_DECODE_TOL = (2e-3, 1e-3)   # test_decode_matches_forward's atol, rtol
-ZOO_SERVE = (4, 64, 32)         # generate: prompts, prompt tokens, new ones
+ZOO_SERVE = (4, 32, 16)         # generate: prompts, prompt tokens, new ones
 ZOO_VLM_PROMPT = 512            # internvl2-26b's prompt tokens
 
 
@@ -2445,6 +2458,9 @@ MESH_EJECTED = 19                # the worker the defended cases eject
 MESH_GRID = (10, 2)              # (data, model): the model-axis cases
 MESH_TP_B = 3                    # b of the model-axis cases (m = 10)
 MESH_TOL = (1e-4, 1e-5)          # rtol, atol: mesh run vs single process
+# ranks that run_experiment spawns from this process: its own spawn path at
+# m = 4 (a 20-rank spawn's set-up and first step take ~70-90 s)
+MESH_SPAWNED = 4
 
 
 def mesh_rows(d: int, rows) -> torch.Tensor:
@@ -2476,17 +2492,19 @@ def mesh_training_specs() -> dict:
     }
 
 
-def mesh_compare_spec(layout: str):
-    """The MLP under signflip q = 8 on "20x1" for 5 steps, in ``layout``
-    (the single-process run is the same spec with no mesh)."""
+def mesh_compare_spec(layout: str, ranks: int = MESH_RANKS):
+    """The MLP under signflip for 5 steps on "<ranks>x1", a worker a rank,
+    in ``layout``: q = b = 8 at the paper's m = 20, 1 at m = 4 (the
+    single-process run is the same spec with no mesh)."""
     import dataclasses
 
     from repro_torch.core.attacks import AttackConfig
     from repro_torch.core.robust import RobustConfig
+    qb = 8 if ranks == MESH_RANKS else 1
     return dataclasses.replace(
-        paper_spec("mlp", 5), mesh="20x1",
-        attack=AttackConfig(name="signflip", num_byzantine=8),
-        robust=RobustConfig(rule="phocas", b=8, q=8, layout=layout))
+        paper_spec("mlp", 5), mesh=f"{ranks}x1", num_workers=ranks,
+        attack=AttackConfig(name="signflip", num_byzantine=qb),
+        robust=RobustConfig(rule="phocas", b=qb, q=qb, layout=layout))
 
 
 def _digest(params) -> str:
@@ -2879,28 +2897,29 @@ def mesh_phase() -> dict:
               f"params bit-equal across ranks{extra}")
 
     # The single-process entry point spawns its own ranks: the sharded
-    # layout's run, and the world's replicated one, against the
-    # single-process run of the same spec.
+    # layout's run on "4x1", and the world's replicated one on "20x1",
+    # against the single-process run of the same spec.
     rtol, atol = MESH_TOL
-    local = run_experiment(dataclasses.replace(mesh_compare_spec("sharded"),
-                                               mesh=""))
+    local = {n: run_experiment(dataclasses.replace(
+        mesh_compare_spec("sharded", n), mesh=""))
+        for n in (MESH_SPAWNED, MESH_RANKS)}
     t1 = time.perf_counter()
-    spawned = run_experiment(mesh_compare_spec("sharded"))
+    spawned = run_experiment(mesh_compare_spec("sharded", MESH_SPAWNED))
     call = time.perf_counter() - t1
     walls = [r["wall"] for r in spawned.history]
-    print(f"spawn: run_experiment(mesh='20x1') from this process, "
-          f"{MESH_RANKS} ranks: call {call:.1f} s, of which the run's loop "
-          f"{spawned.wall_time:.1f} s (its first step {walls[0]:.1f} s, the "
-          f"next four {walls[-1] - walls[0]:.2f} s) and spawn and set-up "
-          f"{call - spawned.wall_time:.1f} s")
-    want_l = [r["loss"] for r in local.history]
-    want_p = leaves(local.params)
-    for layout, losses, params in (
-            ("sharded", [r["loss"] for r in spawned.history],
+    print(f"spawn: run_experiment(mesh='{MESH_SPAWNED}x1') from this "
+          f"process, {MESH_SPAWNED} ranks: call {call:.1f} s, of which the "
+          f"run's loop {spawned.wall_time:.1f} s (its first step "
+          f"{walls[0]:.1f} s, the next four {walls[-1] - walls[0]:.2f} s) "
+          f"and spawn and set-up {call - spawned.wall_time:.1f} s")
+    for layout, n, losses, params in (
+            ("sharded", MESH_SPAWNED, [r["loss"] for r in spawned.history],
              leaves(spawned.params)),
-            ("replicated", r0["runs"]["mlp phocas signflip replicated"][
-                "losses"], r0["runs"]["mlp phocas signflip replicated"][
-                "params"])):
+            ("replicated", MESH_RANKS,
+             r0["runs"]["mlp phocas signflip replicated"]["losses"],
+             r0["runs"]["mlp phocas signflip replicated"]["params"])):
+        want_l = [r["loss"] for r in local[n].history]
+        want_p = leaves(local[n].params)
         loss_ok = torch.allclose(torch.tensor(losses), torch.tensor(want_l),
                                  rtol=rtol, atol=atol)
         perr = max((a.cuda() - b).abs().max().item()
@@ -2912,7 +2931,7 @@ def mesh_phase() -> dict:
               f"{want_l}, params max diff {perr}")
         how = "spawned by run_experiment" if layout == "sharded" else \
             "the world's"
-        print(f"  mlp signflip {layout} (5 steps, {how}) vs the "
+        print(f"  mlp signflip {layout} (m = {n}, 5 steps, {how}) vs the "
               f"single-process run: losses within rtol {rtol} atol {atol}, "
               f"params max diff {perr:.2e}")
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
@@ -2925,36 +2944,63 @@ def mesh_phase() -> dict:
 
 TP_RANKS = 8                     # one gloo world on the card
 TP_SERVE_MESH = (2, 4)           # (data, model) of the serving parts
-TP_TRAIN_MESH = (4, 2)           # (data, model) of the training part
+TP_TRAIN_MESH = (4, 2)           # (data, model) of the training parts
 TP_SEED = 0
-# serving: arch -> (its depth, config changes); 4 prompts of 512 + 32 new.
-# granite-8b is cut from 36 layers to 8 to fit the phase's 150 s: every
+# serving: arch -> (its depth, config changes, prompt tokens, new tokens)
+# granite-8b is cut from 36 layers to 8 to fit the phase's time: every
 # decode step makes 2 model-axis all_reduces a layer, ~13 ms each with 8
 # processes on the card (0.93 s a step at 36 layers).  deepseek runs in
 # f32: in bf16 the mesh's and the single process's roundings move tokens
 # between experts where the router's top-6 sits at a near-tie, and the
-# logits part by 0.23-0.40 (at capacity factors 1.25 and 8.0).
-TP_SERVE = {"granite-8b": (8, {}),
-            "deepseek-v2-lite-16b": (2, {"dtype": "float32"})}
-TP_BATCH, TP_PROMPT, TP_NEW = 4, 512, 32
+# logits part by 0.23-0.40 (at capacity factors 1.25 and 8.0).  Part (iv)
+# serves the SSM, hybrid, enc-dec and VLM families cut to 2 layers
+# (whisper 2 + 2) with 32 prompt tokens + 8 new, which the first three
+# step token by token (~10-14 model-axis collectives a step); internvl2
+# keeps phase 9's prompt of 512 tokens (a batched prefill, K6).
+TP_SERVE = {"granite-8b": (8, {}, 512, 32),
+            "deepseek-v2-lite-16b": (2, {"dtype": "float32"}, 512, 32),
+            "mamba2-2.7b": (2, {}, 32, 8),
+            "hymba-1.5b": (2, {}, 32, 8),
+            "whisper-large-v3": (2, {}, 32, 8),
+            "internvl2-26b": (2, {}, ZOO_VLM_PROMPT, 8)}
+TP_SERVE_PART = {"granite-8b": "i", "deepseek-v2-lite-16b": "ii"}  # else iv
+TP_BATCH = 4                     # prompts: 2 a data rank
 # logits bound by dtype: cell B's bf16 bound, the zoo's f32 decode bound
 TP_LOGIT_ATOL = {"bfloat16": LM_DECODE_ATOL, "float32": ZOO_DECODE_TOL[0]}
-TP_FLASH = (2, 512, 8, 2, 128)   # K6 on a rank's head block at granite's
-                                 # prefill on "2x4": (B/2, S, 32/4, 8/4, hd)
-# training: cells A and B at m = 4, phocas b = q = 1 under omniscient
-TP_CELLS = ("A", "B")
-TP_M, TP_B, TP_STEPS = 4, 1, 3     # 3 steps, not 5: 4.6-6.5 s a step
+# K6 on a rank's head block of a prefill on "2x4": (B/2, S, H/4, Kv/4, hd)
+TP_FLASH = {"granite-8b": (2, 512, 8, 2, 128),
+            "internvl2-26b": (2, ZOO_VLM_PROMPT, 12, 2, 128)}
+# training on "4x2": m = 4, phocas b = q = 1 under omniscient.  Cells A and
+# B at phase 7's depth, 2 steps (4.6-8 s a step); C-E at 2 layers
+# (whisper 2 + 2), 2 steps, C 3: at its rate of 0.1 its loss rises at the
+# second step (11.3166 -> 11.3174 on an H100, on the mesh and in the
+# single process alike) and falls by the third (11.2683).  Every cell
+# first allocates its step's f32 worker vector and the all_to_all's
+# receive buffer of the same size beside its params and gradient, on all
+# ranks at once, and trains only where every rank could.  Cell F
+# (internvl2-26b, 1 layer) cannot: its 92,553-row table and lm_head do
+# not divide and sit whole on every rank, 1.36 B of a rank's params, so
+# eight ranks need ~8 x 15 GiB.  It holds its first worker gradient and
+# the ranks' out-of-memory errors of that allocation.
+TP_CELLS = ("A", "B", "C", "D", "E", "F")
+TP_ZOO_LAYERS = {"C": 2, "D": 2, "E": 2, "F": 1}
+TP_STEPS = {"A": 2, "B": 2, "C": 3, "D": 2, "E": 2, "F": 0}
+TP_UNFIT = ("F",)                # cells whose step must not fit the card
+TP_M, TP_B = 4, 1
 TP_LOSS_RTOL = 1e-3
 TP_FORCED = 4                    # decode steps the logits are held on
 TP_SAMPLE = 1 << 16              # gradient elements compared a leaf block
-# The first step's gradient is held in the cell's bf16 (A) and, for the
-# MoE cell B, in f32: in bf16 the router's near-ties send some tokens to
+# The first step's gradient is held in the cell's bf16 and, for the MoE
+# cell B, in f32: in bf16 the router's near-ties send some tokens to
 # other experts than in the single process (expert gradient blocks 5-13 %
 # apart on an H100).  The bound is on a leaf block's sampled gradient,
 # relative L2, by that dtype (the f32 router's gradient, too, comes
 # through the model's activations).
-TP_HOLD_DTYPE = {"A": "bfloat16", "B": "float32"}
+TP_HOLD_DTYPE = {"A": "bfloat16", "B": "float32", "C": "bfloat16",
+                 "D": "bfloat16", "E": "bfloat16", "F": "bfloat16"}
 TP_GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
+TP_SEQ_CELL = "A"                # part (vi): REPRO_SEQ_SHARD's cell,
+TP_SEQ_STEPS = 2                 # its steps, and its first gradient in f32
 
 
 def tp_serve_desc():
@@ -2962,20 +3008,31 @@ def tp_serve_desc():
     return Mesh(("data", "model"), TP_SERVE_MESH)
 
 
-def tp_prompts(vocab: int) -> torch.Tensor:
+def tp_prompts(vocab: int, plen: int) -> torch.Tensor:
     gen = torch.Generator(device="cuda").manual_seed(TP_SEED + 1)
-    return torch.randint(0, vocab, (TP_BATCH, TP_PROMPT), generator=gen,
+    return torch.randint(0, vocab, (TP_BATCH, plen), generator=gen,
                          device="cuda")
 
 
+def tp_stepwise(cfg, plen: int) -> bool:
+    from repro_torch.serve.engine import batched_prefill_supported
+    return not batched_prefill_supported(cfg, plen)
+
+
 def tp_forced(step, params, cache, prompts, teacher, steps: int,
-              rows=slice(None)):
-    """The prefill, then ``steps`` decode steps fed ``teacher``'s
-    generated tokens: each step's last-position logits (f32), and the
-    median decode step's ms (synchronized host clock)."""
+              rows=slice(None), stepwise: bool = False):
+    """The prefill (a batched one, or the prompt stepped token by token
+    where the family steps it), then ``steps`` decode steps fed
+    ``teacher``'s generated tokens: the last prompt position's logits and
+    each step's (f32), and the median decode step's ms (synchronized host
+    clock)."""
     S0 = prompts.shape[1]
-    _, lg, cache = step(params, cache, prompts[rows],
-                        torch.arange(S0, device=prompts.device))
+    if stepwise:
+        for t in range(S0):
+            _, lg, cache = step(params, cache, prompts[rows, t:t + 1], t)
+    else:
+        _, lg, cache = step(params, cache, prompts[rows],
+                            torch.arange(S0, device=prompts.device))
     logits, step_ms = [lg[:, -1].float()], []
     for t in range(steps):
         torch.cuda.synchronize()
@@ -2988,7 +3045,8 @@ def tp_forced(step, params, cache, prompts, teacher, steps: int,
     return torch.stack(logits), sorted(step_ms)[len(step_ms) // 2]
 
 
-def tp_serve_reference(name: str, layers, changes: dict) -> dict:
+def tp_serve_reference(name: str, layers, changes: dict, plen: int,
+                       new: int) -> dict:
     """The single process: ``generate`` on the same seed, then its
     teacher-forced logits (prefill and decode), under the serving mesh's
     pure description, so the MoE groups its tokens by data shard as the
@@ -2999,27 +3057,29 @@ def tp_serve_reference(name: str, layers, changes: dict) -> dict:
     from repro_torch.serve.engine import make_serve_step
     model = build_model(arch_cfg(name, layers, **changes))
     params = model.init(torch.Generator(device="cuda").manual_seed(TP_SEED))
-    prompts = tp_prompts(model.cfg.vocab_size)
+    prompts = tp_prompts(model.cfg.vocab_size, plen)
     with use_mesh(tp_serve_desc()), torch.no_grad():
-        toks = generate(model, params, prompts, TP_NEW)
-        cache = model.init_cache(TP_BATCH, TP_PROMPT + TP_NEW, "cuda")
+        toks = generate(model, params, prompts, new)
+        cache = model.init_cache(TP_BATCH, plen + new, "cuda")
         logits, _ = tp_forced(make_serve_step(model), params, cache,
-                              prompts, toks, TP_NEW - 1)
+                              prompts, toks, new - 1,
+                              stepwise=tp_stepwise(model.cfg, plen))
     out = {"prompts": prompts.cpu(), "tokens": toks.cpu(),
            "logits": logits.cpu()}
     del params, cache
     return out
 
 
-def tp_worker_grads(model, params, batch) -> list:
-    """Per worker, the single process's gradient leaves (the train step's
-    vmap of ``grad_and_value``)."""
+def tp_worker_grads(model, params, batch) -> tuple:
+    """Per worker, the single process's gradient leaves and loss (the
+    train step's vmap of ``grad_and_value``)."""
     from repro_torch.models.moe import no_data_grouping
     from repro_torch.tree import leaves
     with no_data_grouping():
-        grads, _ = torch.func.vmap(torch.func.grad_and_value(model.loss),
-                                   in_dims=(None, 0))(params, batch)
-    return leaves(grads)
+        grads, losses = torch.func.vmap(
+            torch.func.grad_and_value(model.loss), in_dims=(None, 0))(
+                params, batch)
+    return leaves(grads), losses
 
 
 def tp_samples(x: torch.Tensor) -> torch.Tensor:
@@ -3029,13 +3089,33 @@ def tp_samples(x: torch.Tensor) -> torch.Tensor:
         .cpu()
 
 
-def tp_train_plan(cell: str, mesh=None):
+def tp_cell_model(cell: str, dtype: str = "bfloat16"):
+    """Cell ``cell``'s model, remat "full": A and B at phase 7's depth,
+    C-F at TP_ZOO_LAYERS."""
+    from repro_torch.models.registry import build_model
+    if cell in LM_CELLS:
+        return lm_model(cell, dtype=dtype)
+    return build_model(arch_cfg(ZOO_CELLS[cell].arch, TP_ZOO_LAYERS[cell],
+                                dtype), remat="full")
+
+
+def tp_train_plan(cell: str, mesh=None, steps=None):
+    """Cell ``cell``'s sync_ps plan at m = TP_M on the token stream (with
+    the zoo cells' frontend embeddings, phase 9's rates and lengths)."""
     from repro_torch.data.pipeline import TokenStream
-    model = lm_model(cell)
-    stream = TokenStream(vocab_size=model.cfg.vocab_size, seq_len=LM_SEQ_LEN,
-                         global_batch=TP_M * LM_SEQS, seed=0, device="cuda")
-    plan = sync_plan(model, stream.batch, m=TP_M, b=TP_B, steps=TP_STEPS,
-                     tag=f"tp-{cell}", spans=False)
+    model = tp_cell_model(cell)
+    if cell in LM_CELLS:
+        batch_fn = TokenStream(
+            vocab_size=model.cfg.vocab_size, seq_len=LM_SEQ_LEN,
+            global_batch=TP_M * LM_SEQS, seed=0, device="cuda").batch
+        lr = LM_LR
+    else:
+        c = ZOO_CELLS[cell]
+        batch_fn, lr = zoo_batch_fn(model.cfg, TP_M, c.seq_len), c.lr
+    # cell F's plan serves for its batches only (TP_STEPS 0)
+    plan = sync_plan(model, batch_fn, m=TP_M, b=TP_B,
+                     steps=(TP_STEPS[cell] or 1) if steps is None else steps,
+                     lr=lr, tag=f"tp-{cell}", spans=False)
     plan.mesh = mesh
     return plan
 
@@ -3043,17 +3123,16 @@ def tp_train_plan(cell: str, mesh=None):
 def tp_train_reference(cell: str) -> dict:
     """The single process: each worker's first-step gradient (in the
     cell's TP_HOLD_DTYPE), sampled on every model coordinate's block of
-    each leaf, and the losses of its TP_STEPS-step run."""
+    each leaf, and its loss; the losses of its TP_STEPS-step run."""
     from repro_torch.data.pipeline import make_worker_batches
     from repro_torch.dist.sharding import (Mesh, cut_leaf, spec_leaves,
                                            tree_pspecs)
     from repro_torch.experiment.topology import make_topology
-    from repro_torch.tree import leaves
     plan = tp_train_plan(cell)
-    model = lm_model(cell, dtype=TP_HOLD_DTYPE[cell])
+    model = tp_cell_model(cell, TP_HOLD_DTYPE[cell])
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     batch = make_worker_batches(plan.batch_fn(0), TP_M)
-    grads = tp_worker_grads(model, params, batch)
+    grads, worker_losses = tp_worker_grads(model, params, batch)
     specs = spec_leaves(tree_pspecs(params,
                                     Mesh(("data", "model"), TP_TRAIN_MESH)))
     samples = {}
@@ -3064,9 +3143,14 @@ def tp_train_reference(cell: str) -> dict:
                        for w in range(TP_M)]
     del grads, params
     torch.cuda.empty_cache()
-    res = make_topology(plan.topology).run(plan)
-    return {"samples": samples,
-            "losses": [r["loss"] for r in res.history]}
+    out = {"samples": samples, "worker_losses": worker_losses.cpu(),
+           "losses": []}
+    if TP_STEPS[cell]:
+        res = make_topology(plan.topology).run(plan)
+        out["losses"] = [r["loss"] for r in res.history]
+        del res
+    torch.cuda.empty_cache()
+    return out
 
 
 def tp_train_desc():
@@ -3108,11 +3192,12 @@ def tp_wait(handoff: str, name: str, timeout_s: float = 900.0):
     return torch.load(os.path.join(handoff, name), weights_only=False)
 
 
-def tp_serve_rank(mesh, name: str, layers, changes: dict, handoff: str
-                  ) -> dict:
-    """Parts (i) and (ii) on this rank: its blocks in turns, ``generate``
-    on the mesh (K6 launches counted around it), then the teacher-forced
-    logits; rank 0 returns the logits gathered over the data axis."""
+def tp_serve_rank(mesh, name: str, layers, changes: dict, plen: int,
+                  new: int, handoff: str) -> dict:
+    """Parts (i), (ii) and (iv) on this rank: its blocks in turns,
+    ``generate`` on the mesh (K6 launches counted around it), then the
+    teacher-forced logits; rank 0 returns the logits gathered over the
+    data axis."""
     import torch.distributed as dist
 
     from repro_torch.dist.sharding import init_blocks
@@ -3120,6 +3205,7 @@ def tp_serve_rank(mesh, name: str, layers, changes: dict, handoff: str
     from repro_torch.serve import generate
     from repro_torch.serve.engine import MeshServing
     from repro_torch.tree import leaves
+    t_part = time.perf_counter()
     model = build_model(arch_cfg(name, layers, **changes))
     t0 = time.perf_counter()
     blocks = init_blocks(model, TP_SEED, mesh, "cuda")
@@ -3136,40 +3222,47 @@ def tp_serve_rank(mesh, name: str, layers, changes: dict, handoff: str
     with torch.no_grad():
         t0 = time.perf_counter()
         toks, counts = launch_counts(lambda: generate(
-            model, blocks, prompts, TP_NEW, mesh=mesh))
+            model, blocks, prompts, new, mesh=mesh))
         gen_s = time.perf_counter() - t0
         ms = MeshServing(model, mesh, TP_BATCH)
-        cache = ms.cache(TP_BATCH, TP_PROMPT + TP_NEW, "cuda")
+        cache = ms.cache(TP_BATCH, plen + new, "cuda")
+        cache_bytes = sum(x.numel() * x.element_size()
+                          for x in leaves(cache))
         logits, step_ms = tp_forced(ms.step(), blocks, cache, prompts,
-                                    teacher, TP_FORCED, ms.rows)
+                                    teacher, TP_FORCED, ms.rows,
+                                    tp_stepwise(model.cfg, plen))
         logits = ms.gather(logits.transpose(0, 1).contiguous())
     out = {"counts": counts, "bytes": (mine, whole), "build_s": build_s,
-           "peak": torch.cuda.max_memory_allocated()}
-    if mesh.rank == 0:
-        print(f"  phase 11 rank 0: {name}: blocks in turns {build_s:.1f} s, "
-              f"generate {gen_s:.2f} s, decode step {step_ms:.1f} ms, peak "
-              f"{out['peak'] / 2**30:.2f} GiB", flush=True)
-        out.update(tokens=toks.cpu(), logits=logits.transpose(0, 1).cpu(),
-                   gen_s=gen_s, step_ms=step_ms)
+           "peak": torch.cuda.max_memory_allocated(),
+           "cache_bytes": cache_bytes}
     del blocks, cache
     torch.cuda.empty_cache()
+    dist.barrier()
+    if mesh.rank == 0:
+        out.update(tokens=toks.cpu(), logits=logits.transpose(0, 1).cpu(),
+                   gen_s=gen_s, step_ms=step_ms,
+                   part_s=time.perf_counter() - t_part)
+        print(f"  phase 11 rank 0: {name}: blocks in turns {build_s:.1f} s, "
+              f"generate {gen_s:.2f} s, decode step {step_ms:.1f} ms, peak "
+              f"{out['peak'] / 2**30:.2f} GiB, part {out['part_s']:.1f} s",
+              flush=True)
     return out
 
 
-def tp_flash_hold(gen: torch.Generator) -> dict:
+def tp_flash_hold(gen: torch.Generator, shape: tuple) -> dict:
     """K6 against its plain version at a rank's prefill head block, timed
     beside its bound, the plain version and SDPA (rank 0, the other ranks
     waiting at a barrier)."""
     import torch.nn.functional as F
     kernel, ref = wrappers()["flash_attn"]
-    B, S, H, Kv, hd = TP_FLASH
+    B, S, H, Kv, hd = shape
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16()
     k = torch.randn((B, S, Kv, hd), generator=gen, device="cuda").bfloat16()
     v = torch.randn((B, S, Kv, hd), generator=gen, device="cuda").bfloat16()
     got, want = kernel(q, k, v, causal=True), ref(q, k, v, causal=True)
     err = (got.float() - want.float()).abs().max().item()
     check(err <= FLASH_TOL[torch.bfloat16],
-          f"tp flash {TP_FLASH}: max|kernel - plain| {err}")
+          f"tp flash {shape}: max|kernel - plain| {err}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     bnd, by, _, _ = flash_bound_ms(B, S, H, Kv, hd, torch.bfloat16, None)
     return {"err": err, "ms": time_ms(lambda: kernel(q, k, v, causal=True)),
@@ -3179,14 +3272,55 @@ def tp_flash_hold(gen: torch.Generator) -> dict:
             "bound_ms": bnd, "bound_by": by}
 
 
-def tp_train_rank(mesh, cell: str) -> dict:
-    """Part (iii) on this rank: its blocks in turns (in the cell's
-    TP_HOLD_DTYPE), its worker's first gradient on them (sampled) and K1 on
-    its slice of that worker matrix, then TP_STEPS sync_ps steps of the
-    cell (bf16; launches counted around the run)."""
+def tp_fit_probe(grads) -> tuple:
+    """Whether the sharded step's working set fits on every rank at once:
+    each rank allocates, beside its params and its gradient ``grads``, the
+    step's f32 worker vector (``_flat_padded``) and a buffer of its size
+    (what the all_to_all receives), holds them until every rank has tried
+    (a barrier), then frees the buffer.  A rank's
+    ``torch.cuda.OutOfMemoryError`` is caught and the ranks agree on the
+    outcome (a gloo all_reduce on the host), so no rank enters a collective
+    that another skips.  Returns the outcome and, where every rank fits,
+    the worker vector."""
     import torch.distributed as dist
 
     from repro_torch.core.robust import _flat_padded
+    from repro_torch.tree import leaves
+    d = sum(g.numel() for g in leaves(grads))
+    need = 2 * 4 * (d + (-d) % TP_M)
+    torch.cuda.empty_cache()     # no rank keeps the gradient's freed cache
+    dist.barrier()
+    free = torch.cuda.mem_get_info()[0]      # before any rank allocates
+    dist.barrier()
+    held, err = [], None
+    try:
+        held.append(_flat_padded(grads, TP_M, torch.float32)[0])
+        held.append(torch.empty_like(held[0]))
+    except torch.cuda.OutOfMemoryError as e:
+        # its first sentences: the request and the card's free memory
+        err = str(e).split(" Process ")[0].splitlines()[0]
+    dist.barrier()
+    flat = held[0] if len(held) == 2 else None
+    held.clear()
+    short = torch.tensor([float(err is not None)])
+    dist.all_reduce(short)
+    if short.item():
+        flat = None
+    torch.cuda.empty_cache()
+    return {"fits": not short.item(), "short": int(short.item()),
+            "err": err, "need": need, "free": free}, flat
+
+
+def tp_train_rank(mesh, cell: str) -> dict:
+    """Parts (iii) and (v) on this rank: its blocks in turns (in the cell's
+    TP_HOLD_DTYPE), its worker's first gradient and loss on them (the
+    gradient sampled), the step's working set allocated on every rank at
+    once (:func:`tp_fit_probe`), and where it fits K1 on its slice of that
+    worker matrix, then TP_STEPS sync_ps steps of the cell (bf16; launches
+    counted around the run).  Cell F holds its gradient, its loss and the
+    ranks' out-of-memory errors (TP_STEPS 0)."""
+    import torch.distributed as dist
+
     from repro_torch.data.pipeline import make_worker_batches
     from repro_torch.dist.collectives import (all_to_all_scatter,
                                               worker_slice_index)
@@ -3195,8 +3329,10 @@ def tp_train_rank(mesh, cell: str) -> dict:
     from repro_torch.experiment.topologies import SyncPS
     from repro_torch.models.moe import no_data_grouping
     from repro_torch.tree import leaves
+    t_part = time.perf_counter()
+    steps = TP_STEPS[cell]
     plan = tp_train_plan(cell, mesh)
-    model = lm_model(cell, dtype=TP_HOLD_DTYPE[cell])
+    model = tp_cell_model(cell, TP_HOLD_DTYPE[cell])
     blocks = init_blocks(model, 0, mesh, "cuda")
     mine = sum(x.numel() * x.element_size() for x in leaves(blocks))
     want, whole = tp_block_bytes(model, mesh)
@@ -3206,58 +3342,118 @@ def tp_train_rank(mesh, cell: str) -> dict:
     w = worker_slice_index(wa)
     own = {k: v[w] for k, v in make_worker_batches(plan.batch_fn(0),
                                                    TP_M).items()}
+    torch.cuda.reset_peak_memory_stats()
     with use_mesh(mesh, batch_sharded=True), no_data_grouping():
-        grads, _ = torch.func.grad_and_value(model.loss)(blocks, own)
+        grads, loss = torch.func.grad_and_value(model.loss)(blocks, own)
     samples = [tp_samples(g) for g in leaves(grads)]
-    flat, _ = _flat_padded(grads, TP_M, torch.float32)
+    out = {"bytes": (mine, whole), "samples": samples, "worker": w,
+           "worker_loss": float(loss), "counts": {}, "losses": [],
+           "k1": (None, None), "run_bytes": (mine, whole),
+           "grad_peak": torch.cuda.max_memory_allocated()}
+    out["fit"], flat = tp_fit_probe(grads)
     del grads
-    u = all_to_all_scatter(flat, wa)
-    del flat
-    k1_shape = tuple(u.shape)
-    k1_same = None
-    if mesh.rank == 0:        # the plain version over column chunks
-        kernel, ref = wrappers()["phocas"]
-        k1 = kernel(u, TP_B)
-        k1_same = all(same(k1[i:i + LM_EDGE],
-                           ref(u[:, i:i + LM_EDGE].contiguous(), TP_B))
-                      for i in range(0, u.shape[1], LM_EDGE))
-        del k1
-    del u
+    if flat is None:
+        steps = 0
+    k1_same = k1_shape = None
+    if steps:
+        u = all_to_all_scatter(flat, wa)
+        del flat
+        k1_shape = tuple(u.shape)
+        if mesh.rank == 0:        # the plain version over column chunks
+            kernel, ref = wrappers()["phocas"]
+            k1 = kernel(u, TP_B)
+            k1_same = all(same(k1[i:i + LM_EDGE],
+                               ref(u[:, i:i + LM_EDGE].contiguous(), TP_B))
+                          for i in range(0, u.shape[1], LM_EDGE))
+            del k1
+        del u
+    flat = None
+    out["k1"] = (k1_same, k1_shape)
     dist.barrier()
     del blocks       # the run draws its own (bf16) blocks, in turns
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     dist.barrier()
-    if mesh.rank == 0:
-        print(f"  phase 11 rank 0: cell {cell}: before the run the card has "
-              f"{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB free, the "
-              f"host {host_available_gib():.1f} GiB", flush=True)
+    if steps:
+        if mesh.rank == 0:
+            print(f"  phase 11 rank 0: cell {cell}: before the run the card "
+                  f"has {torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB "
+                  f"free, the host {host_available_gib():.1f} GiB",
+                  flush=True)
+        t0 = time.perf_counter()
+        res, counts = launch_counts(lambda: SyncPS().run(plan))
+        run_s = time.perf_counter() - t0
+        walls = [r["wall"] for r in res.history]
+        out.update(counts=counts, run_bytes=tp_block_bytes(plan.model, mesh),
+                   peak=torch.cuda.max_memory_allocated(),
+                   losses=[r["loss"] for r in res.history], run_s=run_s,
+                   walls=walls,
+                   step_ms=(sorted(1e3 * (b - a) for a, b in
+                                   zip(walls, walls[1:]))[(steps - 1) // 2]
+                            if steps > 1 else None),
+                   first_s=walls[0])
+        if mesh.rank == 0:
+            print(f"  phase 11 rank 0: cell {cell}: run {run_s:.1f} s, step "
+                  f"walls {[round(x, 2) for x in walls]}, peak "
+                  f"{out['peak'] / 2**30:.2f} GiB", flush=True)
+        del res
+        torch.cuda.empty_cache()
+    out["part_s"] = time.perf_counter() - t_part
+    return out
+
+
+def tp_seq_rank(mesh, cell: str) -> dict:
+    """Part (vi) on this rank, with the residual stream's sequence sharded
+    over the model axis (``models/stack.py::SEQ_SHARD``, what
+    ``REPRO_SEQ_SHARD=1`` sets at import) and without it: its worker's
+    first gradient and loss on its f32 blocks (the gradient sampled as in
+    part (iii)), then TP_SEQ_STEPS sync_ps steps of ``cell`` with it
+    (launches counted around them)."""
+    from repro_torch.data.pipeline import make_worker_batches
+    from repro_torch.dist.collectives import worker_slice_index
+    from repro_torch.dist.mesh import use_mesh
+    from repro_torch.dist.sharding import init_blocks, worker_axes_of
+    from repro_torch.experiment.topologies import SyncPS
+    from repro_torch.models import stack
+    from repro_torch.models.moe import no_data_grouping
+    from repro_torch.tree import leaves
     t0 = time.perf_counter()
-    res, counts = launch_counts(lambda: SyncPS().run(plan))
-    run_s = time.perf_counter() - t0
-    walls = [r["wall"] for r in res.history]
-    if mesh.rank == 0:
-        print(f"  phase 11 rank 0: cell {cell}: run {run_s:.1f} s, step "
-              f"walls {[round(w, 2) for w in walls]}, peak "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-              flush=True)
-    out = {"counts": counts, "bytes": (mine, whole), "samples": samples,
-           "run_bytes": tp_block_bytes(plan.model, mesh),
-           "k1": (k1_same, k1_shape),
-           "peak": torch.cuda.max_memory_allocated(),
-           "losses": [r["loss"] for r in res.history], "run_s": run_s,
-           "step_ms": sorted(1e3 * (b - a) for a, b in
-                             zip(walls, walls[1:]))[(TP_STEPS - 1) // 2],
-           "first_s": walls[0], "worker": w}
+    plan = tp_train_plan(cell, mesh, steps=TP_SEQ_STEPS)
+    model = tp_cell_model(cell, "float32")
+    blocks = init_blocks(model, 0, mesh, "cuda")
+    w = worker_slice_index(mesh.axes(worker_axes_of(mesh)))
+    own = {k: v[w] for k, v in make_worker_batches(plan.batch_fn(0),
+                                                   TP_M).items()}
+    grad = {}
+    try:
+        for sharded in (False, True):
+            stack.SEQ_SHARD = sharded
+            with use_mesh(mesh, batch_sharded=True), no_data_grouping():
+                g, loss = torch.func.grad_and_value(model.loss)(blocks, own)
+            grad[sharded] = ([tp_samples(x) for x in leaves(g)], float(loss))
+            del g
+        del blocks
+        torch.cuda.empty_cache()
+        stack.SEQ_SHARD = True
+        res, counts = launch_counts(lambda: SyncPS().run(plan))
+    finally:
+        stack.SEQ_SHARD = False
+    rel = max(((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+              for a, b in zip(grad[True][0], grad[False][0]))
+    out = {"losses": [r["loss"] for r in res.history], "counts": counts,
+           "walls": [r["wall"] for r in res.history], "grad_rel": rel,
+           "grad_loss": (grad[True][1], grad[False][1]),
+           "part_s": time.perf_counter() - t0}
     del res
     torch.cuda.empty_cache()
     return out
 
 
 def tp_rank(rank: int, world: int, handoff: str, t_spawn: float) -> dict:
-    """One rank of phase 11's world: parts (i)-(ii) on the serving mesh
-    once the parent's serving references are there, K6 held on rank 0,
-    part (iii) on the training mesh once the parent has freed the card."""
+    """One rank of phase 11's world: parts (i), (ii) and (iv) on the
+    serving mesh once the parent's serving references are there, K6 held
+    on rank 0, parts (iii), (v) and (vi) on the training mesh once the
+    parent has freed the card."""
     import torch.distributed as dist
 
     from repro_torch.dist.mesh import make_host_mesh
@@ -3269,16 +3465,16 @@ def tp_rank(rank: int, world: int, handoff: str, t_spawn: float) -> dict:
     dist.barrier()
     out = {"spawn_s": time.time() - t_spawn, "serve": {}, "train": {}}
     t0 = time.perf_counter()
-    for name, (layers, changes) in TP_SERVE.items():
-        out["serve"][name] = tp_serve_rank(serve, name, layers, changes,
-                                           handoff)
+    for name, cut in TP_SERVE.items():
+        out["serve"][name] = tp_serve_rank(serve, name, *cut, handoff)
         if rank == 0:
             print(f"  phase 11 rank 0: {name} served, "
                   f"{time.perf_counter() - t0:.1f} s into the world",
                   flush=True)
     if rank == 0:
-        out["flash"] = tp_flash_hold(
-            torch.Generator(device="cuda").manual_seed(TP_SEED))
+        gen = torch.Generator(device="cuda").manual_seed(TP_SEED)
+        out["flash"] = {name: tp_flash_hold(gen, shape)
+                        for name, shape in TP_FLASH.items()}
     dist.barrier()
     out["serve_s"] = time.perf_counter() - t0
     tp_wait(handoff, "train")
@@ -3289,12 +3485,13 @@ def tp_rank(rank: int, world: int, handoff: str, t_spawn: float) -> dict:
             print(f"  phase 11 rank 0: cell {cell} trained, "
                   f"{time.perf_counter() - t0:.1f} s into training",
                   flush=True)
+    out["seq"] = tp_seq_rank(train, TP_SEQ_CELL)
     out["train_s"] = time.perf_counter() - t0
     return out
 
 
 def tp_phase() -> dict:
-    """Phase 11: one 8-rank world on the card for parts (i)-(iii), spawned
+    """Phase 11: one 8-rank world on the card for parts (i)-(vi), spawned
     in a thread while this process computes the single process's
     references (handed to the ranks through files; the ranks train only
     once this process has freed the card), then the holds.  Returns rank
@@ -3315,10 +3512,11 @@ def tp_phase() -> dict:
             serve_refs = {name: tp_serve_reference(name, *cut)
                           for name, cut in TP_SERVE.items()}
             tp_handoff(handoff, "serve", serve_refs)
-            train_refs = {cell: tp_train_reference(cell)
-                          for cell in TP_CELLS}
-            gc.collect()
-            torch.cuda.empty_cache()
+            train_refs = {}
+            for cell in TP_CELLS:
+                train_refs[cell] = tp_train_reference(cell)
+                gc.collect()
+                torch.cuda.empty_cache()
             tp_handoff(handoff, "train", None)
         except BaseException:
             open(os.path.join(handoff, "abort"), "w").close()
@@ -3339,8 +3537,8 @@ def tp_phase() -> dict:
             failed.append(msg)
             print(f"  FAILED: {msg}", flush=True)
 
-    for part, (name, (layers, changes)) in zip(("i", "ii"),
-                                               TP_SERVE.items()):
+    for name, (layers, changes, plen, new) in TP_SERVE.items():
+        part = TP_SERVE_PART.get(name, "iv")
         ref = serve_refs[name]
         got = r0["serve"][name]
         mine, whole = got["bytes"]
@@ -3351,33 +3549,37 @@ def tp_phase() -> dict:
                           f"process (> {atol})")
         top2 = ref["logits"].topk(2, dim=-1).values
         margin = (top2[..., 0] - top2[..., 1]).transpose(0, 1)   # (B, new)
-        toks = got["tokens"][:, TP_PROMPT:]
-        want = ref["tokens"][:, TP_PROMPT:]
+        toks = got["tokens"][:, plen:]
+        want = ref["tokens"][:, plen:]
         for b in range(TP_BATCH):
             diff = (toks[b] != want[b]).nonzero()
             if len(diff):
                 j = int(diff[0])
                 hold(margin[b, j] < err,
-                      f"tp {name}: request {b} token {j} differs from the "
-                      f"single process at top-2 margin {margin[b, j]:.4f} "
-                      f">= max|diff| {err:.4f}")
+                     f"tp {name}: request {b} token {j} differs from the "
+                     f"single process at top-2 margin {margin[b, j]:.4f} "
+                     f">= max|diff| {err:.4f}")
                 print(f"  request {b} departs at new token {j}: the single "
                       f"process's top-2 margin there {margin[b, j]:.4f} < "
                       f"max|diff| {err:.4f}")
-        k6 = (model_layers(name, layers) if not arch_cfg(name).use_mla
-              else 0)
+        cfg = arch_cfg(name)
+        k6 = (model_layers(name, layers)
+              if not (cfg.use_mla or tp_stepwise(cfg, plen)) else 0)
         for r, rk in enumerate(ranks):
             c = rk["serve"][name]["counts"]
             hold(c["flash_attn"] == k6 and sum(c.values()) == k6,
-                  f"tp {name}: rank {r} launches {c}, expected {k6} K6")
+                 f"tp {name}: rank {r} launches {c}, expected {k6} K6")
         launches["flash_attn"] += got["counts"]["flash_attn"]
         peak = max(rk["serve"][name]["peak"] for rk in ranks)
         print(f"  ({part}) {name} "
-              f"({model_layers(name, layers)} layers, "
+              f"({model_layers(name, layers)} layers"
+              f"{' + %d encoder' % layers if cfg.is_encdec else ''}, "
               f"{changes.get('dtype', 'bfloat16')}) on "
               f"{TP_SERVE_MESH} (data, model): {TP_BATCH} prompts of "
-              f"{TP_PROMPT} + {TP_NEW}: generate {got['gen_s']:.2f} s "
-              f"({TP_BATCH * TP_NEW / got['gen_s']:.1f} tok/s), one decode "
+              f"{plen} + {new}"
+              f"{' stepped' if tp_stepwise(cfg, plen) else ''}: generate "
+              f"{got['gen_s']:.2f} s "
+              f"({TP_BATCH * new / got['gen_s']:.1f} tok/s), one decode "
               f"step {got['step_ms']:.2f} ms (median, rank 0); logits "
               f"(prefill and {TP_FORCED} teacher-forced decode steps) "
               f"max|mesh - single| {err:.2e} (limit {atol}); "
@@ -3385,69 +3587,138 @@ def tp_phase() -> dict:
               f"{TP_BATCH} requests, min top-2 margin "
               f"{margin.min():.4f}; K6 {got['counts']['flash_attn']} "
               f"launches a rank; rank 0 holds {mine / 2**30:.3f} of "
-              f"{whole / 2**30:.3f} GiB of params (its blocks, exact), "
-              f"peak {got['peak'] / 2**30:.2f} GiB (max over ranks "
+              f"{whole / 2**30:.3f} GiB of params (its blocks, exact) and "
+              f"{got['cache_bytes'] / 2**20:.2f} MiB of cache, peak "
+              f"{got['peak'] / 2**30:.2f} GiB (max over ranks "
               f"{peak / 2**30:.2f}); blocks built in turns in "
-              f"{got['build_s']:.1f} s")
-    f = r0["flash"]
-    print(f"  K6 at a rank's head block {TP_FLASH} bf16: max|kernel - "
-          f"plain| {f['err']:.3e} (limit {FLASH_TOL[torch.bfloat16]}); "
-          f"kernel {f['ms']:.4f} ms, plain {f['plain_ms']:.3f} ms, sdpa "
-          f"{f['sdpa_ms']:.4f} ms (K6 / SDPA {f['ms'] / f['sdpa_ms']:.2f}), "
-          f"bound {f['bound_ms'] * 1e3:.2f} us ({f['bound_by']}), "
-          f"{f['bound_ms'] / f['ms']:.1%} of bound")
+              f"{got['build_s']:.1f} s; part {got['part_s']:.1f} s")
+    for name, f in r0["flash"].items():
+        print(f"  K6 at a rank's head block {TP_FLASH[name]} bf16 ({name}'s "
+              f"prefill on {TP_SERVE_MESH}): max|kernel - plain| "
+              f"{f['err']:.3e} (limit {FLASH_TOL[torch.bfloat16]}); kernel "
+              f"{f['ms']:.4f} ms, plain {f['plain_ms']:.3f} ms, sdpa "
+              f"{f['sdpa_ms']:.4f} ms (K6 / SDPA "
+              f"{f['ms'] / f['sdpa_ms']:.2f}), bound "
+              f"{f['bound_ms'] * 1e3:.2f} us ({f['bound_by']}), "
+              f"{f['bound_ms'] / f['ms']:.1%} of bound")
     for cell in TP_CELLS:
         ref = train_refs[cell]
         got = r0["train"][cell]
-        losses = got["losses"]
-        hold(all(x == x and abs(x) != float("inf") for x in losses)
-              and losses[-1] < losses[0],
-              f"tp cell {cell}: losses {losses}")
-        hold(torch.allclose(torch.tensor(losses), torch.tensor(
-            ref["losses"]), rtol=TP_LOSS_RTOL, atol=0),
-              f"tp cell {cell}: losses {losses} vs the single process "
-              f"{ref['losses']}")
+        steps = TP_STEPS[cell]
+        part = "iii" if cell in LM_CELLS else "v"
+        tol = TP_GRAD_TOL[TP_HOLD_DTYPE[cell]]
         worst = 0.0
         for r, rk in enumerate(ranks):
             g = rk["train"][cell]
             mc = r % TP_TRAIN_MESH[1]
             want = ref["samples"][mc][g["worker"]]
-            tol = TP_GRAD_TOL[TP_HOLD_DTYPE[cell]]
             for i, (a, b) in enumerate(zip(g["samples"], want)):
                 rel = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
                 worst = max(worst, rel)
                 hold(rel <= tol,
-                      f"tp cell {cell}: rank {r}'s gradient block of leaf "
-                      f"{i} {rel:.2e} from the single process's")
-            hold(g["counts"]["phocas"] == TP_STEPS
-                  and sum(g["counts"].values()) == TP_STEPS,
-                  f"tp cell {cell}: rank {r} launches {g['counts']}")
-            hold(r != 0 or g["k1"][0],
-                  f"tp cell {cell}: K1 on rank 0's slice {g['k1'][1]} "
-                  f"differs from the plain version")
-        launches["phocas"] += got["counts"]["phocas"]
+                     f"tp cell {cell}: rank {r}'s gradient block of leaf "
+                     f"{i} {rel:.2e} from the single process's")
+            wl = float(ref["worker_losses"][g["worker"]])
+            hold(abs(g["worker_loss"] - wl) <= TP_LOSS_RTOL * abs(wl),
+                 f"tp cell {cell}: rank {r}'s worker loss "
+                 f"{g['worker_loss']} vs the single process's {wl}")
+            hold(g["counts"].get("phocas", 0) == steps
+                 and sum(g["counts"].values()) == steps,
+                 f"tp cell {cell}: rank {r} launches {g['counts']}")
+            hold(r != 0 or not steps or g["k1"][0],
+                 f"tp cell {cell}: K1 on rank 0's slice {g['k1'][1]} "
+                 f"differs from the plain version")
         mine, whole = got["bytes"]
+        name = LM_CELLS[cell][0] if cell in LM_CELLS else ZOO_CELLS[cell].arch
+        layers = (LM_CELLS[cell][1] if cell in LM_CELLS
+                  else TP_ZOO_LAYERS[cell])
+        head = (f"  ({part}) cell {cell} {name} ({layers} layers) on "
+                f"{TP_TRAIN_MESH}: m = {TP_M}, phocas b = q = {TP_B} under "
+                f"omniscient: worker gradient blocks "
+                f"({TP_HOLD_DTYPE[cell]}) within {worst:.2e} (relative L2, "
+                f"sampled; limit {tol}) of the single process on all "
+                f"{TP_RANKS} ranks, worker losses within rtol "
+                f"{TP_LOSS_RTOL}; rank 0 holds {mine / 2**30:.3f} GiB of "
+                f"{TP_HOLD_DTYPE[cell]} params (the whole "
+                f"{whole / 2**30:.3f}; its blocks, exact), its gradient's "
+                f"peak {got['grad_peak'] / 2**30:.2f} GiB; part "
+                f"{got['part_s']:.1f} s")
+        fits = got["fit"]
+        short = [r for r, rk in enumerate(ranks)
+                 if rk["train"][cell]["fit"]["err"] is not None]
+        hold(fits["fits"] == (cell not in TP_UNFIT),
+             f"tp cell {cell}: the step's working set "
+             f"{'fits' if fits['fits'] else 'does not fit'} on the card "
+             f"({fits['short']} of {TP_RANKS} ranks out of memory)")
+        if not fits["fits"]:
+            err = ranks[short[0]]["train"][cell]["fit"]["err"] \
+                if short else None
+            print(head + f"; the step's f32 worker vector and all_to_all "
+                  f"buffer, {fits['need'] / 2**30:.2f} GiB a rank beside "
+                  f"its params and gradient, allocated on all {TP_RANKS} "
+                  f"ranks at once: ranks {short} ran out of memory (the "
+                  f"card had {fits['free'] / 2**30:.1f} GiB free before; "
+                  f"{err}); no training steps")
+            continue
+        losses = got["losses"]
+        hold(len(losses) == steps
+             and all(x == x and abs(x) != float("inf") for x in losses)
+             and losses[-1] < losses[0],
+             f"tp cell {cell}: losses {losses} (finite and falling)")
+        hold(torch.allclose(torch.tensor(losses), torch.tensor(
+            ref["losses"]), rtol=TP_LOSS_RTOL, atol=0),
+             f"tp cell {cell}: losses {losses} vs the single process "
+             f"{ref['losses']}")
+        launches["phocas"] += got["counts"]["phocas"]
         run_mine, run_whole = got["run_bytes"]
-        print(f"  (iii) cell {cell} {LM_CELLS[cell][0]} "
-              f"({LM_CELLS[cell][1]} layers) on {TP_TRAIN_MESH}: m = "
-              f"{TP_M}, phocas b = q = {TP_B} under omniscient, "
-              f"{TP_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-              f"(single process {ref['losses'][0]:.4f} -> "
-              f"{ref['losses'][-1]:.4f}, within rtol {TP_LOSS_RTOL}); "
-              f"step {got['step_ms']:.1f} ms (median, rank 0; the first "
-              f"{got['first_s']:.1f} s); worker gradient blocks "
-              f"({TP_HOLD_DTYPE[cell]}) within {worst:.2e} (relative L2, "
-              f"sampled; limit {TP_GRAD_TOL[TP_HOLD_DTYPE[cell]]}) of the "
-              f"single process on all {TP_RANKS} ranks; K1 "
-              f"{got['counts']['phocas']} "
-              f"launches a rank, bit for bit on rank 0's slice "
-              f"{got['k1'][1]}; rank 0 holds {mine / 2**30:.3f} GiB of "
-              f"{TP_HOLD_DTYPE[cell]} params (the whole "
-              f"{whole / 2**30:.3f}; its blocks, exact); in the bf16 run "
+        step = (f"step {got['step_ms']:.1f} ms (median, rank 0; the first "
+                f"{got['first_s']:.1f} s)" if got["step_ms"] is not None
+                else f"the first step {got['first_s']:.1f} s")
+        print(head + f"; {steps} steps: losses "
+              f"{[round(x, 4) for x in losses]} (single process "
+              f"{[round(x, 4) for x in ref['losses']]}, within rtol "
+              f"{TP_LOSS_RTOL}); "
+              f"{step}; K1 {got['counts']['phocas']} launches a rank, bit "
+              f"for bit on rank 0's slice {got['k1'][1]}; in the bf16 run "
               f"{run_mine / 2**30:.3f} of {run_whole / 2**30:.3f} GiB, "
               f"peak {got['peak'] / 2**30:.2f} GiB against the replicated "
               f"compute's whole params and whole worker gradient, "
               f"{2 * run_whole / 2**30:.3f} GiB, before any activation")
+    seq = r0["seq"]
+    plain = r0["train"][TP_SEQ_CELL]["losses"][:TP_SEQ_STEPS]
+    hold(len(seq["losses"]) == len(plain) == TP_SEQ_STEPS
+         and all(abs(a - b) <= TP_LOSS_RTOL * abs(b)
+                 for a, b in zip(seq["losses"], plain)),
+         f"tp REPRO_SEQ_SHARD: cell {TP_SEQ_CELL}'s losses {seq['losses']} "
+         f"vs {plain} without it")
+    grad_tol = TP_GRAD_TOL["float32"]
+    worst = 0.0
+    for r, rk in enumerate(ranks):
+        g = rk["seq"]
+        worst = max(worst, g["grad_rel"])
+        hold(g["grad_rel"] <= grad_tol,
+             f"tp REPRO_SEQ_SHARD: rank {r}'s f32 gradient blocks "
+             f"{g['grad_rel']:.2e} from its blocks without it")
+        a, b = g["grad_loss"]
+        hold(abs(a - b) <= TP_LOSS_RTOL * abs(b),
+             f"tp REPRO_SEQ_SHARD: rank {r}'s f32 worker loss {a} vs {b}")
+        c = g["counts"]
+        hold(c["phocas"] == TP_SEQ_STEPS and sum(c.values()) == TP_SEQ_STEPS,
+             f"tp REPRO_SEQ_SHARD: rank {r} launches {c}")
+    launches["phocas"] += seq["counts"]["phocas"]
+    walls = [round(x, 2) for x in seq["walls"]]
+    unsharded = [round(x, 2) for x in
+                 r0["train"][TP_SEQ_CELL]["walls"][:TP_SEQ_STEPS]]
+    print(f"  (vi) REPRO_SEQ_SHARD: cell {TP_SEQ_CELL} on {TP_TRAIN_MESH}, "
+          f"the residual stream's {LM_SEQ_LEN} positions sharded over the "
+          f"model axis between layers: each worker's first gradient on its "
+          f"f32 blocks within {worst:.2e} (relative L2, sampled; limit "
+          f"{grad_tol}) of the gradient without it on all {TP_RANKS} "
+          f"ranks, its loss within rtol {TP_LOSS_RTOL}; {TP_SEQ_STEPS} "
+          f"bf16 steps: losses {[round(x, 6) for x in seq['losses']]} "
+          f"against {[round(x, 6) for x in plain]} without it (rtol "
+          f"{TP_LOSS_RTOL}); step walls {walls} s (without it "
+          f"{unsharded} s); part {seq['part_s']:.1f} s")
     print(f"phase 11: {time.perf_counter() - t0:.1f} s (the world, the "
           f"references beside it: {world_s:.1f} s; serving "
           f"{r0['serve_s']:.1f} s, training {r0['train_s']:.1f} s)")

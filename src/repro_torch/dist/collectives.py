@@ -19,9 +19,11 @@ that axis's process group, in the reference's order of per-axis steps:
     rank's block of each leaf that ``tree_pspecs`` shards over the model
     axes, and the all_gather that rebuilds the leaves;
   * :func:`copy_to_model` / :func:`reduce_from_model` /
-    :func:`gather_from_model`: the tensor-parallel layers' operators
-    (Megatron's f and g, and a gather), ``torch.autograd.Function``s that
-    differentiate under ``torch.func.grad``/``vjp``.  They carry no vmap
+    :func:`gather_from_model` / :func:`scatter_to_model` /
+    :func:`reduce_scatter_to_model`: the tensor-parallel layers' operators
+    (Megatron's f and g, a gather, and sequence parallelism's split and
+    reduce-scatter), ``torch.autograd.Function``s that differentiate
+    under ``torch.func.grad``/``vjp``.  They carry no vmap
     rule: a rank computes one worker group, so nothing vmaps over them.
 
 The backend is gloo on the CPU and on the card (every rank of a mesh on one
@@ -269,7 +271,9 @@ class _ReduceFromModel(torch.autograd.Function):
 class _GatherFromModel(torch.autograd.Function):
     """all_gather over the model axes along ``dim`` forward, this rank's
     block of the gradient backward (what follows is computed alike on
-    every model rank, so each holds the whole gradient)."""
+    every model rank, so each holds the whole gradient; where each rank
+    uses other parts of the gathered tensor, the caller puts it through
+    :func:`copy_to_model`, which sums the parts' gradients first)."""
 
     @staticmethod
     def forward(x, axes, dim):
@@ -281,9 +285,49 @@ class _GatherFromModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        part = g.chunk(axis_size(ctx.axes), ctx.dim)[
-            worker_slice_index(ctx.axes)]
-        return part.contiguous(), None, None
+        return _block(g, ctx.axes, ctx.dim).contiguous(), None, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    """This rank's block of ``x`` along ``dim`` forward (``x`` is the same
+    on every model rank), the blocks' gradients all_gathered backward."""
+
+    @staticmethod
+    def forward(x, axes, dim):
+        return _block(x, axes, dim).contiguous()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axes, ctx.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        # through an autograd.Function, so that under ``torch.func`` (the
+        # remat recompute's vjp) the collective sees plain tensors
+        return _GatherFromModel.apply(g, ctx.axes, ctx.dim), None, None
+
+
+class _ReduceScatterToModel(torch.autograd.Function):
+    """The sum over the model axes, cut to this rank's block along ``dim``,
+    forward; the blocks' gradients all_gathered backward.  gloo has no
+    reduce_scatter: the sum is all_reduced, then cut."""
+
+    @staticmethod
+    def forward(x, axes, dim):
+        return _block(_psum_f32(x, axes), axes, dim).contiguous()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axes, ctx.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherFromModel.apply(g, ctx.axes, ctx.dim), None, None
+
+
+def _block(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``axes``."""
+    return x.chunk(axis_size(axes), dim)[worker_slice_index(axes)]
 
 
 def copy_to_model(x: torch.Tensor, axes) -> torch.Tensor:
@@ -302,3 +346,21 @@ def gather_from_model(x: torch.Tensor, axes, dim: int = -1) -> torch.Tensor:
     if not axes:
         return x
     return _GatherFromModel.apply(x, tuple(axes), dim % x.dim())
+
+
+def scatter_to_model(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of an ``x`` that every model rank
+    holds whole, whose blocks are used apart (identity when there are no
+    axes)."""
+    if not axes:
+        return x
+    return _ScatterToModel.apply(x, tuple(axes), dim % x.dim())
+
+
+def reduce_scatter_to_model(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """Megatron-SP's reduce-scatter: the partial outputs summed over
+    ``axes`` and cut to this rank's block along ``dim`` (identity when
+    there are no axes)."""
+    if not axes:
+        return x
+    return _ReduceScatterToModel.apply(x, tuple(axes), dim % x.dim())

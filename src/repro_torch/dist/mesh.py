@@ -137,11 +137,14 @@ _AMBIENT = threading.local()
 
 @dataclasses.dataclass(frozen=True)
 class Ambient:
-    """The mesh of the code inside :func:`use_mesh`, and whether the
+    """The mesh of the code inside :func:`use_mesh`, whether the
     activations' batch rows are this rank's share of a batch sharded over
-    the worker axes (else every rank holds the whole batch)."""
+    the worker axes (else every rank holds the whole batch), and whether
+    the residual stream between layers is this rank's block of the
+    sequence over the model axes (``models/stack.py::SEQ_SHARD``)."""
     mesh: Mesh
     batch_sharded: bool = False
+    seq_sharded: bool = False
 
 
 def use_mesh(mesh: Mesh, *, batch_sharded: bool = False):

@@ -289,18 +289,31 @@ def init_blocks(model, seed: int, mesh: Mesh, device):
 # KV-cache rule
 # ---------------------------------------------------------------------------
 
+# Cache subtrees stacked on a leading layer dim: the decoder stack's
+# period-scanned ``blocks`` and whisper's per-layer ``self`` and ``cross``
+# K/V ((L, B, T, Kv, hd), ``models/encdec.py::init_cache``).
+_STACKED_CACHES = frozenset({"blocks", "self", "cross"})
+
+
 def cache_pspec(path: Sequence[str], leaf, mesh: Mesh) -> P:
     """Partition spec of one KV-cache leaf at ``path`` (its dict keys).
 
     Caches are batch-major (attention ``k``/``v``: (B, T, Kv, hd); MLA
-    latents: (B, T, rank); Mamba states: (B, ...)), except under the
-    period-scanned ``blocks`` subtree, which prepends an (n_periods,) dim.
-    The request batch shards over the worker axes and GQA KV heads over the
-    model axes when they divide.
+    latents: (B, T, rank); Mamba states: (B, ...)), except under a
+    layer-stacked subtree (``_STACKED_CACHES``), which prepends a leading
+    layer or period dim.  The request batch shards over the worker axes
+    and GQA KV heads over the model axes when they divide; so do the heads
+    of a Mamba2 SSM state ``ssm`` ((B, H, P, N)), which the head-parallel
+    block keeps this rank's of (``models/ssm.py``).
+
+    Two cuts are the port's own, a layout with the reference's values:
+    the reference shifts the batch dim only under ``blocks`` (under GSPMD
+    its spec on whisper's layer dim is harmless; cutting that dim would
+    not be), and it leaves the SSM state's heads whole.
     """
     names = tuple(str(n) for n in path)
     shape = tuple(leaf.shape)
-    offset = 1 if names and names[0] == "blocks" else 0
+    offset = 1 if names and names[0] in _STACKED_CACHES else 0
     spec = [None] * len(shape)
     wa = worker_axes_of(mesh)
     m = _axes_size(mesh, wa)
@@ -308,8 +321,9 @@ def cache_pspec(path: Sequence[str], leaf, mesh: Mesh) -> P:
         spec[offset] = wa if len(wa) > 1 else wa[0]
     model_axes = model_axes_of(mesh)
     tp = _axes_size(mesh, model_axes)
-    head_dim = offset + 2
-    if (tp > 1 and names and names[-1] in ("k", "v")
-            and len(shape) == offset + 4 and shape[head_dim] % tp == 0):
+    head_dim = {"k": offset + 2, "v": offset + 2, "ssm": offset + 1}.get(
+        names[-1] if names else "")
+    if (tp > 1 and head_dim is not None and len(shape) == offset + 4
+            and shape[head_dim] % tp == 0):
         spec[head_dim] = model_axes if len(model_axes) > 1 else model_axes[0]
     return P(*spec)

@@ -14,10 +14,11 @@ The run is on ``cuda`` unless ``--device cpu`` is given.  ``--mesh DxM``
 serves the dense tier on a (data, model) mesh of D x M ranks: from a
 process with no ``torch.distributed`` world it spawns them (gloo, every
 rank on the one device), under ``torchrun`` each process is a rank.  The
-requests shard over the data axis, the KV heads and the dense, MoE and MLA
-layers over the model axis; each rank builds only its blocks of the
-params, the ranks taking turns; rank 0 prints the ``tok/s`` line and the
-tokens as without a mesh.  The paged engine takes no mesh.
+requests shard over the data axis, the KV heads, the SSM state's heads and
+every family's layers (dense, MoE, MLA, SSM, hybrid, whisper's
+encoder-decoder, the VLM) over the model axis; each rank builds only its
+blocks of the params, the ranks taking turns; rank 0 prints the ``tok/s``
+line and the tokens as without a mesh.  The paged engine takes no mesh.
 
 ``--metrics PATH`` arms the obs layer (the ``prefill``/``decode`` spans, the
 engine's counters and gauges, ``serve_tokens_per_sec``) and writes its
@@ -167,7 +168,8 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     ap.add_argument("--mesh", default="",
                     help="data×model, e.g. 4x2: serve the dense tier on "
-                         "D x M ranks")
+                         "D x M ranks, requests over the data axis, the "
+                         "model tensor-parallel over the model axis")
     ap.add_argument("--engine", action="store_true",
                     help="use the continuous-batching paged ServeEngine")
     ap.add_argument("--replicas", type=int, default=1,
@@ -210,13 +212,9 @@ def main(argv=None):
                         sys.argv[1:] if argv is None else list(argv))[0],
                   end="")
             return
+        from repro_torch.dist.sharding import init_blocks
         mesh = make_host_mesh(d, mm)
-        if model.tensor_parallel:
-            from repro_torch.dist.sharding import init_blocks
-            params = init_blocks(model, args.seed, mesh, device)
-        else:
-            params = model.init(
-                torch.Generator(device=device).manual_seed(args.seed))
+        params = init_blocks(model, args.seed, mesh, device)
         _run_dense(args, model, params, device, mesh)
         return
     gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -23,6 +23,15 @@ the JSONL record stream (summarize it with ``python -m
 repro_torch.obs.report PATH``), and ``--profile-dir DIR`` a
 ``torch.profiler`` Chrome trace of the run (``DIR/trace.json``; on a mesh
 ``DIR/rank<r>/trace.json``).
+
+``--mesh DxM`` runs sync_ps on D x M ``torch.distributed`` ranks (spawned
+from one process, or under ``torchrun`` one a process): each data rank is
+a worker, and an arch model computes tensor-parallel over the model axis,
+each rank holding its blocks of the params and optimizer state (every
+family; the paper's MLP and CNN compute whole on every model rank and
+split only the aggregation).  ``REPRO_SEQ_SHARD=1`` shards the residual
+stream's sequence over the model axis between layers (Megatron-SP; the
+same values).
 """
 from __future__ import annotations
 
@@ -221,7 +230,8 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--remat", default="none")
     ap.add_argument("--mesh", default="",
                     help="data×model, e.g. 4x2: D x M torch.distributed "
-                         "ranks; empty = one process")
+                         "ranks, an arch model tensor-parallel over the "
+                         "model axis; empty = one process")
     ap.add_argument("--backend", default="auto",
                     choices=("auto", "pallas", "xla"),
                     help="per-rule kernel dispatch: pallas = the Hopper "

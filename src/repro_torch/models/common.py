@@ -26,20 +26,35 @@ Three differences from the reference, each forced by PyTorch:
   ``attention_block``), every other call and every call on the CPU take
   ``_attend``, the reference's default.
 
-On a mesh (``dist/mesh.py::use_mesh`` over a world) the layers compute
-tensor-parallel on the blocks that ``dist/sharding.py::tree_pspecs`` gives
-this rank, which they read off the leaves' shapes: a column-parallel leaf
-(``wq wk wv wi wg wkv_a wk_rope wk_b wv_b lm_head``) cut on its output
-features gives this rank's block of the output, a row-parallel ``wo`` cut
-on its input features takes the block and its partial output is summed
-over the model axes (``dist/collectives.py``'s Megatron operators), and
-the vocab-sharded ``table`` is looked up on this rank's rows and summed.
-Attention runs on this rank's heads when every q and KV column block
-falls on head boundaries (``H % tp == 0`` and ``Kv % tp == 0``, so every
-GQA group stays whole); otherwise the blocks are gathered and every rank
-attends over all heads, which gives the values of the reference's
-padded-heads branch.  A whole leaf (``tree_pspecs`` replicates a dim that
-does not divide) computes whole.
+On a mesh (``dist/mesh.py::use_mesh`` over a world) the layers of every
+family with a ``cfg`` compute tensor-parallel on the blocks that
+``dist/sharding.py::tree_pspecs`` gives this rank, which they read off the
+leaves' shapes: a column-parallel leaf (``wq wk wv wi wg wkv_a wk_rope
+wk_b wv_b lm_head in_proj fc1`` and the unnamed ``frontend_proj``) cut on
+its output features gives this rank's block of the output, a row-parallel
+``wo``/``out_proj``/``fc2`` cut on its input features takes the block and
+its partial output is summed over the model axes (``dist/collectives.py``'s
+Megatron operators), and the vocab-sharded ``table`` is looked up on this
+rank's rows and summed.  Attention (the decoders', whisper's encoder, self-
+and cross-attention) runs on this rank's heads when every q and KV column
+block falls on head boundaries (``H % tp == 0`` and ``Kv % tp == 0``, so
+every GQA group stays whole); otherwise the blocks are gathered and every
+rank attends over all heads, which gives the values of the reference's
+padded-heads branch.  The Mamba2 block runs on this rank's SSD heads
+(``models/ssm.py``).  A whole leaf (``tree_pspecs`` replicates a dim that
+does not divide) computes whole.  A tensor that every model rank holds
+whole and each rank uses a part of (a per-head leaf such as ``A_log``, a
+gathered projection) goes through ``copy_to_model``, so that its
+gradient is the sum of the parts'.
+
+With the residual stream sharded over the sequence (the ambient's
+``seq_sharded``, set by ``models/stack.py`` under ``SEQ_SHARD``),
+:func:`seq_enter` gathers a layer's normed input along the sequence,
+:func:`row_linear` reduce-scatters its partial output along the sequence
+instead of summing it, :func:`seq_exit` cuts an output that came out
+whole (a whole leaf's, the MoE's) to this rank's block, and
+:func:`seq_norm` sums the stream norms' scale gradients over the ranks'
+positions.
 
 :func:`linear` also serves the ``"dots"`` remat policy of
 ``models/stack.py``: inside :func:`record_dots` it keeps each product's
@@ -49,6 +64,7 @@ same order, with the product's gradient, instead of computing them again.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
 from typing import Optional
@@ -57,7 +73,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import collectives as coll
-from repro_torch.dist.mesh import model_axes
+from repro_torch.dist.mesh import ambient, ambient_as, model_axes
 
 # Query-chunk length for attention: bounds the live (B,H,qc,T) score tensor.
 ATTN_QUERY_CHUNK = 1024
@@ -211,9 +227,10 @@ def col_linear(p: dict, x, xc, n: int, *, keep_block: bool = False):
 
 def row_linear(p: dict, h, n: int):
     """``h @ w`` of a row-parallel leaf of ``n`` whole input features.  A
-    block sums its partial output over the model axes: ``h`` is this
-    rank's block of the input, or the whole input, of which it takes this
-    rank's columns (through ``copy_to_model``)."""
+    block sums its partial output over the model axes (with the sequence
+    sharded, reduce-scatters it along the sequence, dim -2): ``h`` is
+    this rank's block of the input, or the whole input, of which it takes
+    this rank's columns (through ``copy_to_model``)."""
     if not is_block(p, n, -2):
         return linear(p, h)
     axes = block_axes()
@@ -221,12 +238,81 @@ def row_linear(p: dict, h, n: int):
         rows = p["w"].shape[-2]
         i = coll.worker_slice_index(axes)
         h = coll.copy_to_model(h, axes)[..., i * rows:(i + 1) * rows]
+    if seq_axes():
+        return coll.reduce_scatter_to_model(linear(p, h), axes, -2)
     return coll.reduce_from_model(linear(p, h), axes)
 
 
 def model_copy(x):
     """``x`` through ``copy_to_model`` on a mesh, ``x`` itself off one."""
     return coll.copy_to_model(x, model_axes())
+
+
+def heads_local(p: dict, cfg) -> bool:
+    """Whether a GQA layer's ``wq``/``wk``/``wv`` are all blocks that
+    fall on head boundaries, so that it attends on this rank's heads."""
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    blocks = [is_block(p[n], w) for n, w in
+              (("wq", H * hd), ("wk", Kv * hd), ("wv", Kv * hd))]
+    if not all(blocks):
+        return False
+    tp = coll.axis_size(block_axes())
+    return H % tp == 0 and Kv % tp == 0
+
+
+# ---------------------------------------------------------------------------
+# The sequence-sharded residual stream
+# ---------------------------------------------------------------------------
+
+def seq_axes() -> tuple:
+    """The model axes the residual stream's sequence is sharded over, ()
+    when it is whole."""
+    am = ambient()
+    return model_axes() if am is not None and am.seq_sharded else ()
+
+
+def seq_enter(x: torch.Tensor) -> torch.Tensor:
+    """A layer's normed input gathered along the sequence (dim 1) when the
+    stream is sharded.  Backward: this rank's block of the gradient, which
+    the layer's ``copy_to_model`` has summed over the model axes where the
+    ranks use it apart (together, a reduce-scatter)."""
+    axes = seq_axes()
+    return coll.gather_from_model(x, axes, 1) if axes else x
+
+
+def seq_norm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """:func:`rmsnorm` of the stream: on a sequence-sharded stream each
+    rank normalizes its own positions, so the scale goes through
+    ``copy_to_model`` (its gradient summed over the model axes, as
+    Megatron-SP all-reduces its norms' gradients)."""
+    axes = seq_axes()
+    if axes:
+        p = {"scale": coll.copy_to_model(p["scale"], axes)}
+    return rmsnorm(p, x, eps)
+
+
+def seq_exit(y: torch.Tensor, n: int) -> torch.Tensor:
+    """A layer's output as the stream's block of ``n`` positions: an
+    output that came out whole (every model rank computing it alike) cut
+    to this rank's block (backward: the blocks' gradients gathered); a
+    reduce-scattered one as it is."""
+    axes = seq_axes()
+    if not axes or y.shape[1] == n:
+        return y
+    return coll.scatter_to_model(y, axes, 1)
+
+
+@contextlib.contextmanager
+def whole_sequence():
+    """The code inside computes on the whole sequence and sums its partial
+    outputs whole, even on a sequence-sharded stream (the MoE FFN, which
+    dispatches flat tokens)."""
+    am = ambient()
+    if am is None or not am.seq_sharded:
+        yield
+        return
+    with ambient_as(dataclasses.replace(am, seq_sharded=False)):
+        yield
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -340,24 +426,19 @@ def _cache_positions(size: int, pos: int, window: Optional[int],
     return torch.where(p >= 0, p, -1)
 
 
-def _gqa_qkv(p, cfg, x):
+def gqa_qkv(p, cfg, x):
     """q, k, v of a GQA layer as (B, S, heads, hd), with the head counts:
     this rank's heads when every block is head-aligned (and the k/v of a
     sharded cache), all of them otherwise (blocks gathered)."""
     B, S, d = x.shape
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xc = model_copy(x)
-    blocks = [is_block(p[n], w) for n, w in
-              (("wq", H * hd), ("wk", Kv * hd), ("wv", Kv * hd))]
-    tp = coll.axis_size(block_axes()) if any(blocks) else 1
-    local = all(blocks) and H % tp == 0 and Kv % tp == 0
+    local = heads_local(p, cfg)
     q = col_linear(p["wq"], x, xc, H * hd, keep_block=local)
     k = col_linear(p["wk"], x, xc, Kv * hd, keep_block=local)
     v = col_linear(p["wv"], x, xc, Kv * hd, keep_block=local)
-    if local:
-        H, Kv = H // tp, Kv // tp
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, Kv, hd),
-            v.reshape(B, S, Kv, hd))
+    return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+            v.reshape(B, S, -1, hd))
 
 
 def attention_block(p, cfg, x, *, positions, window, cache=None):
@@ -367,7 +448,7 @@ def attention_block(p, cfg, x, *, positions, window, cache=None):
     written in place and returned.  On a mesh the cache holds this rank's
     KV heads when they are sharded (``cache_pspec``)."""
     B, S, d = x.shape
-    q, k, v = _gqa_qkv(p, cfg, x)
+    q, k, v = gqa_qkv(p, cfg, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 

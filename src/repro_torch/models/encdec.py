@@ -17,6 +17,15 @@ its scan body in a plain ``jax.checkpoint``, so "dots" is "full" here),
 through ``models/stack.py::checkpointed``.  The decode cache is written in
 place: ``self`` per layer by the decode step, ``cross`` by
 :func:`prefill_cache`.
+
+On a mesh the layers compute tensor-parallel on this rank's blocks, as the
+decoders of ``models/common.py`` do: ``frontend_proj`` is column-parallel
+(its output gathered), the encoder's self-attention, the decoder's self-
+and cross-attention run on this rank's heads (the cross-attention K/V of
+:func:`prefill_cache` and of the cache too), the GLU MLPs split their
+hidden width, the vocab-sharded table is looked up on this rank's rows and
+``lm_head`` gives vocab blocks of the logits, gathered before the loss;
+a leaf that ``tree_pspecs`` leaves whole computes whole.
 """
 from __future__ import annotations
 
@@ -110,27 +119,26 @@ def _scan(body, x, layers, n: int, remat: str, *consts):
 
 def _enc_attn(p, cfg, x):
     B, S, d = x.shape
-    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = C.linear(p["wq"], x).reshape(B, S, H, hd)
-    k = C.linear(p["wk"], x).reshape(B, S, Kv, hd)
-    v = C.linear(p["wv"], x).reshape(B, S, Kv, hd)
+    q, k, v = C.gqa_qkv(p, cfg, x)
     pos = torch.arange(S, device=x.device)
     out = C.attention_core(q, k, v, pos, pos, causal=False)
-    return C.linear(p["wo"], out.reshape(B, S, H * hd))
+    return C.row_linear(p["wo"], out.reshape(B, S, -1),
+                        cfg.num_heads * cfg.head_dim)
 
 
 def _enc_layer(x, lp, cfg):
     h = C.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     x = x + _enc_attn(lp["attn"], cfg, h)
     h = C.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + C.mlp_block(lp["mlp"], h)
+    return x + C.mlp_block(lp["mlp"], h, cfg.d_ff)
 
 
 def encode(params, cfg, audio_embeds, *, remat: str = "none"
            ) -> torch.Tensor:
     """(B, F, frontend_dim) -> (B, F, d_model)."""
-    x = C.linear(params["frontend_proj"],
-                 audio_embeds.to(C.dtype_of(cfg)))
+    a = audio_embeds.to(C.dtype_of(cfg))
+    x = C.col_linear(params["frontend_proj"], a, C.model_copy(a),
+                     cfg.d_model)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)
     x = _scan(lambda x, lp: _enc_layer(x, lp, cfg), x, params["enc"],
               cfg.encoder_layers, remat)
@@ -142,14 +150,17 @@ def encode(params, cfg, audio_embeds, *, remat: str = "none"
 # ---------------------------------------------------------------------------
 
 def _cross_attn(p, cfg, x, enc_kv):
+    """Cross-attention of ``x`` to ``enc_kv``, which holds this rank's KV
+    heads when the layer's heads are local (:func:`_cross_kv`)."""
     B, S, d = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
-    q = C.linear(p["wq"], x).reshape(B, S, H, hd)
+    q = C.col_linear(p["wq"], x, C.model_copy(x), H * hd,
+                     keep_block=C.heads_local(p, cfg)).reshape(B, S, -1, hd)
     k, v = enc_kv
     T = k.shape[1]
     out = C.attention_core(q, k, v, torch.arange(S, device=x.device),
                            torch.arange(T, device=x.device), causal=False)
-    return C.linear(p["wo"], out.reshape(B, S, H * hd))
+    return C.row_linear(p["wo"], out.reshape(B, S, -1), H * hd)
 
 
 def _dec_layer(lp, cfg, x, enc_kv, *, positions, cache=None):
@@ -160,21 +171,26 @@ def _dec_layer(lp, cfg, x, enc_kv, *, positions, cache=None):
     h = C.rmsnorm(lp["ln_x"], x, cfg.norm_eps)
     x = x + _cross_attn(lp["cross_attn"], cfg, h, enc_kv)
     h = C.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + C.mlp_block(lp["mlp"], h)
+    return x + C.mlp_block(lp["mlp"], h, cfg.d_ff)
 
 
 def _cross_kv(lp, cfg, enc_out):
+    """The cross-attention K/V of one decoder layer: this rank's KV heads
+    when the layer's heads are local, all of them otherwise."""
     B, T, _ = enc_out.shape
     Kv, hd = cfg.num_kv_heads, cfg.head_dim
-    k = C.linear(lp["cross_attn"]["wk"], enc_out).reshape(B, T, Kv, hd)
-    v = C.linear(lp["cross_attn"]["wv"], enc_out).reshape(B, T, Kv, hd)
-    return k, v
+    p = lp["cross_attn"]
+    local, xc = C.heads_local(p, cfg), C.model_copy(enc_out)
+    k = C.col_linear(p["wk"], enc_out, xc, Kv * hd, keep_block=local)
+    v = C.col_linear(p["wv"], enc_out, xc, Kv * hd, keep_block=local)
+    return k.reshape(B, T, -1, hd), v.reshape(B, T, -1, hd)
 
 
 def forward(params, cfg, batch, *, remat: str = "none"):
     """Full enc-dec training forward -> (logits (B,S,V) f32, aux = 0)."""
     enc_out = encode(params, cfg, batch["audio_embeds"], remat=remat)
-    x = C.embed(params["embed"], batch["tokens"]) * math.sqrt(cfg.d_model)
+    x = (C.embed(params["embed"], batch["tokens"], cfg.vocab_size)
+         * math.sqrt(cfg.d_model))
 
     def body(x, lp, enc_out):
         positions = torch.arange(x.shape[1], device=x.device)
@@ -182,9 +198,15 @@ def forward(params, cfg, batch, *, remat: str = "none"):
                           positions=positions)
 
     x = _scan(body, x, params["dec"], cfg.num_layers, remat, enc_out)
-    x = C.rmsnorm(params["dec_norm"], x, cfg.norm_eps)
-    logits = C.linear(params["lm_head"], x).float()
+    logits = _logits(params, cfg, x)
     return logits, torch.zeros((), device=logits.device)
+
+
+def _logits(params, cfg, x) -> torch.Tensor:
+    """f32 logits of the decoder's output, every vocab block gathered."""
+    x = C.rmsnorm(params["dec_norm"], x, cfg.norm_eps)
+    return C.col_linear(params["lm_head"], x, C.model_copy(x),
+                        cfg.vocab_size).float()
 
 
 def loss_fn(params, cfg, batch, *, remat: str = "none") -> torch.Tensor:
@@ -225,7 +247,8 @@ def decode_step(params, cfg, cache, tokens, pos):
     """One decoder token (tokens (B,1), pos an int) against the cached
     self/cross KV; the self-attention cache is written in place.  Returns
     (logits (B,1,V) f32, cache)."""
-    x = C.embed(params["embed"], tokens) * math.sqrt(cfg.d_model)
+    x = C.embed(params["embed"], tokens, cfg.vocab_size) * math.sqrt(
+        cfg.d_model)
     positions = torch.as_tensor(pos, device=tokens.device).long().reshape(-1)
     sk, sv = cache["self"]["k"], cache["self"]["v"]
     xk, xv = cache["cross"]["k"], cache["cross"]["v"]
@@ -233,5 +256,4 @@ def decode_step(params, cfg, cache, tokens, pos):
         x = _dec_layer(_layer(params["dec"], i), cfg, x, (xk[i], xv[i]),
                        positions=positions,
                        cache={"k": sk[i], "v": sv[i]})
-    x = C.rmsnorm(params["dec_norm"], x, cfg.norm_eps)
-    return C.linear(params["lm_head"], x).float(), cache
+    return _logits(params, cfg, x), cache

@@ -14,10 +14,12 @@ reference.
 ``init(gen, cfg)`` draws the parameters from a ``torch.Generator`` on the
 device they go to.  Caches are written in place (``models/common.py``).
 
-On a mesh the dense, MoE and MLA layers compute on this rank's blocks
-(``models/common.py``): the vocab-sharded table and ``lm_head`` (or
-gemma2's tied table) give vocab blocks of the logits, which are gathered
-before the final softcap, so the loss and the argmax see every logit.
+On a mesh every family's layers compute on this rank's blocks
+(``models/common.py``, ``models/ssm.py``): the vocab-sharded table and
+``lm_head`` (or gemma2's tied table) give vocab blocks of the logits,
+which are gathered before the final softcap, so the loss and the argmax
+see every logit; the VLM projector's ``fc1`` is column-parallel and its
+``fc2`` row-parallel, the tanh GELU between them on this rank's block.
 """
 from __future__ import annotations
 
@@ -57,8 +59,10 @@ def _embed_inputs(params, cfg, batch) -> torch.Tensor:
     if cfg.num_patches:
         pe = batch["patch_embeds"].to(x.dtype)
         pj = params["projector"]
-        proj = C.linear(pj["fc2"], F.gelu(C.linear(pj["fc1"], pe),
-                                          approximate="tanh"))
+        h = C.col_linear(pj["fc1"], pe, C.model_copy(pe), cfg.d_model,
+                         keep_block=True)
+        proj = C.row_linear(pj["fc2"], F.gelu(h, approximate="tanh"),
+                            cfg.d_model)
         x = torch.cat([proj, x[:, cfg.num_patches:]], dim=1)
     return x
 

@@ -15,7 +15,9 @@ family of ``repro_torch.configs`` is built: dense and MoE decoders with GQA
 or MLA attention, the Mamba2 SSM, the hybrid attention + SSM stack and the
 VLM backbone (``models/lm.py``), and the whisper encoder-decoder
 (``models/encdec.py``, no paged path; its cross-attention cache is filled by
-``encdec.prefill_cache``).
+``encdec.prefill_cache``).  On a (data, model) mesh each of these computes
+tensor-parallel on the blocks ``dist/sharding.py::tree_pspecs`` gives a
+rank (:attr:`Model.tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -46,13 +48,11 @@ class Model:
     @property
     def tensor_parallel(self) -> bool:
         """Whether the layers compute on model-sharded blocks on a mesh:
-        the decoder-only GQA and MLA families with a dense or MoE FFN.
-        The SSM, hybrid, encoder-decoder and VLM families (and the paper's
-        MLP and CNN, which have no ``cfg``) compute whole on every rank of
-        a model axis."""
-        c = self.cfg
-        return c is not None and not (c.is_ssm or c.hybrid or c.is_encdec
-                                      or c.num_patches)
+        every family of ``repro_torch.configs`` (dense and MoE decoders
+        with GQA or MLA, the Mamba2 SSM, the hybrid, the encoder-decoder
+        and the VLM).  The paper's MLP and CNN, which have no ``cfg``,
+        compute whole on every rank of a model axis."""
+        return self.cfg is not None
 
     @property
     def supports_paged(self) -> bool:

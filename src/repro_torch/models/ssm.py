@@ -22,6 +22,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives as coll
+from repro_torch.dist.mesh import model_axes
 from repro_torch.models import common as C
 
 SSD_CHUNK = 256
@@ -148,37 +150,126 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
                                           device=x.device))
 
 
+def _heads(nheads: int):
+    """(model axes, first head, end head) of this rank's SSD heads on a
+    mesh whose model axes divide ``nheads``; (None, 0, nheads) elsewhere,
+    where the block computes whole."""
+    axes = model_axes()
+    tp = coll.axis_size(axes)
+    if tp == 1 or nheads % tp:
+        return None, 0, nheads
+    n = nheads // tp
+    i = coll.worker_slice_index(axes)
+    return axes, i * n, (i + 1) * n
+
+
+def _whole(t: torch.Tensor, n: int) -> torch.Tensor:
+    """A per-channel leaf of ``n`` channels (last dim) whole: a block that
+    ``tree_pspecs`` cut (stacked layers' ``conv_w``/``conv_b``) gathered
+    over the model axes."""
+    if t.shape[-1] == n:
+        return t
+    return coll.gather_from_model(t, C.block_axes(), -1)
+
+
+def _per_head(t: torch.Tensor, nheads: int, axes, h0: int, h1: int
+              ) -> torch.Tensor:
+    """This rank's heads of a per-head leaf (``dt_bias``, ``A_log``,
+    ``D``): a block that ``tree_pspecs`` cut (stacked layers) holds
+    exactly them; a whole leaf (a tail layer's) is sliced, through
+    ``copy_to_model`` on a mesh, where every rank uses its part."""
+    if t.shape[-1] != nheads or axes is None:
+        return t
+    return coll.copy_to_model(t, axes)[h0:h1]
+
+
+def _mine(t: torch.Tensor, lo: int, hi: int, d_inner: int, axes
+          ) -> torch.Tensor:
+    """The conv channels (last dim) this rank uses of ``t``, which every
+    model rank holds whole: its heads' x channels, then the shared B and
+    C (``copy_to_model`` sums the ranks' gradients of the shared parts)."""
+    t = coll.copy_to_model(t, axes)
+    return torch.cat([t[..., lo:hi], t[..., d_inner:]], dim=-1)
+
+
+def _gated_norm(p, y: torch.Tensor, eps: float, d_inner: int, axes
+                ) -> torch.Tensor:
+    """The gated RMSNorm over the whole ``d_inner`` of a ``y`` that holds
+    this rank's heads: each token's sum of squares is summed over the
+    model axes in f32, forward and backward (each rank's channels take
+    part in every rank's normalizer)."""
+    xf = y.float()
+    ss = torch.sum(xf * xf, dim=-1, keepdim=True)
+    ss = coll.copy_to_model(coll.reduce_from_model(ss, axes), axes)
+    return (xf * torch.rsqrt(ss / d_inner + eps)
+            * p["scale"].float()).to(y.dtype)
+
+
 def mamba_block(p, cfg, x, *, cache: Optional[dict] = None):
     """Mamba2 block.  Training/prefill when cache is None; one decode step
     (S == 1) otherwise, which writes the conv history and the SSM state into
-    ``cache`` in place.  Returns (out (B,S,d), cache)."""
+    ``cache`` in place.  Returns (out (B,S,d), cache).
+
+    On a mesh whose model axes divide the heads, the block runs
+    head-parallel: ``in_proj``'s column block (cut over the packed z | x |
+    B | C | dt columns, not on head boundaries) is all_gathered, and each
+    rank takes its heads' z, x and dt beside the shared B and C; the conv
+    runs on those channels (``conv_w``'s block gathered the same way), the
+    SSD scan, the ``D`` skip and the gate on this rank's heads, the gated
+    norm with its sum of squares summed over the model axes, and the
+    row-parallel ``out_proj`` on its ``d_inner/tp`` rows, exactly its
+    heads.  The gathered projection, ``conv_w``, ``conv_b`` and the norm's
+    ``scale`` (and a whole ``dt_bias``, ``A_log``, ``D``: a tail layer's,
+    which ``tree_pspecs`` leaves whole at ndim 1; stacked layers' are cut
+    to this rank's heads) are each used in part by every rank, so they go
+    through ``copy_to_model`` (their gradients are the sums of the
+    ranks').  The decode cache holds the whole conv history (every rank
+    gathers every channel) and this rank's heads of the SSM state.
+    Elsewhere (the heads do not divide) the block computes whole, the
+    blocks of a cut leaf gathered."""
     B_, S, d = x.shape
     n, width = cfg.ssm_state, cfg.ssm_conv_width
     d_inner, nheads = _dims(cfg)
     hp = cfg.ssm_head_dim
+    axes, h0, h1 = _heads(nheads)
+    lo, hi = h0 * hp, h1 * hp
 
-    zxbcdt = C.linear(p["in_proj"], x)
-    z = zxbcdt[..., :d_inner]
+    zxbcdt = C.col_linear(p["in_proj"], x, C.model_copy(x),
+                          2 * d_inner + 2 * n + nheads)
+    conv_w, conv_b = (_whole(p[k], d_inner + 2 * n)
+                      for k in ("conv_w", "conv_b"))
+    if axes is not None:
+        zxbcdt = coll.copy_to_model(zxbcdt, axes)
+        conv_w = _mine(conv_w, lo, hi, d_inner, axes)
+        conv_b = _mine(conv_b, lo, hi, d_inner, axes)
+    z = zxbcdt[..., lo:hi]
     xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * n]
-    dt_raw = zxbcdt[..., 2 * d_inner + 2 * n:]         # (B,S,nheads)
+    dt_raw = zxbcdt[..., 2 * d_inner + 2 * n:][..., h0:h1]   # (B,S,h)
 
     if cache is None:
-        xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+        if axes is not None:
+            xbc = torch.cat([xbc[..., lo:hi], xbc[..., d_inner:]], -1)
+        xbc = _causal_conv(xbc, conv_w, conv_b)
     else:
-        # decode: conv over [history, x_t]
+        # decode: conv over [history, x_t]; the history stays whole
         hist = torch.cat([cache["conv"], xbc], dim=1)  # (B,width,C)
-        out = hist[:, 0:1] * p["conv_w"][0]
-        for i in range(1, width):
-            out = out + hist[:, i:i + 1] * p["conv_w"][i]
-        xbc = F.silu(out + p["conv_b"])
         cache["conv"].copy_(hist[:, 1:])
+        if axes is not None:
+            hist = torch.cat([hist[..., lo:hi], hist[..., d_inner:]], -1)
+        out = hist[:, 0:1] * conv_w[0]
+        for i in range(1, width):
+            out = out + hist[:, i:i + 1] * conv_w[i]
+        xbc = F.silu(out + conv_b)
 
-    xin = xbc[..., :d_inner].reshape(B_, S, nheads, hp)
-    Bp = xbc[..., d_inner:d_inner + n]
-    Cp = xbc[..., d_inner + n:]
+    dl = hi - lo                                       # this rank's d_inner
+    xin = xbc[..., :dl].reshape(B_, S, h1 - h0, hp)
+    Bp = xbc[..., dl:dl + n]
+    Cp = xbc[..., dl + n:]
 
-    dt = _softplus(dt_raw.float() + p["dt_bias"])      # (B,S,h)
-    A = -torch.exp(p["A_log"])                         # (h,)
+    dt_bias, A_log, Dp = (_per_head(p[k], nheads, axes, h0, h1)
+                          for k in ("dt_bias", "A_log", "D"))
+    dt = _softplus(dt_raw.float() + dt_bias)           # (B,S,h)
+    A = -torch.exp(A_log)                              # (h,)
     dA = dt * A                                        # (B,S,h)
     xbar = xin.float() * dt[..., None]
 
@@ -192,8 +283,15 @@ def mamba_block(p, cfg, x, *, cache: Optional[dict] = None):
         y = torch.einsum("bhpn,bn->bhp", state, Cn)[:, None]  # (B,1,h,p)
         cache["ssm"].copy_(state)
 
-    y = y + p["D"][:, None] * xin.float()
-    y = y.reshape(B_, S, d_inner)
+    y = y + Dp[:, None] * xin.float()
+    y = y.reshape(B_, S, dl)
     y = y * F.silu(z.float())
-    y = C.rmsnorm(p["norm"], y.to(x.dtype), cfg.norm_eps)
-    return C.linear(p["out_proj"], y), cache
+    if axes is None:
+        y = C.rmsnorm(p["norm"], y.to(x.dtype), cfg.norm_eps)
+        return C.row_linear(p["out_proj"], y, d_inner), cache
+    scale = coll.copy_to_model(p["norm"]["scale"], axes)[lo:hi]
+    y = _gated_norm({"scale": scale}, y.to(x.dtype), cfg.norm_eps, d_inner,
+                    axes)
+    # the model axes divide the heads, so tree_pspecs cut out_proj's
+    # d_inner rows: its block is exactly this rank's heads
+    return C.row_linear(p["out_proj"], y, d_inner), cache

@@ -23,8 +23,19 @@ the rest (``models/common.py::record_dots``).
 
 On a mesh a period's layers issue collectives over the model axes
 (``models/common.py``); the remat backward's recompute issues them a
-second time.  Every rank of a model group runs the same layers on the
-same shapes, so they issue the same collectives in the same order.  The
+second time.  With ``SEQ_SHARD`` (the reference's opt-in
+``REPRO_SEQ_SHARD=1``, read once at import) a training or prefill call
+without a cache, on a model axis > 1 whose size divides S > 1, runs
+Megatron-SP: between layers the residual stream is this rank's block of
+the sequence (cut on entry, gathered after the last layer), the norms and
+residual adds run on the block (the norms' scale gradients summed over
+the model axes), each mixer and FFN takes its normed input gathered
+along the sequence (an SSM or MoE layer computes on the whole sequence)
+and reduce-scatters its row-parallel output along the sequence instead of
+summing it (``models/common.py::seq_enter``, ``row_linear``,
+``seq_exit``).  The values are those without it.  Every rank of a model
+group runs the same layers on the same shapes, so they issue the same
+collectives in the same order.  The
 recompute re-enters the forward's ambient mesh and MoE grouping switch:
 on a CUDA device the autograd engine runs the backward on a thread of its
 own, where the forward's thread-local settings are not set.
@@ -32,16 +43,23 @@ own, where the forward's thread-local settings are not set.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import os
 
 import torch
 
 from repro_torch import tree as tree_util
-from repro_torch.dist.mesh import ambient, ambient_as
+from repro_torch.dist import collectives as coll
+from repro_torch.dist.mesh import ambient, ambient_as, model_axes
 from repro_torch.models import common as C
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 REMAT_MODES = ("none", "full", "dots")
+
+# Megatron-SP-style sequence sharding of the residual stream between
+# layers (opt-in, as the reference's): see the module docstring.
+SEQ_SHARD = os.environ.get("REPRO_SEQ_SHARD", "0") == "1"
 
 
 # ---------------------------------------------------------------------------
@@ -87,39 +105,48 @@ def init_layer_cache(cfg, batch: int, max_len: int, window, lead: tuple = (),
 
 def _ffn(p, cfg, x):
     """The FFN half of a layer; returns (x, aux)."""
-    h = C.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h = C.seq_enter(C.seq_norm(p["ln2"], x, cfg.norm_eps))
     if cfg.is_moe:
-        f, aux = M.moe_block(p["ffn"], cfg, h)
+        with C.whole_sequence():
+            f, aux = M.moe_block(p["ffn"], cfg, h)
     else:
         f = C.mlp_block(p["ffn"], h, cfg.d_ff)
         aux = torch.zeros((), device=x.device)
+    f = C.seq_exit(f, x.shape[1])
     if cfg.use_post_norms:
-        f = C.rmsnorm(p["post_ln2"], f, cfg.norm_eps)
+        f = C.seq_norm(p["post_ln2"], f, cfg.norm_eps)
     return x + f, aux
 
 
 def layer_fwd(p, cfg, x, *, window, positions, cache=None):
-    """Returns (x, cache, aux); the cache is updated in place."""
-    h = C.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    """Returns (x, cache, aux); the cache is updated in place.  On a
+    sequence-sharded stream ``x`` is this rank's block of the sequence
+    and ``positions`` the whole sequence's."""
+    S_ = x.shape[1]
+    h = C.seq_enter(C.seq_norm(p["ln1"], x, cfg.norm_eps))
     c = cache or {}
     if cfg.is_ssm:
         mix, _ = S.mamba_block(p["mixer"], cfg, h, cache=c.get("mixer"))
-        return x + mix, cache, torch.zeros((), device=x.device)
+        return (x + C.seq_exit(mix, S_), cache,
+                torch.zeros((), device=x.device))
     if cfg.hybrid:
         attn, _ = C.attention_block(p["mixer"], cfg, h, positions=positions,
                                     window=window, cache=c.get("mixer"))
         ssm, _ = S.mamba_block(p["mixer_ssm"], cfg, h,
                                cache=c.get("mixer_ssm"))
-        mix = 0.5 * (C.rmsnorm(p["branch_norm_a"], attn, cfg.norm_eps)
-                     + C.rmsnorm(p["branch_norm_s"], ssm, cfg.norm_eps))
+        mix = 0.5 * (C.seq_norm(p["branch_norm_a"], C.seq_exit(attn, S_),
+                                cfg.norm_eps)
+                     + C.seq_norm(p["branch_norm_s"], C.seq_exit(ssm, S_),
+                                  cfg.norm_eps))
     elif cfg.use_mla:
         mix, _ = C.mla_block(p["mixer"], cfg, h, positions=positions,
                              cache=c.get("mixer"))
     else:
         mix, _ = C.attention_block(p["mixer"], cfg, h, positions=positions,
                                    window=window, cache=c.get("mixer"))
+    mix = C.seq_exit(mix, S_)
     if cfg.use_post_norms:
-        mix = C.rmsnorm(p["post_ln1"], mix, cfg.norm_eps)
+        mix = C.seq_norm(p["post_ln1"], mix, cfg.norm_eps)
     x, aux = _ffn(p, cfg, x + mix)
     return x, cache, aux
 
@@ -216,16 +243,17 @@ def checkpointed(fn, x, *leaves, dots: bool = False):
     return y, aux
 
 
-def _run_period(blk_p, cfg, x, windows, remat):
+def _run_period(blk_p, cfg, x, windows, remat, S_: int):
     """Apply one period's layers to a cacheless (training) input at
-    positions 0..S-1; returns (x, aux).  ``period`` captures no tensor (a
-    ``torch.autograd.Function`` under ``vmap`` must not): the positions are
-    made inside it."""
+    positions 0..S_-1 (``x`` holds them all, or this rank's block of them
+    on a sequence-sharded stream); returns (x, aux).  ``period`` captures
+    no tensor (a ``torch.autograd.Function`` under ``vmap`` must not): the
+    positions are made inside it."""
     P = len(blk_p)
 
     def period(x, *leaves):
         p = tree_util.unflatten(blk_p, list(leaves))
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions = torch.arange(S_, device=x.device)
         aux = torch.zeros((), device=x.device)
         for j in range(P):
             x, _, a = layer_fwd(p[f"l{j}"], cfg, x, window=windows[j],
@@ -245,12 +273,28 @@ def stack_fwd(params, cfg, x, *, positions, cache=None, remat: str = "none"):
     (training) call, as the reference's checkpointed scan body."""
     if remat not in REMAT_MODES:
         raise ValueError(f"remat {remat!r}; valid: {REMAT_MODES}")
+    axes = model_axes()
+    tp = coll.axis_size(axes)
+    if (SEQ_SHARD and cache is None and tp > 1 and x.shape[1] > 1
+            and x.shape[1] % tp == 0):
+        with ambient_as(dataclasses.replace(ambient(), seq_sharded=True)):
+            x, _, aux = _stack_fwd(params, cfg,
+                                   coll.scatter_to_model(x, axes, 1),
+                                   positions=positions, cache=None,
+                                   remat=remat)
+        return coll.gather_from_model(x, axes, 1), None, aux
+    return _stack_fwd(params, cfg, x, positions=positions, cache=cache,
+                      remat=remat)
+
+
+def _stack_fwd(params, cfg, x, *, positions, cache, remat):
     windows, P, n_periods, tail = _period_geometry(cfg)
     aux = torch.zeros((), device=x.device)
     for i in range(n_periods):
         blk_p = _period(params["blocks"], i)
         if cache is None:
-            x, a = _run_period(blk_p, cfg, x, windows, remat)
+            x, a = _run_period(blk_p, cfg, x, windows, remat,
+                               positions.shape[0])
             aux = aux + a
             continue
         blk_c = _period(cache["blocks"], i)

@@ -25,12 +25,12 @@ On a (data, model) mesh (a ``dist/mesh.py::HostMesh`` over a world, one
 rank per device) the dense tier runs as one rank of the mesh:
 ``shard_params`` and ``shard_cache`` cut the params and the cache to this
 rank's blocks (``dist/sharding.py``: the request batch over the worker
-axes when it divides, the KV heads over the model axes when they
-divide), the step runs under ``use_mesh``, so the dense, MoE and MLA
-layers compute tensor-parallel on the blocks, and the tokens are
-all_gathered over the data axis at the end.  The SSM, hybrid, enc-dec
-and VLM families compute whole on every rank of a model axis (a notice
-is printed on rank 0).  The paged tier takes no mesh, as the reference's.
+axes when it divides, on each cache leaf's own batch dim; the KV heads
+and the SSM state's heads over the model axes when they divide), the step
+runs under ``use_mesh``, so every family's layers (dense, MoE, MLA, SSM,
+hybrid, enc-dec, VLM) compute tensor-parallel on the blocks, and the
+tokens are all_gathered over the data axis at the end.  The paged tier
+takes no mesh, as the reference's.
 """
 from __future__ import annotations
 
@@ -41,8 +41,8 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.dist.mesh import use_mesh
-from repro_torch.dist.sharding import (model_axes_of, shard_cache,
-                                       shard_params, worker_axes_of)
+from repro_torch.dist.sharding import (shard_cache, shard_params,
+                                       worker_axes_of)
 from repro_torch.serve.cache import BLOCK_TOKENS, PagedKVCache
 from repro_torch.serve.robust_decode import RobustDecoder
 from repro_torch.serve.scheduler import DECODE, Request, Scheduler
@@ -71,8 +71,9 @@ def make_serve_step(model, *, mesh=None, batch_sharded: bool = False):
 
 
 class MeshServing:
-    """How the dense tier serves ``model`` on ``mesh``: this rank's rows of
-    a batch of B, its blocks of the params and cache, and the step."""
+    """How the dense tier serves ``model`` (an arch model, which computes
+    tensor-parallel) on ``mesh``: this rank's rows of a batch of B, its
+    blocks of the params and cache, and the step."""
 
     def __init__(self, model, mesh, batch: int):
         self.mesh, self.model = mesh, model
@@ -85,42 +86,23 @@ class MeshServing:
         start = worker_slice_index(self.worker_axes) * n if self.sharded \
             else 0
         self.rows = slice(start, start + n)
-        self.tp = model.tensor_parallel
-        if (not self.tp and mesh.rank == 0
-                and axis_size(mesh.axes(model_axes_of(mesh))) > 1):
-            print(f"[mesh] {model.cfg.name}: the {model.cfg.family} family "
-                  "computes whole on every model rank (replicated compute)")
 
     def params(self, params):
-        if not self.tp:
-            return params
         return shard_params(params, self.mesh,
                             full=self.model.abstract_params())
 
     def cache(self, batch: int, total: int, device):
-        cache = self.model.init_cache(batch, total, device)
-        if self.tp:
-            return shard_cache(cache, self.mesh)
-        return shard_cache(cache, _data_only(self.mesh))
+        return shard_cache(self.model.init_cache(batch, total, device),
+                           self.mesh)
 
     def step(self):
-        return make_serve_step(self.model, mesh=self.mesh if self.tp
-                               else None, batch_sharded=self.sharded)
+        return make_serve_step(self.model, mesh=self.mesh,
+                               batch_sharded=self.sharded)
 
     def gather(self, toks):
         from repro_torch.dist.collectives import all_gather_axes
         return all_gather_axes(toks, self.worker_axes, 0) if self.sharded \
             else toks
-
-
-def _data_only(mesh):
-    """``mesh`` with its model axes seen as size 1: the cache of a family
-    that computes whole keeps every KV head."""
-    import dataclasses
-    from repro_torch.dist.sharding import MODEL_AXIS_NAMES
-    return dataclasses.replace(mesh, axis_sizes=tuple(
-        1 if n in MODEL_AXIS_NAMES else s
-        for n, s in zip(mesh.axis_names, mesh.axis_sizes)))
 
 
 def batched_prefill_supported(cfg, prompt_len: int) -> bool:

@@ -23,19 +23,23 @@ reference's ``P(worker_axes, *pspec)`` in_specs give it), and aggregates
 through ``core/robust.py::robust_aggregate_dist`` in the config's layout.
 Two computes, and the step prints on rank 0 which one it runs:
 
-- tensor-parallel (:attr:`Model.tensor_parallel` models, the dense, MoE
-  and MLA decoders, on a model axis > 1): the params and the optimizer
-  state stay cut to this rank's blocks across steps (:class:`MeshParams`
-  cuts and joins them); the forward and backward pass run under
-  ``use_mesh`` on the blocks, so they give the gradient's blocks, and the
-  optimizer updates the blocks.  The Megatron operators of
-  ``dist/collectives.py`` have no vmap rule, so the rank's one worker group
-  goes through ``torch.func.grad_and_value`` without the worker ``vmap``;
-- replicated (every other model, or a model axis of 1): the params are
-  whole on every rank, the forward and backward pass run whole, each
-  model-sharded leaf of the gradient is cut to this rank's block for the
-  aggregation and the aggregate's blocks are all_gathered over the model
-  axes, so the optimizer sees the whole aggregate on every rank.
+- tensor-parallel (:attr:`Model.tensor_parallel` models, every arch
+  family: dense and MoE decoders with GQA or MLA, the SSM, the hybrid,
+  whisper's encoder-decoder and the VLM, on a model axis > 1): the params
+  and the optimizer state stay cut to this rank's blocks across steps
+  (:class:`MeshParams` cuts and joins them); the forward and backward pass
+  run under ``use_mesh`` on the blocks, so they give the gradient's blocks
+  in ``tree_pspecs``' layout (a whole leaf's whole gradient, summed over
+  the model ranks where each uses a part of it), and the optimizer
+  updates the blocks.  The Megatron operators of ``dist/collectives.py``
+  have no vmap rule, so the rank's one worker group goes through
+  ``torch.func.grad_and_value`` without the worker ``vmap``;
+- replicated (the paper's MLP and CNN, which have no ``cfg``, or a model
+  axis of 1): the params are whole on every rank, the forward and backward
+  pass run whole, each model-sharded leaf of the gradient is cut to this
+  rank's block for the aggregation and the aggregate's blocks are
+  all_gathered over the model axes, so the optimizer sees the whole
+  aggregate on every rank.
 
 Either way the values are the reference's, a replicated leaf's whole
 gradient counted on every model rank included (ROADMAP queue 3).

@@ -1,8 +1,10 @@
 """The distributed engine of repro_torch against the reference, on gloo
 worlds of CPU processes.
 
-Four spawns in all.  One 4-rank world builds the (4, 1), (2, 2) and joint
-(pod, data) (2, 2, 1) meshes and runs every registered rule in both layouts,
+Three spawns in all.  One 4-rank world, spawned in a thread while this
+process computes the reference's values, first builds the (4, 1), (2, 2)
+and joint (pod, data) (2, 2, 1) meshes and runs every registered rule in
+both layouts,
 with and without scores and the gate, under the deterministic attacks; the
 expected value is the reference's LOCAL path
 (``repro.core.robust.aggregate_matrix``) on the zero-padded matrix attacked
@@ -15,13 +17,14 @@ leaves on their last dim, as the train step splits a model-sharded leaf, so
 each model rank attacks and aggregates its block.  One 6-rank (3, 2) world
 shows the reference-side fact that a replicated leaf is counted on every
 model rank.
-One 4-rank world runs ``run_experiment`` as its ranks (training on "4x1"
-and "2x2" against the single-process run, and, started from the reference's
-params on its batches, against the reference's local sync_ps trajectory; a
-defended run, resume, a mesh the world does not fit); one
+The same 4-rank world then runs ``run_experiment`` as its ranks (training
+on "4x1" and "2x2" against the single-process run, and, started from the
+reference's params on its batches, against the reference's local sync_ps
+trajectory; a defended run, resume, a mesh the world does not fit); one
 ``run_experiment`` call from this process spawns its own ranks.  The spec and step refusals for a mesh are the
 reference's.
 """
+import concurrent.futures
 import dataclasses
 
 import jax
@@ -52,7 +55,7 @@ from repro_torch.experiment import (DataSpec, ModelSpec, ScenarioSpec,
 from repro_torch.models.mlp import build_mlp_model
 from repro_torch.optim import OptConfig
 from repro_torch.train.step import make_train_step
-from torch_dist_ranks import layouts_rank, replicated_leaf_rank, training_rank
+from torch_dist_ranks import mesh4_rank, replicated_leaf_rank
 
 # Per worker: b (2,) + w (3, 5) at m = 4 (17 coordinates, padded to 20);
 # w (2, 8) at m = 2, whose last dim the (2, 2) mesh's model axis splits.
@@ -174,10 +177,8 @@ def _gathered(ranks, case) -> np.ndarray:
 
 
 @pytest.fixture(scope="module")
-def layouts():
-    cases = _cases()
-    inputs = {m: _inputs(m) for m in (4, 2)}
-    return cases, spawn(layouts_rank, 4, cases, inputs)
+def layouts(world4):
+    return world4["cases"], [r["layouts"] for r in world4["ranks"]]
 
 
 def _close(got, want) -> bool:
@@ -283,10 +284,9 @@ def _specs(tmp):
 FROM_REFERENCE = {"4x1/sharded": ("4x1", 4), "2x2/sharded": ("2x2", 2)}
 
 
-@pytest.fixture(scope="module")
-def reference_runs():
+def _reference_starts() -> dict:
     """name -> (spec, the reference's initial params and batches as numpy,
-    the reference's local run of the spec with no mesh)."""
+    the reference's spec with no mesh)."""
     out = {}
     for name, (mesh, m) in FROM_REFERENCE.items():
         spec = _mlp_spec(mesh, m)
@@ -296,18 +296,44 @@ def reference_runs():
                             plan.model.init(jax.random.PRNGKey(rspec.seed)))
         batches = [jax.tree.map(np.asarray, plan.batch_fn(s))
                    for s in range(rspec.steps)]
-        out[name] = (spec, init, batches, rexp.run_experiment(rspec))
+        out[name] = (spec, init, batches, rspec)
     return out
 
 
 @pytest.fixture(scope="module")
-def training(tmp_path_factory, reference_runs):
+def world4(tmp_path_factory):
+    """The 4-rank world's layout cases and training runs, spawned in a
+    thread while this process computes the reference's values (each
+    layout case's local-path result and the reference's local runs)."""
+    cases = _cases()
+    inputs = {m: _inputs(m) for m in (4, 2)}
     tmp = tmp_path_factory.mktemp("mesh")
     resume = _mlp_spec("4x1", 4, steps=4, checkpoint_every=2,
                        checkpoint_path=str(tmp / "ck.pt"),
                        attack=AttackConfig(name="gaussian", num_byzantine=1))
-    starts = {k: v[:3] for k, v in reference_runs.items()}
-    return tmp, spawn(training_rank, 4, _specs(tmp), resume, starts)
+    starts = _reference_starts()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(spawn, mesh4_rank, 4, (cases, inputs),
+                            (_specs(tmp), resume,
+                             {k: v[:3] for k, v in starts.items()}))
+        for case in cases:
+            _expected(case)
+        runs = {k: v[:3] + (rexp.run_experiment(v[3]),)
+                for k, v in starts.items()}
+        return {"cases": cases, "tmp": tmp, "ranks": ranks.result(),
+                "reference_runs": runs}
+
+
+@pytest.fixture(scope="module")
+def reference_runs(world4):
+    """name -> (spec, the reference's initial params and batches as numpy,
+    the reference's local run of the spec with no mesh)."""
+    return world4["reference_runs"]
+
+
+@pytest.fixture(scope="module")
+def training(world4):
+    return world4["tmp"], [r["training"] for r in world4["ranks"]]
 
 
 def _local(spec):

@@ -149,6 +149,14 @@ def training_rank(rank: int, world: int, specs: dict, resume_spec,
     return out
 
 
+def mesh4_rank(rank: int, world: int, layouts: tuple,
+               training: tuple) -> dict:
+    """The 4-rank world's two bodies in turn: :func:`layouts_rank`'s
+    arguments ``layouts``, then :func:`training_rank`'s ``training``."""
+    return {"layouts": layouts_rank(rank, world, *layouts),
+            "training": training_rank(rank, world, *training)}
+
+
 def kernel_slices_rank(rank: int, world: int) -> dict:
     """K1 and K3 on the card, each rank on its share of the columns of one
     (20, d) matrix; the shares all_gathered and K3's counts summed, beside
