@@ -245,6 +245,17 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
      depth in bf16, 2 prompts of 512 tokens + 8 new: prefill and decode
      spans in the snapshot, 36 K6 events (one prefill) in the trace;
    the K1/K3/K6 events of the three traces are added to the launches;
+13. the dry run (after phase 12; no card): ``python -m
+   repro_torch.launch.dryrun`` as subprocesses, gemma2-2b ``decode_32k``
+   and ``train_4k`` on 16x16 and ``train_4k`` on 2x16x16 (rank 0 traced on
+   fake tensors in a fake world): exit 0, each record printed (trace time,
+   a rank's arguments and peak against 80 GiB, dot TFLOP, collectives by
+   kind, the kernels); in another subprocess ``build_traced`` in a fake
+   8-rank world: rank 0 of phase 11's cell A step on "4x2" (its param
+   bytes equal ``tp_block_bytes``, one K1 launch on (4, 93,197,376)) and
+   of granite-8b's 512-token prefill and decode step on "2x4": each
+   predicted peak within 10 % of the peak rank 0 measured in phase 11
+   (for ``generate``, the larger of the prefill's and the decode step's);
 8. report: the card's name and power limit, one JSON line describing every
    kernel (launches include rank 0's in phases 10 and 11 and the kernel
    events of phase 12's traces), and as the last line ``{"ok": true,
@@ -3001,6 +3012,10 @@ TP_HOLD_DTYPE = {"A": "bfloat16", "B": "float32", "C": "bfloat16",
 TP_GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
 TP_SEQ_CELL = "A"                # part (vi): REPRO_SEQ_SHARD's cell,
 TP_SEQ_STEPS = 2                 # its steps, and its first gradient in f32
+# rank 0's measured peaks (bytes) that phase 13 predicts: cell A's training
+# run on TP_TRAIN_MESH ("train"), granite-8b's generate on TP_SERVE_MESH
+# ("serve")
+TP_MEASURED = {}
 
 
 def tp_serve_desc():
@@ -3159,16 +3174,13 @@ def tp_train_desc():
 
 
 def tp_block_bytes(model, mesh) -> tuple:
-    """(this rank's exact param bytes by tree_pspecs, the whole model's)."""
-    from repro_torch.dist.sharding import spec_leaves, tree_pspecs
+    """(this rank's exact param bytes by tree_pspecs, the whole model's):
+    the dry run's reckoning (``launch/dryrun.py::param_bytes``)."""
+    from repro_torch.launch.dryrun import param_bytes
     from repro_torch.tree import leaves
     full = model.abstract_params()
-    mine = whole = 0
-    for x, sp in zip(leaves(full), spec_leaves(tree_pspecs(full, mesh))):
-        n = x.numel() * x.element_size()
-        whole += n
-        mine += n // (mesh.shape["model"] if any(sp) else 1)
-    return mine, whole
+    return (param_bytes(full, mesh),
+            sum(x.numel() * x.element_size() for x in leaves(full)))
 
 
 def tp_handoff(handoff: str, name: str, obj) -> None:
@@ -3719,6 +3731,9 @@ def tp_phase() -> dict:
           f"against {[round(x, 6) for x in plain]} without it (rtol "
           f"{TP_LOSS_RTOL}); step walls {walls} s (without it "
           f"{unsharded} s); part {seq['part_s']:.1f} s")
+    if TP_STEPS["A"]:
+        TP_MEASURED["train"] = r0["train"]["A"]["peak"]
+    TP_MEASURED["serve"] = r0["serve"]["granite-8b"]["peak"]
     print(f"phase 11: {time.perf_counter() - t0:.1f} s (the world, the "
           f"references beside it: {world_s:.1f} s; serving "
           f"{r0['serve_s']:.1f} s, training {r0['train_s']:.1f} s)")
@@ -4044,6 +4059,160 @@ def cli_phase() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dry run, and its predictions held to what the card measured
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = os.path.join(REPO, "build", "chip_smoke", "dryrun")
+# (i) the CLI on the production meshes: the reference's own pair and the
+# training pair, one rank of 16x16 and of 2x16x16 traced on fake tensors
+DRYRUN_CLI = {"decode": ["--arch", "gemma2-2b", "--shape", "decode_32k"],
+              "train": ["--arch", "gemma2-2b", "--shape", "train_4k"],
+              "train-2pod": ["--arch", "gemma2-2b", "--shape", "train_4k",
+                             "--multi-pod"]}
+DRYRUN_PEAK_RTOL = 0.10          # predicted peak against the measured one
+
+
+def dryrun_predict() -> None:
+    """Phase 13 (ii), in a process of its own (the fake world it makes is
+    this process's ``torch.distributed`` world): rank 0 of phase 11's
+    runs traced on fake tensors in a fake world of TP_RANKS ranks, cell A's
+    training step on TP_TRAIN_MESH (m = TP_M, phocas b = q = TP_B under
+    omniscient, remat full) and granite-8b's prefill of its prompts and
+    decode step against its cache on TP_SERVE_MESH.  Prints one line
+    ``DRYRUN {json}``."""
+    from repro_torch.configs import InputShape
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.dist.sharding import Mesh
+    from repro_torch.launch import dryrun, fake
+    from repro_torch.launch.trace_analysis import storage_bytes, trace_cost
+    fake.init_fake_world(TP_RANKS)
+    out = {}
+
+    def traced(tag, arch, shape, mesh, **kw):
+        t0 = time.perf_counter()
+        with dryrun.fake_tensors():
+            fn, args, _ = dryrun.build_traced(arch, shape, mesh,
+                                              remat="full", **kw)
+            params = storage_bytes(args[0])
+            cost = trace_cost(fn, *args)
+        out[tag] = {"peak": cost["peak_bytes"], "params": params,
+                    "arguments": cost["argument_bytes"],
+                    "kernels": cost["kernels"],
+                    "collectives": cost["collective_counts"],
+                    "s": time.perf_counter() - t0}
+
+    name, layers = LM_CELLS["A"]
+    traced("train", arch_cfg(name, layers),
+           InputShape("tp-A", LM_SEQ_LEN, TP_M * LM_SEQS, "train"),
+           Mesh(("data", "model"), TP_TRAIN_MESH), rule="phocas", b=TP_B,
+           attack=AttackConfig(name="omniscient", num_byzantine=TP_B))
+    layers, changes, plen, new = TP_SERVE["granite-8b"]
+    cfg = arch_cfg("granite-8b", layers, **changes)
+    serve = Mesh(("data", "model"), TP_SERVE_MESH)
+    traced("prefill", cfg, InputShape("tp-prefill", plen, TP_BATCH,
+                                      "prefill"), serve)
+    traced("decode", cfg, InputShape("tp-decode", plen + new, TP_BATCH,
+                                     "decode"), serve)
+    print("DRYRUN " + json.dumps(out), flush=True)
+
+
+def dryrun_record(tag: str, text: str) -> dict:
+    """The record a dry-run CLI run wrote, printed."""
+    args = DRYRUN_CLI[tag]
+    mesh = "2x16x16" if "--multi-pod" in args else "16x16"
+    check("[dryrun] 1/1 OK" in text, f"dryrun {tag}: not OK:\n{text}")
+    path = os.path.join(DRYRUN_DIR, f"{args[1]}__{args[3]}__{mesh}__sharded"
+                                    f"__phocas__full.json")
+    with open(path) as f:
+        rec = json.load(f)
+    counts = rec["collectives"]["counts"]
+    coll = ", ".join(f"{k} {v / 1e9:.3f} GB ({counts[k]} calls)"
+                     for k, v in rec["collectives"]["bytes"].items() if v)
+    print(f"  (i) {rec['arch']} {rec['shape']} on {rec['mesh']}: traced in "
+          f"{rec['trace_s']:.1f} s; a rank's arguments "
+          f"{rec['argument_size_in_bytes'] / 2**30:.3f} GiB, peak "
+          f"{rec['peak_bytes'] / 2**30:.3f} GiB "
+          f"({'fits' if rec['peak_bytes'] <= 80 * 2**30 else 'does not fit'}"
+          f" 80 GiB), dot {rec['dot_flops'] / 1e12:.3f} TFLOP, "
+          f"collectives {coll or 'none'}; kernels "
+          f"{[(k['name'], tuple(k['shape'])) for k in rec['kernels']]}")
+    return rec
+
+
+def dryrun_phase() -> None:
+    """Phase 13: (i) the dry-run CLI as subprocesses on this host, and (ii)
+    in another, the predictions of :func:`dryrun_predict`, held to rank
+    0's peaks that phase 11 measured on the card (TP_MEASURED)."""
+    import shutil
+
+    from repro_torch.dist.sharding import Mesh
+    t0 = time.perf_counter()
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(DRYRUN_DIR)
+    os.makedirs(CLI_DIR, exist_ok=True)         # the CLIs' outputs
+    print("phase 13: the dry run (fake tensors in a fake world, no card)")
+    runs = {}
+    try:
+        for tag, args in DRYRUN_CLI.items():
+            runs[tag] = cli_start(f"dryrun-{tag}",
+                                  "repro_torch.launch.dryrun",
+                                  args + ["--out", DRYRUN_DIR])
+        code = ("import sys; sys.path[:0] = [%r, %r]; from repro_torch."
+                "launch import fake; fake.prepare_host(); import chip_smoke;"
+                " chip_smoke.dryrun_predict()" % (os.path.join(REPO, "src"),
+                                                  REPO))
+        path = os.path.join(DRYRUN_DIR, "predict.out")
+        with open(path, "w") as out:
+            predict = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                                     stdout=out, stderr=subprocess.STDOUT,
+                                     timeout=300)
+        with open(path) as f:
+            text = f.read()
+        check(predict.returncode == 0,
+              f"phase 13 (ii): exit {predict.returncode}:\n{text[-6000:]}")
+        pred = json.loads([x for x in text.splitlines()
+                           if x.startswith("DRYRUN ")][-1][len("DRYRUN "):])
+        for tag in DRYRUN_CLI:
+            dryrun_record(tag, cli_wait(runs[tag]))
+    finally:
+        for run in runs.values():
+            cli_stop(run)
+    train = pred["train"]
+    want, _ = tp_block_bytes(lm_model("A"),
+                             Mesh(("data", "model"), TP_TRAIN_MESH))
+    check(train["params"] == want,
+          f"phase 13: cell A's predicted param bytes {train['params']} != "
+          f"tp_block_bytes {want}")
+    k1 = [["phocas", [TP_M, -(-(want // 2) // TP_M)]]]
+    check(train["kernels"] == k1,
+          f"phase 13: cell A's predicted kernels {train['kernels']} != {k1}")
+    failed = []
+    for tag, predicted, what in (
+            ("train", train["peak"], f"cell A's {TP_TRAIN_MESH} step"),
+            ("serve", max(pred["prefill"]["peak"], pred["decode"]["peak"]),
+             f"granite-8b's {TP_SERVE_MESH} generate (the larger of the "
+             f"prefill's {pred['prefill']['peak'] / 2**30:.3f} and the "
+             f"decode step's {pred['decode']['peak'] / 2**30:.3f} GiB)")):
+        measured = TP_MEASURED.get(tag)
+        if measured is None:
+            failed.append(f"{tag}: phase 11 measured no peak")
+            continue
+        gap = predicted / measured - 1
+        print(f"  (ii) {what}: rank 0's predicted peak "
+              f"{predicted / 2**30:.3f} GiB, measured in phase 11 "
+              f"{measured / 2**30:.3f} GiB, gap {gap:+.2%} (limit "
+              f"{DRYRUN_PEAK_RTOL:.0%})")
+        if abs(gap) > DRYRUN_PEAK_RTOL:
+            failed.append(f"{tag}: gap {gap:+.2%}")
+    print(f"  (ii) cell A: param bytes {train['params']} (tp_block_bytes), "
+          f"K1 on {tuple(k1[0][1])}; traced in {train['s']:.1f} s, granite "
+          f"prefill {pred['prefill']['s']:.1f} s, decode "
+          f"{pred['decode']['s']:.1f} s")
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    check(not failed, f"phase 13: {failed}")
+
+
 def host_available_gib() -> float:
     with open("/proc/meminfo") as f:
         for line in f:
@@ -4111,6 +4280,7 @@ def main() -> int:
         launches[k] += v
     for k, v in cli_phase().items():
         launches[k] += v
+    dryrun_phase()
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included")

@@ -376,6 +376,7 @@ class SyncPS(Topology):
                         if codec is not None:
                             args += (resid,)
                         _profile_step_cost(rec, plan, step_fn, args)
+                        del args      # else the first params live all run
                     with rec.span("train_step", step_num=step,
                                   rule=robust_cfg.rule) as sp:
                         params, opt_state, defense_state, resid, metrics = \

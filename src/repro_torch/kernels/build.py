@@ -29,9 +29,15 @@ fallback: a missing ``nvcc``, a failed build or a failed launch raises.
 
 A launch made under :func:`counting_costs` adds the kernel's operations and
 bytes, by the reckoning of its bound (:func:`matrix_cost`,
-:func:`flash_cost`), to the open count: ``obs/profile.py::compiled_cost``
-counts a step's work with PyTorch dispatch modes, which do not see a kernel
+:func:`flash_cost`), to the open count: ``launch/trace_analysis.py``
+counts a call's work with PyTorch dispatch modes, which do not see a kernel
 launched through ctypes.
+
+A ``FakeTensor`` (the dry run's tensors, ``launch/dryrun.py``) takes the
+same entry points and launches nothing: the call adds the kernel's cost to
+the open count and returns fake outputs of the kernel's shapes and dtypes,
+with the scratch buffers the launch would hold.  It never reaches ctypes or
+``data_ptr()``, and the plain version never stands in for the kernel.
 
 Nothing here runs at import time; the CPU tests import this module freely.
 """
@@ -75,6 +81,9 @@ MAX_M = {"trmean": 32768, "phocas": 32768, "trmean_counts": 16384,
 GRAM_TILE = 256       # columns of one staged tile (krum_gram.cu kGramTile)
 GRAM_MIN_TILES = 4    # tiles a Gram block walks at least, where d has them
 GRAM_BLOCKS_PER_SM = 2
+# Streaming multiprocessors of the card the dry run traces for (NVIDIA H100
+# SXM), which size the Gram kernel's scratch on a fake tensor.
+FAKE_SMS = 132
 # Cap on the scratch buffer, (nblocks + 1) * m * m floats of partial sums and
 # their totals (64 MiB); where even one block's partials and the totals
 # exceed it (m > 2,896), the kernel runs one block.
@@ -141,25 +150,35 @@ def flash_cost(B: int, S: int, T: int, H: int, Kv: int, hd: int,
 
 
 _COST_COUNT: Optional[dict] = None
+_COST_CALLS: Optional[list] = None
 
 
 @contextlib.contextmanager
-def counting_costs():
+def counting_costs(calls: Optional[list] = None):
     """Count the operations (``"flops"``) and ``"bytes"`` of every kernel
     launched inside the block, by :func:`matrix_cost` and
-    :func:`flash_cost`; yields the count."""
-    global _COST_COUNT
-    _COST_COUNT = {"flops": 0.0, "bytes": 0.0}
+    :func:`flash_cost`; yields the count.  ``calls``, a list, gets each
+    launch's (kernel, shape of its first operand)."""
+    global _COST_COUNT, _COST_CALLS
+    _COST_COUNT, _COST_CALLS = {"flops": 0.0, "bytes": 0.0}, calls
     try:
         yield _COST_COUNT
     finally:
-        _COST_COUNT = None
+        _COST_COUNT = _COST_CALLS = None
 
 
-def _add_cost(cost: tuple) -> None:
+def _add_cost(cost: tuple, call: Optional[tuple] = None) -> None:
     if _COST_COUNT is not None:
         _COST_COUNT["flops"] += cost[0]
         _COST_COUNT["bytes"] += cost[1]
+        if _COST_CALLS is not None and call is not None:
+            _COST_CALLS.append(call)
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``FakeTensor``: shapes and dtypes, no storage."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
 
 
 class KernelCompileError(RuntimeError):
@@ -292,6 +311,14 @@ def launch_gram(u: torch.Tensor) -> torch.Tensor:
     (m, m) f32 squared distances."""
     _check_cuda("krum_gram", u)
     m, d = u.shape
+    if is_fake(u):
+        nblocks = gram_blocks(m, d, FAKE_SMS)
+        out = u.new_empty((m, m), dtype=torch.float32)
+        scratch = u.new_empty(((nblocks + 1) * m * m,), dtype=torch.float32)
+        del scratch
+        _add_cost(matrix_cost("krum_gram", m, d, u.element_size()),
+                  ("krum_gram", (m, d)))
+        return out
     sms = torch.cuda.get_device_properties(u.device).multi_processor_count
     nblocks = gram_blocks(m, d, sms)
     out = torch.empty((m, m), dtype=torch.float32, device=u.device)
@@ -307,7 +334,8 @@ def launch_gram(u: torch.Tensor) -> torch.Tensor:
                            f"{rc} (m={m}, d={d}, nblocks={nblocks}, "
                            f"dtype={u.dtype})")
     if _COST_COUNT is not None:
-        _add_cost(matrix_cost("krum_gram", m, d, u.element_size()))
+        _add_cost(matrix_cost("krum_gram", m, d, u.element_size()),
+                  ("krum_gram", (m, d)))
     return out
 
 
@@ -318,6 +346,10 @@ def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     output in q's dtype."""
     B, S, H, hd = q.shape
     T, Kv = k.shape[1], k.shape[2]
+    if is_fake(q):
+        _add_cost(flash_cost(B, S, T, H, Kv, hd, q.element_size(), causal,
+                             window), ("flash_attn", (B, S, H, hd)))
+        return q.new_empty((B, S, H, hd))
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     fn = KERNELS.library("flash_attn").repro_flash_attn
     with torch.cuda.device(q.device):
@@ -333,7 +365,7 @@ def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"dtype={q.dtype})")
     if _COST_COUNT is not None:
         _add_cost(flash_cost(B, S, T, H, Kv, hd, q.element_size(), causal,
-                             window))
+                             window), ("flash_attn", (B, S, H, hd)))
     return out
 
 
@@ -345,6 +377,12 @@ def launch(name: str, u: torch.Tensor, b: int):
     """
     _check_cuda(name, u)
     m, d = u.shape
+    if is_fake(u):
+        _add_cost(matrix_cost(name, m, d, u.element_size()), (name, (m, d)))
+        out = u.new_empty((d,), dtype=torch.float32)
+        if not _has_counts(name):
+            return out
+        return out, u.new_zeros((m,), dtype=torch.int64).float()
     out = torch.empty((d,), dtype=torch.float32, device=u.device)
     bufs = [out]
     if _has_counts(name):
@@ -358,7 +396,7 @@ def launch(name: str, u: torch.Tensor, b: int):
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{rc} (m={m}, d={d}, b={b}, dtype={u.dtype})")
     if _COST_COUNT is not None:
-        _add_cost(matrix_cost(name, m, d, u.element_size()))
+        _add_cost(matrix_cost(name, m, d, u.element_size()), (name, (m, d)))
     if len(bufs) == 1:
         return out
     return out, bufs[1].float()

@@ -66,7 +66,9 @@ def _check_cuda_layout(q, k, v) -> None:
         if x.stride(3) != 1:
             raise ValueError(f"{name} needs a unit stride over head_dim, got "
                              f"strides {x.stride()}")
-        if any(s % vec for s in x.stride()[:3]) or x.data_ptr() % 16:
+        # a fake tensor (the dry run's) has no storage to be aligned
+        if any(s % vec for s in x.stride()[:3]) or (
+                not build.is_fake(x) and x.data_ptr() % 16):
             raise ValueError(f"{name} needs 16-byte aligned rows (strides "
                              f"{x.stride()}, {x.element_size()}-byte "
                              "elements)")
@@ -80,7 +82,9 @@ def flash_attention_hopper(q, k, v, *, causal: bool = True,
     dtype; query i and key j sit at positions i and j.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises.  ``flash_attention_hopper.launches`` counts kernel launches.
+    or raises; a fake one only counts the kernel's cost
+    (``build.launch_flash``).  ``flash_attention_hopper.launches`` counts
+    kernel launches.
     """
     check_attention(q, k, v, window, cap)
     if scale is None:
@@ -91,7 +95,8 @@ def flash_attention_hopper(q, k, v, *, causal: bool = True,
     _check_cuda_layout(q, k, v)
     out = build.launch_flash(q, k, v, causal=causal, window=window, cap=cap,
                              scale=scale)
-    flash_attention_hopper.launches += 1
+    if not build.is_fake(q):
+        flash_attention_hopper.launches += 1
     return out
 
 

@@ -17,13 +17,16 @@ def pairwise_sq_dists_hopper(u: torch.Tensor) -> torch.Tensor:
     """(m, d) f32/f16/bf16 -> (m, m) f32 squared distances, any m.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises.  ``pairwise_sq_dists_hopper.launches`` counts kernel launches.
+    or raises (a fake one only counts the kernel's cost,
+    ``build.launch_gram``).  ``pairwise_sq_dists_hopper.launches`` counts
+    kernel launches.
     """
     build.check_gram_matrix(u)
     if u.device.type == "cpu":
         return pairwise_sq_dists_ref(u)
     out = build.launch_gram(u)
-    pairwise_sq_dists_hopper.launches += 1
+    if not build.is_fake(u):
+        pairwise_sq_dists_hopper.launches += 1
     return out
 
 

@@ -18,14 +18,16 @@ def phocas_hopper(u: torch.Tensor, b: int) -> torch.Tensor:
     """(m, d) f32/f16/bf16 -> (d,) f32 Phocas aggregate.
 
     Any m up to ``build.MAX_M["phocas"]``.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises.
+    version; a CUDA tensor launches the kernel or raises (a fake one
+    only counts the kernel's cost, ``build.launch``).
     ``phocas_hopper.launches`` counts kernel launches.
     """
     build.check_matrix(u, b, "phocas")
     if u.device.type == "cpu":
         return phocas_ref(u, b)
     out = build.launch("phocas", u, b)
-    phocas_hopper.launches += 1
+    if not build.is_fake(u):
+        phocas_hopper.launches += 1
     return out
 
 
@@ -35,14 +37,16 @@ def phocas_counts_hopper(u: torch.Tensor, b: int):
     b-trimmed mean).
 
     m <= ``build.MAX_M["phocas_counts"]``.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises.
+    CUDA tensor launches the kernel or raises (a fake one only counts
+    the kernel's cost, ``build.launch``).
     ``phocas_counts_hopper.launches`` counts kernel launches.
     """
     build.check_matrix(u, b, "phocas_counts")
     if u.device.type == "cpu":
         return phocas_counts_ref(u, b)
     out = build.launch("phocas_counts", u, b)
-    phocas_counts_hopper.launches += 1
+    if not build.is_fake(u):
+        phocas_counts_hopper.launches += 1
     return out
 
 

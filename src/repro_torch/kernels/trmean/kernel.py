@@ -18,14 +18,16 @@ def trmean_hopper(u: torch.Tensor, b: int) -> torch.Tensor:
     """(m, d) f32/f16/bf16 -> (d,) f32 b-trimmed mean.
 
     Any m up to ``build.MAX_M["trmean"]``.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises.
+    version; a CUDA tensor launches the kernel or raises (a fake one
+    only counts the kernel's cost, ``build.launch``).
     ``trmean_hopper.launches`` counts kernel launches.
     """
     build.check_matrix(u, b, "trmean")
     if u.device.type == "cpu":
         return trmean_ref(u, b)
     out = build.launch("trmean", u, b)
-    trmean_hopper.launches += 1
+    if not build.is_fake(u):
+        trmean_hopper.launches += 1
     return out
 
 
@@ -35,14 +37,16 @@ def trmean_counts_hopper(u: torch.Tensor, b: int):
     largest).
 
     m <= ``build.MAX_M["trmean_counts"]``.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises.
+    CUDA tensor launches the kernel or raises (a fake one only counts
+    the kernel's cost, ``build.launch``).
     ``trmean_counts_hopper.launches`` counts kernel launches.
     """
     build.check_matrix(u, b, "trmean_counts")
     if u.device.type == "cpu":
         return trmean_counts_ref(u, b)
     out = build.launch("trmean_counts", u, b)
-    trmean_counts_hopper.launches += 1
+    if not build.is_fake(u):
+        trmean_counts_hopper.launches += 1
     return out
 
 

@@ -66,6 +66,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import numbers
 import threading
 from typing import Optional
 
@@ -365,13 +366,31 @@ def _attend(q, k, v, q_pos, k_pos, *, causal, window, cap, scale):
     return out.reshape(B, Sq, H, hd).to(v.dtype)
 
 
+_FLASH = threading.local()
+
+
+@contextlib.contextmanager
+def flash_forward():
+    """Inside, every self-attention of a forward on CUDA tensors takes the
+    flash-attention kernel, as ``REPRO_FLASH_ATTN=1`` makes the reference's
+    (the dry run's prefill under that flag; the kernel has no backward)."""
+    prev = getattr(_FLASH, "on", False)
+    _FLASH.on = True
+    try:
+        yield
+    finally:
+        _FLASH.on = prev
+
+
 def attention_core(q, k, v, q_pos, k_pos, *, causal=True, window=None,
                    cap=None, scale=None, chunk=ATTN_QUERY_CHUNK, flash=False):
     """Query-chunked masked attention; see _attend for shapes.  ``flash``:
-    the caller is a serving prefill, of which no gradient is taken."""
+    the caller is a serving prefill, of which no gradient is taken (so is
+    any caller inside :func:`flash_forward`)."""
     B, Sq, H, hd = q.shape
     if scale is None:
         scale = hd ** -0.5
+    flash = flash or getattr(_FLASH, "on", False)
     if (flash and q.is_cuda and causal and Sq > 1 and Sq == k.shape[1]
             and q.is_floating_point()):
         # self-attention prefill (q_pos == k_pos == arange)
@@ -409,6 +428,26 @@ def init_attn_cache(cfg, batch: int, max_len: int, window: Optional[int],
     shape = lead + (batch, size, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def step_positions(pos, device) -> torch.Tensor:
+    """The (S,) int64 positions of a cached call (``decode_step``'s
+    ``pos``: an int for one decode step, a tensor of a prefill's
+    positions).  An int's tensor carries it as ``span``, the first and
+    last position (:func:`cached_span`), so that the step's layers read
+    nothing back from the device."""
+    positions = torch.as_tensor(pos, device=device).long().reshape(-1)
+    if isinstance(pos, numbers.Integral):
+        positions.span = (int(pos), int(pos))
+    return positions
+
+
+def cached_span(positions: torch.Tensor) -> tuple:
+    """The first and the last of a cached call's positions, as ints."""
+    span = getattr(positions, "span", None)
+    if span is not None:
+        return span
+    return int(positions[0]), int(positions[-1])
 
 
 def _cache_positions(size: int, pos: int, window: Optional[int],
@@ -457,8 +496,9 @@ def attention_block(p, cfg, x, *, positions, window, cache=None):
                              window=window, cap=cfg.attn_logit_softcap)
     else:
         size = cache["k"].shape[1]
-        start = int(positions[0])           # write offset (decode: the step)
-        last = int(positions[-1])           # newest position now in the cache
+        # the write offset (decode: the step) and the newest position now
+        # in the cache
+        start, last = cached_span(positions)
         slot = min(start % size, size - S)  # dynamic_update_slice's clamp
         cache["k"][:, slot:slot + S] = k
         cache["v"][:, slot:slot + S] = v
@@ -665,8 +705,8 @@ def mla_block(p, cfg, x, *, positions, cache=None):
                                   positions, positions)
     else:
         T = cache["ckv"].shape[1]
-        last = int(positions[-1])                   # newest cached position
-        start = min(int(positions[0]), T - S)       # dynamic_update_slice's
+        first, last = cached_span(positions)        # newest cached: last
+        start = min(first, T - S)                   # dynamic_update_slice's
         cache["ckv"][:, start:start + S] = ckv_new  # clamp
         cache["krope"][:, start:start + S] = krope_new
         t = torch.arange(T, device=x.device)

@@ -249,7 +249,7 @@ def decode_step(params, cfg, cache, tokens, pos):
     (logits (B,1,V) f32, cache)."""
     x = C.embed(params["embed"], tokens, cfg.vocab_size) * math.sqrt(
         cfg.d_model)
-    positions = torch.as_tensor(pos, device=tokens.device).long().reshape(-1)
+    positions = C.step_positions(pos, tokens.device)
     sk, sv = cache["self"]["k"], cache["self"]["v"]
     xk, xv = cache["cross"]["k"], cache["cross"]["v"]
     for i in range(cfg.num_layers):

@@ -113,7 +113,7 @@ def decode_step(params, cfg, cache, tokens, pos):
     """One decode step (tokens (B,1), pos an int) or a batched prefill
     (tokens (B,S0), pos = arange(S0): one pass writes the whole prompt into
     the cache).  Returns (logits (B,S,V), cache)."""
-    positions = torch.as_tensor(pos, device=tokens.device).long().reshape(-1)
+    positions = C.step_positions(pos, tokens.device)
     x = _embed_tokens(params, cfg, tokens)
     x, cache, _ = ST.stack_fwd(params["stack"], cfg, x, positions=positions,
                                cache=cache)

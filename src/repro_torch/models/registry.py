@@ -3,8 +3,10 @@
 Port of ``repro/models/registry.py::Model``: ``init(gen) -> params``,
 ``forward(params, batch) -> (logits, aux)`` and ``loss(params, batch) ->
 scalar`` for every model; the arch models built by :func:`build_model`
-additionally have the decode cache ``init_cache`` / ``decode_step``, and
-the decoder-only ones the paged serving path (``supports_paged``):
+additionally have the decode cache ``init_cache`` / ``decode_step`` and
+``input_specs`` (the inputs of an ``InputShape``, as the dry run takes
+them), and the decoder-only ones the paged serving path
+(``supports_paged``):
 
   init_paged_cache(num_blocks, block_tokens, device) -> block-pool cache
   prefill_paged(params, cache, tokens, block_tables) -> (logits, cache)
@@ -22,7 +24,13 @@ rank (:attr:`Model.tensor_parallel`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+
+class Spec(NamedTuple):
+    """A tensor's shape and dtype, with no storage."""
+    shape: Tuple[int, ...]
+    dtype: Any
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +52,30 @@ class Model:
         from torch._subclasses.fake_tensor import FakeTensorMode
         with FakeTensorMode():
             return self.init(torch.Generator())
+
+    def input_specs(self, shape, *, global_batch: Optional[int] = None,
+                    for_decode: Optional[bool] = None) -> Dict[str, Spec]:
+        """Shape and dtype stand-ins for every input of an
+        ``InputShape`` (the reference's ``Model.input_specs``): ``tokens``
+        and ``labels`` (B, S) int32, with the VLM's ``patch_embeds`` (B,
+        patches, vit_dim) and the encoder-decoder's ``audio_embeds`` (B,
+        frames, frontend_dim) f32, the stubbed frontends' outputs; a decode
+        step's ``tokens`` (B, 1) alone."""
+        import torch
+        B = shape.global_batch if global_batch is None else global_batch
+        decode = shape.is_decode if for_decode is None else for_decode
+        if decode:
+            return {"tokens": Spec((B, 1), torch.int32)}
+        cfg, S = self.cfg, shape.seq_len
+        specs = {"tokens": Spec((B, S), torch.int32),
+                 "labels": Spec((B, S), torch.int32)}
+        if cfg.num_patches:
+            specs["patch_embeds"] = Spec((B, cfg.num_patches, cfg.vit_dim),
+                                         torch.float32)
+        if cfg.is_encdec:
+            specs["audio_embeds"] = Spec(
+                (B, cfg.encoder_seq_len, cfg.frontend_dim), torch.float32)
+        return specs
 
     @property
     def tensor_parallel(self) -> bool:

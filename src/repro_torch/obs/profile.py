@@ -15,38 +15,6 @@ from typing import Dict, Optional
 
 import torch
 
-# aten ops that allocate or re-describe a tensor without reading or writing
-# its elements (views are told apart by their schema, ``OpOverload.is_view``).
-_NO_TRAFFIC = frozenset({"empty.memory_format", "empty_strided.default",
-                         "empty_like.default", "new_empty.default",
-                         "new_empty_strided.default", "_unsafe_view.default",
-                         "lift_fresh.default"})
-
-
-def _byte_mode():
-    """A dispatch mode adding up the bytes of every aten op's tensor
-    operands and results (``.bytes``): XLA's reckoning of bytes accessed,
-    op by op."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils._pytree import tree_leaves
-
-    class ByteCount(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.bytes = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if not func.is_view and \
-                    f"{func._opname}.{func._overloadname}" not in _NO_TRAFFIC:
-                self.bytes += sum(
-                    t.numel() * t.element_size()
-                    for t in tree_leaves((args, kwargs, out))
-                    if isinstance(t, torch.Tensor))
-            return out
-
-    return ByteCount()
-
 
 def _detached(x):
     """A generator's copy at the same state (the counting call draws from
@@ -63,18 +31,18 @@ def compiled_cost(step_fn, *args) -> Dict[str, float]:
 
     The reference lowers and compiles the step and reads XLA's
     ``cost_analysis()``; there is no compile here, so this calls the step
-    once (call it once per distinct step function, not per step) and
-    counts what runs:
+    once (call it once per distinct step function, not per step) under the
+    dry run's counter, ``launch/trace_analysis.py::trace_cost``:
 
     * ``flops``: ``torch.utils.flop_counter.FlopCounterMode`` over the
       call — the matmuls and convolutions of the forward and the backward
       pass as autograd runs them; under the step's ``torch.func.vmap`` the
       mode sees the batched ops, so the m workers' products count once
       each (m times one worker's);
-    * ``bytes``: a ``TorchDispatchMode`` adding up the operand and result
-      bytes of every aten op that is not a view or a bare allocation;
+    * ``bytes``: the operand and result bytes of every aten op that is not
+      a view or a bare allocation;
     * the hand-written kernels, launched through ``ctypes`` where neither
-      mode sees them, add their own operations and bytes — those their
+      count sees them, add their own operations and bytes — those their
       bounds are computed from (``kernels/build.py::counting_costs``; K1
       reads m·D elements and writes D f32, and does m compares a
       coordinate).
@@ -94,17 +62,12 @@ def compiled_cost(step_fn, *args) -> Dict[str, float]:
     rank that went on would leave them there.
     """
     from torch.profiler import record_function
-    from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.kernels.build import counting_costs
+    from repro_torch.launch.trace_analysis import trace_cost
     args = tuple(_detached(a) for a in args)
     try:
-        with record_function("step_cost"), counting_costs() as kernels, \
-                FlopCounterMode(display=False) as flops, \
-                _byte_mode() as nbytes:
-            step_fn(*args)
-            if torch.cuda.is_available() and torch.cuda.is_initialized():
-                torch.cuda.synchronize()
+        with record_function("step_cost"):
+            cost = trace_cost(_synchronized, step_fn, *args)
     except Exception as e:      # profiling never fails a run alone
         import torch.distributed as dist
         if dist.is_available() and dist.is_initialized():
@@ -117,8 +80,15 @@ def compiled_cost(step_fn, *args) -> Dict[str, float]:
             # hand the call's cached blocks back: the run's first step
             # then allocates as it would have without the count
             torch.cuda.empty_cache()
-    return {"flops": float(flops.get_total_flops() + kernels["flops"]),
-            "bytes": float(nbytes.bytes + kernels["bytes"])}
+    return {"flops": cost["flops"], "bytes": cost["bytes_accessed"]}
+
+
+def _synchronized(step_fn, *args):
+    """``step_fn(*args)``, its device work waited for; returns nothing (the
+    count drops the outputs)."""
+    step_fn(*args)
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 def device_memory_stats() -> Dict[str, float]:

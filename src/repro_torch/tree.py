@@ -20,16 +20,18 @@ def leaves(tree) -> List[Any]:
 
 def unflatten(like, new_leaves):
     """A tree of ``like``'s structure holding ``new_leaves`` in order."""
-    it = iter(new_leaves)
+    return _build(like, iter(new_leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
 
-    return build(like)
+def _build(t, it):
+    # a module-level function: a recursive closure over ``it`` would be a
+    # reference cycle holding every new leaf until the garbage collector
+    # ran, long after the tree itself was dropped
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
 
 
 def map(fn: Callable, tree, *rest):

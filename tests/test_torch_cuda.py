@@ -582,3 +582,41 @@ def test_kernels_on_slices_of_a_two_rank_world(cuda):
         assert r["k1"] and r["k3"]
         np.testing.assert_array_equal(r["counts"], r["whole_counts"])
         assert r["counts"][3] == r["d"] and r["ncoords"] == r["d"]
+
+
+@pytest.mark.cuda
+def test_fake_tensors_take_the_kernels_reckoning(cuda):
+    """A FakeTensor (the dry run's, ``launch/dryrun.py``) reaches K1-K6's
+    entry points, launches nothing and counts what a real launch counts:
+    the same output shapes and dtypes, the same ``matrix_cost`` /
+    ``flash_cost``, and no launch on the wrappers' counts."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    u = torch.randn((20, 4099), generator=gen, device=cuda)
+    q, k, v = _qkv(2, 96, 96, 4, 2, 64, torch.bfloat16, cuda)
+    cases = [(phocas_hopper, (u, 2), build.matrix_cost("phocas", 20, 4099, 4)),
+             (trmean_hopper, (u, 2), build.matrix_cost("trmean", 20, 4099, 4)),
+             (phocas_counts_hopper, (u, 2),
+              build.matrix_cost("phocas_counts", 20, 4099, 4)),
+             (trmean_counts_hopper, (u, 2),
+              build.matrix_cost("trmean_counts", 20, 4099, 4)),
+             (pairwise_sq_dists_hopper, (u,),
+              build.matrix_cost("krum_gram", 20, 4099, 4)),
+             (flash_attention_hopper, (q, k, v),
+              build.flash_cost(2, 96, 96, 4, 2, 64, 2, True, None))]
+    for fn, args, cost in cases:
+        with build.counting_costs() as real:
+            want = fn(*args)
+        launches = fn.launches
+        mode = FakeTensorMode()
+        fakes = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                 for a in args]
+        with mode, build.counting_costs() as counted:
+            got = fn(*fakes)
+        assert fn.launches == launches, fn.__name__
+        assert real == counted == {"flops": cost[0], "bytes": cost[1]}
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        assert all(build.is_fake(g) for g in got)
+        assert [(g.shape, g.dtype, g.device) for g in got] == \
+            [(w.shape, w.dtype, w.device) for w in want], fn.__name__
