@@ -223,6 +223,22 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
    - (vi) one cell A step on "4x2" with the residual stream's sequence
      sharded over the model axis (``REPRO_SEQ_SHARD``): its loss within
      rtol 1e-3 of the first step without it, one K1 launch a rank;
+   - (vii) the FSDP streaming step on "4x2" (m = 4 workers on the data
+     axis, every leaf cut over all 8 ranks, ``param_pspec_fsdp``'s bytes),
+     phocas b = 1 under signflip: the paper's CNN at full width, 3 steps,
+     each step's params within rtol 1e-4, atol 1e-6 of the one-process
+     streaming step from the same params (a coordinate past it only at a
+     phocas distance tie); hymba-1.5b (published widths, its 25 heads
+     padded on the 2-way model axis) cut to 2 layers, bf16, 16 sequences
+     of 128 tokens, 2 steps: finite, falling losses, the params after
+     each step within phase 11's bf16 limit of the one-process step's,
+     each step's update (sampled) against that step's by its relative L2
+     gap and its norm ratio, and the first step's witness (``tp_stream_witness``:
+     the honest workers' gradients within phase 11's bf16 limit of the
+     one process's, the step's statistics rerun on the host over the
+     mesh's own worker gradients giving the mesh's update, and the gap
+     split into its bf16 causes), rank 0's peak; no kernel launched (the
+     statistics are sorts);
 12. the launch CLIs as users run them (after phase 9): ``python -m``
    subprocesses from the repo root with PYTHONPATH=src, each with
    ``--metrics`` and ``--profile-dir``, loading the kernels phase 1 built:
@@ -245,17 +261,20 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
      depth in bf16, 2 prompts of 512 tokens + 8 new: prefill and decode
      spans in the snapshot, 36 K6 events (one prefill) in the trace;
    the K1/K3/K6 events of the three traces are added to the launches;
-13. the dry run (after phase 12; no card): ``python -m
-   repro_torch.launch.dryrun`` as subprocesses, gemma2-2b ``decode_32k``
+13. the dry run (no card: its subprocesses start after the build and run
+   on the host's CPU beside the first phases; it is held after phase 12):
+   ``python -m repro_torch.launch.dryrun`` as subprocesses, gemma2-2b
+   ``decode_32k``
    and ``train_4k`` on 16x16 and ``train_4k`` on 2x16x16 (rank 0 traced on
    fake tensors in a fake world): exit 0, each record printed (trace time,
    a rank's arguments and peak against 80 GiB, dot TFLOP, collectives by
    kind, the kernels); in another subprocess ``build_traced`` in a fake
    8-rank world: rank 0 of phase 11's cell A step on "4x2" (its param
-   bytes equal ``tp_block_bytes``, one K1 launch on (4, 93,197,376)) and
-   of granite-8b's 512-token prefill and decode step on "2x4": each
-   predicted peak within 10 % of the peak rank 0 measured in phase 11
-   (for ``generate``, the larger of the prefill's and the decode step's);
+   bytes equal ``tp_block_bytes``, one K1 launch on (4, 93,197,376)), of
+   granite-8b's 512-token prefill and decode step on "2x4" and of part
+   (vii)'s hymba FSDP streaming step on "4x2": each predicted peak within
+   10 % of the peak rank 0 measured in phase 11 (for ``generate``, the
+   larger of the prefill's and the decode step's);
 8. report: the card's name and power limit, one JSON line describing every
    kernel (launches include rank 0's in phases 10 and 11 and the kernel
    events of phase 12's traces), and as the last line ``{"ok": true,
@@ -3461,11 +3480,386 @@ def tp_seq_rank(mesh, cell: str) -> dict:
     return out
 
 
+# Part (vii): the FSDP streaming step (``train/streaming.py``'s mesh form)
+# on TP_TRAIN_MESH, m = its data axis, every leaf cut over all its ranks:
+# the paper's CNN at full width and cell D's hymba-1.5b (published widths,
+# 25/5 heads on the 2-way model axis: the padded heads) cut to 2 layers.
+TP_STREAM_CNN_STEPS = 3
+TP_STREAM_CELL, TP_STREAM_LAYERS = "D", 2
+TP_STREAM_SEQS, TP_STREAM_LEN = 16, 128   # 4 a worker, 1 a data rank
+TP_STREAM_STEPS = 2
+TP_STREAM_TOL = (1e-4, 1e-6)     # test_torch_streaming.py's rtol, atol
+# A phocas distance tie's gap, relative to the column's largest value:
+# the mesh's worker gradients (8 rows a rank) and the one process's (32
+# rows) differ by cuDNN's summation order, and a gap inside that flips
+# which value is dropped (2 of 2.4 M coordinates, at 1.6e-5 and 1.7e-8,
+# in a step of an H100 run)
+TP_STREAM_TIE = 1e-4
+# hymba's bf16 update (sampled) against the one process's, each step: its
+# relative L2 gap and its norm ratio's distance from 1; and how far (the
+# relative L2) the streaming step rerun on the host over a run's own
+# first worker gradients may miss that run's first update
+# (``tp_stream_witness``).  Set from an H100's readings: gaps 0.1597
+# and 0.1924, ratios 1.0008 and 1.0002, reruns bit for bit.  The gap is
+# Phocas's: the worker gradients lie 1.3e-2 apart, which changes the
+# worker it drops at 1.07 % of the coordinates, and those carry the f32
+# aggregates from 3.1e-2 apart to 0.143 (bf16 rounding of the update
+# makes it 0.160).  A 1 % error of scale fails the ratio; one coordinate
+# rounded the other way in a rerun is ~8e-4.
+TP_STREAM_UPD, TP_STREAM_NORM, TP_STREAM_RERUN = 0.25, 0.01, 1e-3
+
+
+def tp_stream_case(kind: str) -> tuple:
+    """(model, the steps' worker-stacked batches, robust config, optimizer)
+    of part (vii)'s ``kind`` ("cnn" or "hymba"), built alike on every
+    rank and in the parent: phocas b = 1 under signflip q = 1, m = TP_M,
+    SGD."""
+    import dataclasses
+
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust import RobustConfig
+    from repro_torch.data.pipeline import TokenStream, make_worker_batches
+    from repro_torch.experiment import resolve
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import OptConfig
+    rc = RobustConfig(rule="phocas", b=1, q=1,
+                      attack=AttackConfig(name="signflip", num_byzantine=1))
+    if kind == "cnn":
+        plan = resolve(dataclasses.replace(
+            paper_spec("cnn", TP_STREAM_CNN_STEPS), topology="streaming",
+            robust=dataclasses.replace(rc, attack=AttackConfig()),
+            attack=rc.attack, num_workers=TP_M), device="cuda")
+        batches = [make_worker_batches(plan.batch_fn(s), TP_M)
+                   for s in range(TP_STREAM_CNN_STEPS)]
+        return plan.model, batches, plan.robust_cfg, plan.opt_cfg
+    cell = ZOO_CELLS[TP_STREAM_CELL]
+    model = build_model(arch_cfg(cell.arch, TP_STREAM_LAYERS),
+                        remat="full")
+    stream = TokenStream(vocab_size=model.cfg.vocab_size,
+                         seq_len=TP_STREAM_LEN, global_batch=TP_STREAM_SEQS,
+                         seed=0, device="cuda")
+    batches = [make_worker_batches(stream.batch(s), TP_M)
+               for s in range(TP_STREAM_STEPS)]
+    return model, batches, rc, OptConfig(name="sgd", lr=cell.lr)
+
+
+def tp_stream_run(kind: str, mesh=None, starts=None) -> dict:
+    """Part (vii)'s ``kind`` through ``make_streaming_train_step``, on
+    ``mesh`` (this rank's FSDP shards, its rows of each worker) or in one
+    process: the params after each step (the CNN's whole, hymba's
+    sampled a leaf, on the host), the workers' losses, the kernel
+    launches (none: the statistics are sorts), the steps' peak of device
+    memory (reset once the params and batches are made), the step times.
+    ``starts`` (one process, the CNN): step k starts from ``starts[k]``
+    (the mesh's params before it), and each step's worker matrix is kept
+    for the phocas tie check."""
+    from repro_torch import tree as tree_util
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import streaming
+    model, batches, rc, opt = tp_stream_case(kind)
+    params = model.init(torch.Generator(device="cuda").manual_seed(TP_SEED))
+    state = init_opt_state(opt, params)
+    layout = None
+    if mesh is not None:
+        from repro_torch.dist.sharding import FsdpLayout
+        layout = FsdpLayout(model.abstract_params(), mesh,
+                            model.tensor_parallel)
+        params, state = layout.shard(params), layout.shard(state)
+        batches = [streaming.data_rows(b, mesh) for b in batches]
+    whole = params if layout is None else layout.join(params)
+
+    def host(tree):
+        xs = tree_util.leaves(tree)
+        if kind == "cnn":
+            return torch.cat([x.float().reshape(-1).cpu() for x in xs])
+        return torch.cat([tp_samples(x) for x in xs])
+
+    def load(flat):
+        xs = tree_util.leaves(params)
+        parts = torch.split(flat.to("cuda"), [x.numel() for x in xs])
+        return tree_util.unflatten(params, [
+            p.reshape(x.shape).to(x.dtype) for p, x in zip(parts, xs)])
+
+    out = {"params": [host(whole)], "losses": [], "step_s": [],
+           "workers": []}
+    if kind == "hymba":     # which sampled params are bf16 (some are f32)
+        out["bf16"] = torch.cat([
+            torch.full((tp_samples(x).numel(),), x.dtype == torch.bfloat16)
+            for x in tree_util.leaves(whole)])
+    del whole
+    step = streaming.make_streaming_train_step(
+        model, robust_cfg=rc, opt_cfg=opt, num_workers=TP_M, mesh=mesh)
+    grad = torch.func.grad(model.loss)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        nonlocal params, state
+        for s, batch in enumerate(batches):
+            if starts is not None:
+                params = load(starts[s])
+                out["workers"].append(torch.stack([torch.cat([
+                    x.reshape(-1).cpu() for x in tree_util.leaves(
+                        streaming._worker_attack(rc.attack, tree_util.map(
+                            lambda x: x.float(), grad(params, {
+                                k: v[w] for k, v in batch.items()})),
+                            w, s))]) for w in range(TP_M)]))
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch, s)
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["losses"].append(metrics["loss_per_worker"].float().cpu())
+            out["params"].append(host(params if layout is None
+                                      else layout.join(params)))
+
+    _, out["counts"] = launch_counts(run)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["param_bytes"] = sum(x.numel() * x.element_size()
+                             for x in tree_util.leaves(params))
+    if kind == "hymba":
+        del params, state
+        out["workers"] = tp_stream_workers(model, batches[0], rc, mesh,
+                                           layout)
+    return out
+
+
+def tp_stream_workers(model, batch, rc, mesh=None, layout=None):
+    """Phocas's inputs at the first step of part (vii)'s hymba run: each
+    worker's attacked gradient at the first params, formed as the step
+    forms it (on the mesh: ``_mesh_parts``'s, on this rank's shards, then
+    joined), sampled as the params are; (m, n) f32 on the host.  Made
+    after the run, so that they take no room at its peak."""
+    from repro_torch import tree as tree_util
+    from repro_torch.train import streaming
+    params = model.init(torch.Generator(device="cuda").manual_seed(TP_SEED))
+    if mesh is None:
+        grad = torch.func.grad(model.loss)
+
+        def worker(w):
+            g = grad(params, {k: v[w] for k, v in batch.items()})
+            return streaming._worker_attack(
+                rc.attack, tree_util.map(lambda x: x.float(), g), w, 0)
+    else:
+        params = layout.shard(params)
+        worker_grad = streaming._mesh_parts(model, mesh, rc, TP_M)[0]
+
+        def worker(w):
+            return layout.join(worker_grad(params, batch, w, 0)[0])
+    return torch.stack([torch.cat([tp_samples(x) for x in tree_util.leaves(
+        worker(w))]) for w in range(TP_M)])
+
+
+def tp_stream_witness(got, ref, rc, lr) -> dict:
+    """Where the mesh's first hymba step parts from the one process's
+    (both start from the same params), on the sampled coordinates.  Each
+    run's worker gradients (``workers``) go through the streaming step's
+    own statistics on the host, in its order and in f32 (the sums, the
+    ``_merge_*`` sorts, Phocas's second pass), then through the bf16 SGD
+    update as ``apply_updates`` makes it (the aggregate cast to the
+    leaf's dtype, ``p - lr·u`` in f32, rounded to it: bf16 but for a few
+    f32 leaves).  Returns the honest workers'
+    gradient gaps (relative L2), the f32 aggregates' gap and norm ratio,
+    the share of coordinates where Phocas drops another worker (b = 1)
+    and the aggregates' gap off them, the share of coordinates that the
+    update leaves as they were, the reruns' update gap, and how far each
+    rerun misses its run's update."""
+    from repro_torch.train import streaming as st
+    m, b = TP_M, rc.b
+    p0, bf16 = got["params"][0], got["bf16"]
+
+    def rel(a, c):
+        return float((a - c).norm() / c.norm().clamp(min=1e-30))
+
+    def rerun(u):
+        ssum = torch.zeros_like(u[0])
+        bot = torch.full((b,) + tuple(u[0].shape), torch.inf)
+        top = -bot
+        for w in range(m):
+            ssum = ssum + u[w]
+            bot, top = st._merge_bottom(bot, u[w]), st._merge_top(top, u[w])
+        center = (ssum - bot.sum(0) - top.sum(0)) / (m - 2 * b)
+        dtop = torch.full_like(bot, -torch.inf)
+        vtop = torch.zeros_like(dtop)
+        for w in range(m):
+            dtop, vtop = st._merge_top_by_dist(dtop, vtop,
+                                               (u[w] - center).abs(), u[w])
+        agg = (ssum - vtop.sum(0)) / (m - b)
+        p1 = p0 - torch.where(bf16, agg.to(torch.bfloat16).float(), agg) * lr
+        p1 = torch.where(bf16, p1.to(torch.bfloat16).float(), p1)
+        return agg, (u - center).abs().argmax(0), p1 - p0
+
+    agg_m, drop_m, upd_m = rerun(got["workers"])
+    agg_o, drop_o, upd_o = rerun(ref["workers"])
+    real_m = got["params"][1] - p0
+    real_o = ref["params"][1] - ref["params"][0]
+    same = drop_m == drop_o
+    return {
+        "starts_equal": bool(torch.equal(p0, ref["params"][0])),
+        "grads": [rel(got["workers"][w], ref["workers"][w])
+                  for w in range(rc.attack.num_byzantine, m)],
+        "agg": rel(agg_m, agg_o),
+        "agg_ratio": float(agg_m.norm() / agg_o.norm()),
+        "flips": float((~same).float().mean()),
+        "agg_off_flips": rel(agg_m[same], agg_o[same]),
+        "unmoved": float((real_o == 0).float().mean()),
+        "reruns": rel(upd_m, upd_o),
+        "update": rel(real_m, real_o),
+        "miss": [rel(upd_m, real_m), rel(upd_o, real_o)],
+        "exact": [float((upd_m == real_m).float().mean()),
+                  float((upd_o == real_o).float().mean())]}
+
+
+def tp_stream_rank(mesh) -> dict:
+    """Part (vii) on this rank: the CNN, then hymba (whose peak phase 13
+    holds its prediction to)."""
+    t0 = time.perf_counter()
+    out = {}
+    for kind in ("cnn", "hymba"):
+        out[kind] = tp_stream_run(kind, mesh)
+        torch.cuda.empty_cache()
+        if mesh.rank == 0:
+            print(f"  phase 11 rank 0: (vii) {kind} streamed, "
+                  f"{time.perf_counter() - t0:.1f} s into the part",
+                  flush=True)
+    out["part_s"] = time.perf_counter() - t0
+    return out
+
+
+def tp_stream_holds(ranks, hold) -> None:
+    """Part (vii)'s holds, against the single process's run of each case
+    (computed here, once the world has freed the card)."""
+    from repro_torch.dist.sharding import FsdpLayout, Mesh
+    from repro_torch.tree import leaves
+    for kind in ("cnn", "hymba"):
+        got = ranks[0]["stream"][kind]
+        if kind == "hymba":
+            ref = tp_stream_run(kind)
+        model, _, rc, opt = tp_stream_case(kind)
+        full = model.abstract_params()
+        want = FsdpLayout(full, Mesh(("data", "model"), TP_TRAIN_MESH),
+                          model.tensor_parallel).shard_bytes()
+        whole = sum(x.numel() * x.element_size() for x in leaves(full))
+        shards = [rk["stream"][kind]["param_bytes"] for rk in ranks]
+        hold(all(n == want for n in shards),
+             f"tp (vii) {kind}: shard bytes {shards}, the layout's {want} "
+             f"(param_pspec_fsdp's) of {whole}")
+        for r, rk in enumerate(ranks):
+            c = rk["stream"][kind]["counts"]
+            hold(sum(c.values()) == 0,
+                 f"tp (vii) {kind}: rank {r} launched kernels {c}")
+        losses = torch.stack(got["losses"]).mean(1).tolist()
+        hold(all(x == x and abs(x) != float("inf") for x in losses)
+             and losses[-1] < losses[0],
+             f"tp (vii) {kind}: losses {losses} (finite and falling)")
+        if kind == "cnn":
+            # each step held from the mesh's own params before it: the
+            # single process's step from there (a phocas distance tie
+            # flips which value is dropped with the rounding of the
+            # center, and a flip moves every later step's gradients)
+            ref = tp_stream_run(kind, starts=got["params"][:-1])
+            rtol, atol = TP_STREAM_TOL
+            ties, worst = [], 0.0
+            for s, (a, b) in enumerate(zip(got["params"][1:],
+                                           ref["params"][1:])):
+                bad = (~torch.isclose(a, b, rtol=rtol, atol=atol)
+                       ).nonzero().flatten()
+                gap = tp_phocas_gap(ref["workers"][s][:, bad])
+                ties.append(int(bad.numel()))
+                hold(bool((gap < TP_STREAM_TIE).all()),
+                     f"tp (vii) cnn step {s}: {bad.numel()} coordinates "
+                     f"past rtol {rtol}, atol {atol} of the single "
+                     f"process's step, gaps {gap.tolist()[:8]} not ties")
+                keep = torch.ones_like(a, dtype=torch.bool)
+                keep[bad] = False
+                worst = max(worst, float((a - b)[keep].abs().max()))
+            detail = (f"params after each of {TP_STREAM_CNN_STEPS} steps "
+                      f"within rtol {rtol}, atol {atol} of the one-process "
+                      f"streaming step from the same params (max|diff| "
+                      f"{worst:.2e}; {ties} coordinates at phocas distance "
+                      f"ties)")
+        else:
+            # bf16: each step's update by its gap and its size; the first
+            # step's witness says where the gap comes from
+            wit = tp_stream_witness(got, ref, rc, opt.lr)
+            tol = TP_GRAD_TOL["bfloat16"]
+            hold(wit["starts_equal"] and max(wit["grads"]) <= tol,
+                 f"tp (vii) hymba: first params equal {wit['starts_equal']}"
+                 f", honest workers' first gradients {wit['grads']} from "
+                 f"the single process's (relative L2, sampled; limit {tol})")
+            hold(max(wit["miss"]) <= TP_STREAM_RERUN,
+                 f"tp (vii) hymba: the step rerun on the host over each "
+                 f"run's first worker gradients misses its first update "
+                 f"by {wit['miss']} (mesh, one process; relative L2, limit "
+                 f"{TP_STREAM_RERUN})")
+            rels, upd, ratio = [], [], []
+            for (a0, a), (b0, b) in zip(
+                    zip(got["params"], got["params"][1:]),
+                    zip(ref["params"], ref["params"][1:])):
+                rels.append((a - b).norm().item()
+                            / b.norm().clamp(min=1e-30).item())
+                da, db = a - a0, b - b0
+                upd.append((da - db).norm().item()
+                           / db.norm().clamp(min=1e-30).item())
+                ratio.append(da.norm().item()
+                             / db.norm().clamp(min=1e-30).item())
+            hold(max(rels) <= tol,
+                 f"tp (vii) hymba: params {rels} from the single "
+                 f"process's (relative L2, sampled; limit {tol})")
+            hold(max(upd) <= TP_STREAM_UPD
+                 and max(abs(r - 1) for r in ratio) <= TP_STREAM_NORM,
+                 f"tp (vii) hymba: each step's update {upd} from the single "
+                 f"process's (relative L2, sampled; limit {TP_STREAM_UPD}),"
+                 f" norm ratios {ratio} (limit 1 ± {TP_STREAM_NORM})")
+            detail = (
+                f"params after each step within {max(rels):.2e} (relative "
+                f"L2, sampled; limit {tol}) of the one-process step's; "
+                f"each step's update {[round(x, 4) for x in upd]} from the "
+                f"one-process step's (relative L2, sampled; limit "
+                f"{TP_STREAM_UPD}), norm ratio {[round(x, 4) for x in ratio]}"
+                f" (limit 1 ± {TP_STREAM_NORM}); first step's witness: "
+                f"honest worker gradients {[f'{x:.2e}' for x in wit['grads']]}"
+                f" apart (limit {tol}), the host's rerun of the step misses "
+                f"each run's update by {[f'{x:.2e}' for x in wit['miss']]} "
+                f"(equal at {[round(x, 6) for x in wit['exact']]} of the "
+                f"coordinates; limit {TP_STREAM_RERUN}), f32 aggregates "
+                f"{wit['agg']:.4e} apart (norm ratio {wit['agg_ratio']:.4f}"
+                f"), Phocas drops another worker at {wit['flips']:.4e} of "
+                f"the coordinates (aggregates {wit['agg_off_flips']:.4e} "
+                f"apart off them), the bf16 update leaves "
+                f"{wit['unmoved']:.4f} of the params as they were, the "
+                f"reruns' updates {wit['reruns']:.4f} apart, the runs' "
+                f"{wit['update']:.4f}")
+            TP_MEASURED["stream"] = got["peak"]
+        print(f"  (vii) {kind} on {TP_TRAIN_MESH}, FSDP streaming: m = "
+              f"{TP_M} on the data axis, phocas b = 1 under signflip, "
+              f"each leaf cut over all {TP_RANKS} ranks (rank 0 holds "
+              f"{got['param_bytes'] / 2**20:.2f} of {whole / 2**20:.2f} "
+              f"MiB of params); losses "
+              f"{[round(x, 4) for x in losses]}; {detail}; step "
+              f"{[round(x, 2) for x in got['step_s']]} s (one process "
+              f"{[round(x, 3) for x in ref['step_s']]} s); rank 0's peak "
+              f"{got['peak'] / 2**30:.3f} GiB (one process "
+              f"{ref['peak'] / 2**30:.3f}); no kernel launched (sorts)")
+
+
+def tp_phocas_gap(u: torch.Tensor) -> torch.Tensor:
+    """Phocas b = 1's boundary gap at the columns of the (m, n) worker
+    matrix ``u``: how much farther from the trimmed mean the farthest
+    value lies than the next, over the column's largest |value| (0 at a
+    distance tie)."""
+    u = u.double()
+    srt = u.sort(0).values
+    center = srt[1:-1].mean(0)
+    d = (u - center).abs().sort(0).values
+    return (d[-1] - d[-2]) / u.abs().max(0).values.clamp(min=1e-30)
+
+
 def tp_rank(rank: int, world: int, handoff: str, t_spawn: float) -> dict:
     """One rank of phase 11's world: parts (i), (ii) and (iv) on the
     serving mesh once the parent's serving references are there, K6 held
-    on rank 0, parts (iii), (v) and (vi) on the training mesh once the
-    parent has freed the card."""
+    on rank 0, parts (iii), (v), (vi) and (vii) on the training mesh once
+    the parent has freed the card."""
     import torch.distributed as dist
 
     from repro_torch.dist.mesh import make_host_mesh
@@ -3499,11 +3893,12 @@ def tp_rank(rank: int, world: int, handoff: str, t_spawn: float) -> dict:
                   flush=True)
     out["seq"] = tp_seq_rank(train, TP_SEQ_CELL)
     out["train_s"] = time.perf_counter() - t0
+    out["stream"] = tp_stream_rank(train)
     return out
 
 
 def tp_phase() -> dict:
-    """Phase 11: one 8-rank world on the card for parts (i)-(vi), spawned
+    """Phase 11: one 8-rank world on the card for parts (i)-(vii), spawned
     in a thread while this process computes the single process's
     references (handed to the ranks through files; the ranks train only
     once this process has freed the card), then the holds.  Returns rank
@@ -3731,6 +4126,11 @@ def tp_phase() -> dict:
           f"against {[round(x, 6) for x in plain]} without it (rtol "
           f"{TP_LOSS_RTOL}); step walls {walls} s (without it "
           f"{unsharded} s); part {seq['part_s']:.1f} s")
+    t_stream = time.perf_counter()
+    tp_stream_holds(ranks, hold)
+    print(f"  (vii) part {r0['stream']['part_s']:.1f} s on the ranks, the "
+          f"single process's runs and the holds "
+          f"{time.perf_counter() - t_stream:.1f} s")
     if TP_STEPS["A"]:
         TP_MEASURED["train"] = r0["train"]["A"]["peak"]
     TP_MEASURED["serve"] = r0["serve"]["granite-8b"]["peak"]
@@ -3765,14 +4165,17 @@ KERNEL_SYMBOLS = {"phocas": ("phocas_kernel<",),
                   "flash_attn": ("flash_fwd_mma<", "flash_fwd_f32<")}
 
 
-def cli_start(tag: str, module: str, args: list) -> dict:
-    """Start ``python -m module args`` from the repo root with
-    PYTHONPATH=src, its output to CLI_DIR/<tag>.out."""
-    path = os.path.join(CLI_DIR, f"{tag}.out")
+def cli_start(tag: str, module: str, args: list, out_dir: str = CLI_DIR
+              ) -> dict:
+    """Start ``python -m module args`` (``module`` None: ``python
+    args``) from the repo root with PYTHONPATH=src, its output to
+    ``out_dir``/<tag>.out."""
+    path = os.path.join(out_dir, f"{tag}.out")
     out = open(path, "w")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=REPO,
-                            env=env, stdout=out, stderr=subprocess.STDOUT)
+    proc = subprocess.Popen(
+        [sys.executable, *(["-m", module] if module else []), *args],
+        cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
     return {"tag": tag, "proc": proc, "file": out, "path": path,
             "t0": time.perf_counter()}
 
@@ -4078,8 +4481,9 @@ def dryrun_predict() -> None:
     this process's ``torch.distributed`` world): rank 0 of phase 11's
     runs traced on fake tensors in a fake world of TP_RANKS ranks, cell A's
     training step on TP_TRAIN_MESH (m = TP_M, phocas b = q = TP_B under
-    omniscient, remat full) and granite-8b's prefill of its prompts and
-    decode step against its cache on TP_SERVE_MESH.  Prints one line
+    omniscient, remat full), granite-8b's prefill of its prompts and
+    decode step against its cache on TP_SERVE_MESH, and part (vii)'s
+    hymba FSDP streaming step on TP_TRAIN_MESH.  Prints one line
     ``DRYRUN {json}``."""
     from repro_torch.configs import InputShape
     from repro_torch.core.attacks import AttackConfig
@@ -4095,7 +4499,7 @@ def dryrun_predict() -> None:
             fn, args, _ = dryrun.build_traced(arch, shape, mesh,
                                               remat="full", **kw)
             params = storage_bytes(args[0])
-            cost = trace_cost(fn, *args)
+            cost = trace_cost(fn, *args, fold_loops=True)  # as the dry run
         out[tag] = {"peak": cost["peak_bytes"], "params": params,
                     "arguments": cost["argument_bytes"],
                     "kernels": cost["kernels"],
@@ -4114,6 +4518,12 @@ def dryrun_predict() -> None:
                                       "prefill"), serve)
     traced("decode", cfg, InputShape("tp-decode", plen + new, TP_BATCH,
                                      "decode"), serve)
+    traced("stream", arch_cfg(ZOO_CELLS[TP_STREAM_CELL].arch,
+                              TP_STREAM_LAYERS),
+           InputShape("tp-stream", TP_STREAM_LEN, TP_STREAM_SEQS, "train"),
+           Mesh(("data", "model"), TP_TRAIN_MESH), rule="phocas", b=1,
+           attack=AttackConfig(name="signflip", num_byzantine=1),
+           mode="streaming")
     print("DRYRUN " + json.dumps(out), flush=True)
 
 
@@ -4140,44 +4550,41 @@ def dryrun_record(tag: str, text: str) -> dict:
     return rec
 
 
-def dryrun_phase() -> None:
-    """Phase 13: (i) the dry-run CLI as subprocesses on this host, and (ii)
-    in another, the predictions of :func:`dryrun_predict`, held to rank
-    0's peaks that phase 11 measured on the card (TP_MEASURED)."""
+def dryrun_start() -> dict:
+    """Phase 13's subprocesses, started right after the build: they use
+    only this host's CPU (fake tensors in a fake world), so they run
+    beside the card's phases; :func:`dryrun_phase` waits for them.  (i)
+    the dry-run CLI; (ii) :func:`dryrun_predict`."""
     import shutil
-
-    from repro_torch.dist.sharding import Mesh
-    t0 = time.perf_counter()
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     os.makedirs(DRYRUN_DIR)
-    os.makedirs(CLI_DIR, exist_ok=True)         # the CLIs' outputs
-    print("phase 13: the dry run (fake tensors in a fake world, no card)")
     runs = {}
-    try:
-        for tag, args in DRYRUN_CLI.items():
-            runs[tag] = cli_start(f"dryrun-{tag}",
-                                  "repro_torch.launch.dryrun",
-                                  args + ["--out", DRYRUN_DIR])
-        code = ("import sys; sys.path[:0] = [%r, %r]; from repro_torch."
-                "launch import fake; fake.prepare_host(); import chip_smoke;"
-                " chip_smoke.dryrun_predict()" % (os.path.join(REPO, "src"),
-                                                  REPO))
-        path = os.path.join(DRYRUN_DIR, "predict.out")
-        with open(path, "w") as out:
-            predict = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                                     stdout=out, stderr=subprocess.STDOUT,
-                                     timeout=300)
-        with open(path) as f:
-            text = f.read()
-        check(predict.returncode == 0,
-              f"phase 13 (ii): exit {predict.returncode}:\n{text[-6000:]}")
-        pred = json.loads([x for x in text.splitlines()
-                           if x.startswith("DRYRUN ")][-1][len("DRYRUN "):])
-        for tag in DRYRUN_CLI:
-            dryrun_record(tag, cli_wait(runs[tag]))
-    finally:
-        for run in runs.values():
-            cli_stop(run)
+    for tag, args in DRYRUN_CLI.items():
+        runs[tag] = cli_start(f"dryrun-{tag}", "repro_torch.launch.dryrun",
+                              args + ["--out", DRYRUN_DIR], DRYRUN_DIR)
+    code = ("import sys; sys.path[:0] = [%r, %r]; from repro_torch."
+            "launch import fake; fake.prepare_host(); import chip_smoke;"
+            " chip_smoke.dryrun_predict()" % (os.path.join(REPO, "src"),
+                                              REPO))
+    runs["predict"] = cli_start("predict", None, ["-c", code], DRYRUN_DIR)
+    return runs
+
+
+def dryrun_phase(runs: dict) -> None:
+    """Phase 13: the subprocesses of :func:`dryrun_start`, (i) the
+    dry-run CLI's records, and (ii) the predictions of
+    :func:`dryrun_predict`, held to rank 0's peaks that phase 11
+    measured on the card (TP_MEASURED)."""
+    from repro_torch.dist.sharding import Mesh
+    t0 = time.perf_counter()
+    ended = sum(run["proc"].poll() is not None for run in runs.values())
+    print("phase 13: the dry run (fake tensors in a fake world, no card; "
+          "started after the build)")
+    text = cli_wait(runs["predict"])
+    pred = json.loads([x for x in text.splitlines()
+                       if x.startswith("DRYRUN ")][-1][len("DRYRUN "):])
+    for tag in DRYRUN_CLI:
+        dryrun_record(tag, cli_wait(runs[tag]))
     train = pred["train"]
     want, _ = tp_block_bytes(lm_model("A"),
                              Mesh(("data", "model"), TP_TRAIN_MESH))
@@ -4193,7 +4600,10 @@ def dryrun_phase() -> None:
             ("serve", max(pred["prefill"]["peak"], pred["decode"]["peak"]),
              f"granite-8b's {TP_SERVE_MESH} generate (the larger of the "
              f"prefill's {pred['prefill']['peak'] / 2**30:.3f} and the "
-             f"decode step's {pred['decode']['peak'] / 2**30:.3f} GiB)")):
+             f"decode step's {pred['decode']['peak'] / 2**30:.3f} GiB)"),
+            ("stream", pred["stream"]["peak"],
+             f"hymba-1.5b's {TP_TRAIN_MESH} FSDP streaming step (part "
+             f"(vii); traced in {pred['stream']['s']:.1f} s)")):
         measured = TP_MEASURED.get(tag)
         if measured is None:
             failed.append(f"{tag}: phase 11 measured no peak")
@@ -4209,7 +4619,9 @@ def dryrun_phase() -> None:
           f"K1 on {tuple(k1[0][1])}; traced in {train['s']:.1f} s, granite "
           f"prefill {pred['prefill']['s']:.1f} s, decode "
           f"{pred['decode']['s']:.1f} s")
-    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s of waiting and "
+          f"holds ({ended} of its {len(runs)} subprocesses had ended beside "
+          f"the card's phases)")
     check(not failed, f"phase 13: {failed}")
 
 
@@ -4257,6 +4669,40 @@ def main() -> int:
             elif "registers" in line:
                 print(f"  {fn}: {line.split(':', 1)[1].strip()}; {frame}")
 
+    dry = dryrun_start()
+    try:
+        report, launches = card_phases()
+        dryrun_phase(dry)
+    finally:
+        for run in dry.values():
+            cli_stop(run)
+
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
+          f"build included")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(smi)
+    kernels = []
+    for kname, meta in KERNEL_META.items():
+        r = report[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": meta["source"],
+            "replaces": meta["replaces"], "launches": launches[kname],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def card_phases() -> tuple:
+    """Phases 2 to 12, on the card: the kernels' report and the main
+    paths' launches."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = kernel_phase(gen)
     register_phase(gen, report)
@@ -4280,29 +4726,7 @@ def main() -> int:
         launches[k] += v
     for k, v in cli_phase().items():
         launches[k] += v
-    dryrun_phase()
-
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
-          f"build included")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    print(smi)
-    kernels = []
-    for kname, meta in KERNEL_META.items():
-        r = report[kname]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": launches[kname],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return report, launches
 
 
 if __name__ == "__main__":

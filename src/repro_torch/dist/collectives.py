@@ -24,7 +24,10 @@ that axis's process group, in the reference's order of per-axis steps:
     (Megatron's f and g, a gather, and sequence parallelism's split and
     reduce-scatter), ``torch.autograd.Function``s that differentiate
     under ``torch.func.grad``/``vjp``.  They carry no vmap
-    rule: a rank computes one worker group, so nothing vmaps over them.
+    rule: a rank computes one worker group, so nothing vmaps over them;
+  * :func:`fsdp_gather`: FSDP shards gathered into the blocks a layer
+    computes on, one collective for a group of leaves, whose backward
+    reduce-scatters the gradient back to the shards.
 
 The backend is gloo on the CPU and on the card (every rank of a mesh on one
 GPU shares it, which NCCL refuses); gloo stages CUDA tensors through the
@@ -327,7 +330,8 @@ class _ReduceScatterToModel(torch.autograd.Function):
 
 def _block(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     """This rank's block of ``x`` along ``dim`` over ``axes``."""
-    return x.chunk(axis_size(axes), dim)[worker_slice_index(axes)]
+    n = x.shape[dim] // axis_size(axes)
+    return x.narrow(dim, worker_slice_index(axes) * n, n)
 
 
 def copy_to_model(x: torch.Tensor, axes) -> torch.Tensor:
@@ -364,3 +368,54 @@ def reduce_scatter_to_model(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     if not axes:
         return x
     return _ReduceScatterToModel.apply(x, tuple(axes), dim % x.dim())
+
+
+class _FsdpGather(torch.autograd.Function):
+    """The blocks of FSDP shards ``xs`` that the ranks on ``axes`` hold
+    alike: the flat shards concatenated and all_gathered in one call,
+    each block its runs, forward; backward, the blocks' gradients summed
+    over ``rows`` (the axes a worker's batch rows are cut over: each
+    rank's gradient is its rows') in one call and this rank's runs taken,
+    a reduce-scatter (gloo has none: all_reduce, then cut)."""
+
+    @staticmethod
+    def forward(axes, rows, shapes, *xs):
+        n = axis_size(axes)
+        sizes = [x.numel() for x in xs]
+        flat = torch.cat([x.reshape(-1) for x in xs])
+        whole = all_gather_axes(flat, axes, 0).reshape(n, -1)
+        outs, at = [], 0
+        for k, shape in zip(sizes, shapes):
+            outs.append(whole[:, at:at + k].reshape(shape))
+            at += k
+        return tuple(outs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axes, ctx.rows, _, *xs = inputs
+        ctx.shards = [x.shape for x in xs]
+        ctx.like = xs[0].new_empty(())
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n = axis_size(ctx.axes)
+        flat = torch.cat([
+            (g if g is not None else ctx.like.new_zeros(
+                (n, math.prod(s)))).reshape(n, -1)
+            for g, s in zip(gs, ctx.shards)], dim=1)
+        flat = _psum_f32(flat, ctx.rows)
+        mine = flat[worker_slice_index(ctx.axes)] if ctx.axes else flat[0]
+        out, at = [], 0
+        for s in ctx.shards:
+            k = math.prod(s)
+            out.append(mine[at:at + k].reshape(s))
+            at += k
+        return (None, None, None, *out)
+
+
+def fsdp_gather(xs, axes, rows, shapes) -> list:
+    """The blocks of ``shapes`` that the FSDP shards ``xs`` of the ranks
+    on ``axes`` make together (:class:`_FsdpGather`), one collective for
+    all of them."""
+    return list(_FsdpGather.apply(tuple(axes), tuple(rows),
+                                  tuple(tuple(s) for s in shapes), *xs))

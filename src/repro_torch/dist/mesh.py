@@ -139,17 +139,21 @@ _AMBIENT = threading.local()
 class Ambient:
     """The mesh of the code inside :func:`use_mesh`, whether the
     activations' batch rows are this rank's share of a batch sharded over
-    the worker axes (else every rank holds the whole batch), and whether
+    the worker axes (else every rank holds the whole batch), whether
     the residual stream between layers is this rank's block of the
-    sequence over the model axes (``models/stack.py::SEQ_SHARD``)."""
+    sequence over the model axes (``models/stack.py::SEQ_SHARD``), and
+    the FSDP layout of params that are this rank's FSDP shards
+    (``dist/sharding.py::FsdpLayout``; the layers gather them on use),
+    None for params that are blocks or whole."""
     mesh: Mesh
     batch_sharded: bool = False
     seq_sharded: bool = False
+    fsdp: Any = None
 
 
-def use_mesh(mesh: Mesh, *, batch_sharded: bool = False):
+def use_mesh(mesh: Mesh, *, batch_sharded: bool = False, fsdp=None):
     """Make ``mesh`` the ambient mesh of the code inside (thread-local)."""
-    return ambient_as(Ambient(mesh, batch_sharded))
+    return ambient_as(Ambient(mesh, batch_sharded, fsdp=fsdp))
 
 
 @contextlib.contextmanager

@@ -14,6 +14,9 @@ by the reference's names) into a tree of :class:`P` using the reference's
 name and shape rules, with replication wherever a dimension does not divide;
 ``leaf_rule`` overrides the decision per leaf (:func:`param_pspec_fsdp` is
 the FSDP rule); :func:`cache_pspec` is the KV-cache analogue.
+:class:`FsdpLayout` places each leaf's FSDP shard (the streaming step's
+layout): ``param_pspec_fsdp``'s bytes a rank, cut so that gathering over
+the worker axes gives the model-axis block the layers compute on.
 
 :func:`shard_params` and :func:`shard_cache` cut a whole tree to this
 rank's blocks by those specs (the reference device-puts it with them);
@@ -200,6 +203,215 @@ def param_pspec_fsdp(name: str, leaf, mesh: Mesh) -> Optional[P]:
 
 
 # ---------------------------------------------------------------------------
+# FSDP layout (the streaming mode's)
+# ---------------------------------------------------------------------------
+
+# Parameter subtrees stacked on a leading period (decoder) or layer
+# (encoder-decoder) dim, whose layers gather one period at a time.
+STACKED_PARAMS = ("stack/blocks/", "enc/", "dec/")
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class FsdpLeaf:
+    """Where one leaf's FSDP shard sits.  The layers compute on ``block``
+    (the leaf cut over the model axes by ``tree_pspecs``, ``cut`` its
+    ``(dim, model axis names)``, or the whole leaf), one period of it when
+    ``per_period``; the shard is that block flattened and cut into equal
+    runs over ``axes`` (joint row-major order), so gathering over ``axes``
+    gives the block back.  The model axes of ``cut`` and ``axes`` together
+    are ``param_pspec_fsdp``'s, which sets the bytes: a rank holds the
+    leaf's size over their size, as the reference's does.  A stacked leaf
+    whose period does not
+    cut into equal runs (hymba's (periods, 25) per-head leaves) is cut
+    whole, and gathered whole for each of its periods."""
+    shape: Tuple[int, ...]
+    block: Tuple[int, ...]
+    cut: Optional[tuple]
+    axes: Tuple[str, ...]
+    per_period: bool
+
+
+def fsdp_leaf(name: str, leaf, mesh: Mesh, tp: bool) -> FsdpLeaf:
+    """The :class:`FsdpLeaf` of the leaf at ``name`` (its "/"-joined path);
+    ``tp``: the layers compute tensor-parallel on model-axis blocks."""
+    shape = tuple(leaf.shape)
+    spec = param_pspec_fsdp(name, leaf, mesh)
+    group = tuple(a for e in spec for a in _axes_of(e))
+    cut = None
+    model = model_axes_of(mesh)
+    if tp and _axes_size(mesh, model) > 1:
+        dim = _tp_dim(tuple(name.split("/")), len(shape))
+        m = _axes_size(mesh, model)
+        if dim is not None and shape[dim] % m == 0 and shape[dim] >= m:
+            cut = (dim, model)
+    block = list(shape)
+    axes = group
+    if cut is not None:
+        block[cut[0]] //= m
+        if not set(model) <= set(group):
+            raise ValueError(f"{name}: FSDP spec {spec} leaves the model "
+                             f"axes of its tensor-parallel cut whole")
+        axes = tuple(a for a in group if a not in model)
+    runs = _axes_size(mesh, axes)
+    per_period = (name.startswith(STACKED_PARAMS) and len(shape) > 1
+                  and math.prod(block[1:]) % runs == 0)
+    if per_period:
+        block = block[1:]
+    if math.prod(block) % runs:
+        raise ValueError(f"{name}: a block of {tuple(block)} does not cut "
+                         f"into {runs} equal runs")
+    return FsdpLeaf(shape, tuple(block), cut, axes, per_period)
+
+
+class FsdpLayout:
+    """The FSDP layout of a model's params on a world ``mesh`` (a
+    ``HostMesh``; a :class:`Mesh` description serves for the plans and
+    :meth:`shard_bytes`): every leaf's :class:`FsdpLeaf`, by path.
+    :meth:`shard` cuts whole trees (params, or an optimizer state's
+    params-shaped trees) to this rank's shards, :meth:`gather` gathers
+    shards into the blocks the layers compute on (differentiably: the
+    gradient is summed
+    over ``rows``, the ``data`` axis that a worker's batch rows are cut
+    over, and cut back to the shard), :meth:`join` rebuilds whole
+    leaves."""
+
+    def __init__(self, full, mesh, tp: bool):
+        self.mesh = mesh
+        self.rows = ("data",) if "data" in mesh.axis_names else ()
+        self.plans, self.itemsize = {}, {}
+
+        def plan(path, leaf):
+            name = "/".join(path)
+            self.plans[name] = fsdp_leaf(name, leaf, mesh, tp)
+            self.itemsize[name] = leaf.dtype.itemsize
+
+        _map_with_path(plan, full)
+
+    def _plan(self, prefix: str, path) -> FsdpLeaf:
+        return self.plans["/".join(([prefix] if prefix else []) + list(path))]
+
+    def _map(self, fn, tree, prefix: str):
+        return _map_with_path(lambda path, x: fn(self._plan(prefix, path), x),
+                              tree)
+
+    def shard_of(self, plan: FsdpLeaf, x):
+        """This rank's shard of the whole leaf ``x`` (a copy)."""
+        if plan.cut is not None:
+            dim, names = plan.cut
+            size = x.shape[dim] // _axes_size(self.mesh, names)
+            x = x.narrow(dim, block_index(self.mesh, names) * size, size)
+        runs = _axes_size(self.mesh, plan.axes)
+        i = block_index(self.mesh, plan.axes) if plan.axes else 0
+        lead = (x.shape[0],) if plan.per_period else ()
+        flat = x.reshape(lead + (-1,))
+        n = flat.shape[-1] // runs
+        return flat.narrow(-1, i * n, n).clone()
+
+    def shard(self, tree):
+        """This rank's shards of a whole params-shaped tree; an optimizer
+        state's ``step`` passes."""
+        if isinstance(tree, dict) and "step" in tree:
+            return {k: (v if k == "step" else self.shard(v))
+                    for k, v in tree.items()}
+        return self._map(self.shard_of, tree, "")
+
+    def period(self, tree, prefix: str, i: int):
+        """Period ``i`` of the shards of a stacked subtree at ``prefix``:
+        a per-period leaf's row, a leaf cut whole as it is."""
+        return self._map(lambda plan, x: x[i] if plan.per_period else x,
+                         tree, prefix)
+
+    def gather(self, tree, prefix: str = "", period: Optional[int] = None):
+        """The blocks of the shards in ``tree`` (the subtree at
+        ``prefix``; of period ``period`` of a stacked one, from
+        :meth:`period`), gathered with one collective for the leaves
+        that the same ranks hold alike (``dist/collectives.py::
+        fsdp_gather``; one for each dtype)."""
+        from repro_torch import tree as tree_util
+        from repro_torch.dist.collectives import fsdp_gather
+        names = _leaf_paths(tree)
+        xs = tree_util.leaves(tree)
+        plans = [self._plan(prefix, path) for path in names]
+        groups: dict = {}
+        for j, plan in enumerate(plans):
+            groups.setdefault((plan.axes, xs[j].dtype), []).append(j)
+        out = [None] * len(xs)
+        rows = self.mesh.axes(self.rows)
+        for (axes, _), js in groups.items():
+            got = fsdp_gather([xs[j] for j in js], self.mesh.axes(axes),
+                              rows, [plans[j].block for j in js])
+            for j, g in zip(js, got):
+                whole_stack = period is not None and not plans[j].per_period
+                out[j] = g[period] if whole_stack else g
+        return tree_util.unflatten(tree, out)
+
+    def join(self, tree):
+        """Whole leaves from every rank's shards (collectives); an
+        optimizer state's ``step`` passes."""
+        from repro_torch.dist.collectives import all_gather_axes
+        if isinstance(tree, dict) and "step" in tree:
+            return {k: (v if k == "step" else self.join(v))
+                    for k, v in tree.items()}
+
+        def one(plan, x):
+            lead = x.shape[:1] if plan.per_period else ()
+            b = all_gather_axes(x.contiguous(), self.mesh.axes(plan.axes),
+                                len(lead))
+            shape = lead + plan.block if plan.per_period else plan.block
+            b = b.reshape(shape)
+            if plan.cut is not None:
+                b = all_gather_axes(b, self.mesh.axes(plan.cut[1]),
+                                    plan.cut[0])
+            return b.reshape(plan.shape)
+
+        return self._map(one, tree, "")
+
+    def salt(self, plan: FsdpLeaf) -> int:
+        """This rank's shard's index among the leaf's distinct shards:
+        ranks that hold the same shard share it."""
+        names = (plan.cut[1] if plan.cut else ()) + plan.axes
+        order = tuple(a for a in self.mesh.axis_names if a in names)
+        return block_index(self.mesh, order) if order else 0
+
+    def counts(self, plan: FsdpLeaf) -> bool:
+        """Whether this rank is the one of a shard's holders that counts
+        it in a sum over the world (the first on the other axes)."""
+        names = set(plan.axes) | set(plan.cut[1] if plan.cut else ())
+        return all(c == 0 for a, c in zip(self.mesh.axis_names,
+                                          self.mesh.coords)
+                   if a not in names)
+
+    def shard_bytes(self) -> int:
+        """A rank's bytes of the params' shards (``param_pspec_fsdp``'s:
+        each leaf's size over the size of its spec's axes)."""
+        return sum(math.prod(p.block) // _axes_size(self.mesh, p.axes)
+                   * (p.shape[0] if p.per_period else 1) * self.itemsize[n]
+                   for n, p in self.plans.items())
+
+    def leaf_plans(self, tree) -> list:
+        """The :class:`FsdpLeaf` of each leaf of a params-shaped ``tree``,
+        in ``repro_torch.tree.leaves`` order."""
+        return [self._plan("", path) for path in _leaf_paths(tree)]
+
+
+def _leaf_paths(tree, path=()):
+    """Each leaf's path, in ``repro_torch.tree.leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], path + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree)
+                for p in _leaf_paths(t, path + (str(i),))]
+    return [path]
+
+
+# ---------------------------------------------------------------------------
 # Cutting trees to this rank's blocks
 # ---------------------------------------------------------------------------
 
@@ -289,6 +501,14 @@ def init_blocks(model, seed: int, mesh: Mesh, device):
 # KV-cache rule
 # ---------------------------------------------------------------------------
 
+def heads_split(num_heads: int, tp: int) -> bool:
+    """Whether ``tp`` > 1 model ranks each take whole heads of
+    ``num_heads``: the rule :func:`cache_pspec` cuts a K/V cache's heads
+    by, and by which a GQA layer attends on this rank's K/V heads
+    (``models/common.py::heads_local``)."""
+    return tp > 1 and num_heads % tp == 0
+
+
 # Cache subtrees stacked on a leading layer dim: the decoder stack's
 # period-scanned ``blocks`` and whisper's per-layer ``self`` and ``cross``
 # K/V ((L, B, T, Kv, hd), ``models/encdec.py::init_cache``).
@@ -323,7 +543,7 @@ def cache_pspec(path: Sequence[str], leaf, mesh: Mesh) -> P:
     tp = _axes_size(mesh, model_axes)
     head_dim = {"k": offset + 2, "v": offset + 2, "ssm": offset + 1}.get(
         names[-1] if names else "")
-    if (tp > 1 and head_dim is not None and len(shape) == offset + 4
-            and shape[head_dim] % tp == 0):
+    if (head_dim is not None and len(shape) == offset + 4
+            and heads_split(shape[head_dim], tp)):
         spec[head_dim] = model_axes if len(model_axes) > 1 else model_axes[0]
     return P(*spec)

@@ -607,7 +607,13 @@ class AsyncPS(Topology):
 
 @register_topology
 class Streaming(Topology):
-    """Memory-bounded pass over workers (``train/streaming.py``)."""
+    """Memory-bounded pass over workers (``train/streaming.py``).  With a
+    plan's ``mesh`` (set on the plan: a spec's ``mesh`` is refused here, as
+    the reference's refuses it) this process is one rank of the FSDP form:
+    params and optimizer state are its ``FsdpLayout`` shards across steps
+    (joined for eval and the result), and each step gets its rows of
+    every worker's batch; rank 0 alone evaluates and writes the
+    telemetry."""
 
     name = "streaming"
     attack_allowlist = STREAMING_ATTACKS
@@ -621,19 +627,25 @@ class Streaming(Topology):
         """``init_state`` optionally injects ``(params, opt_state)``."""
         from repro_torch.compress.spec import make_codec
         from repro_torch.faults.injector import make_injector, resolve_quorum
-        from repro_torch.train.streaming import make_streaming_train_step
+        from repro_torch.train.streaming import (data_rows,
+                                                 make_streaming_train_step)
 
         m = plan.num_workers
         dev = plan.device
         codec = make_codec(plan.compress_cfg)
+        mesh = plan.mesh
 
         def build_step(rc, workers=m):
             return make_streaming_train_step(
                 plan.model, robust_cfg=rc, opt_cfg=plan.opt_cfg,
-                num_workers=workers, compress_cfg=plan.compress_cfg)
+                num_workers=workers, compress_cfg=plan.compress_cfg,
+                mesh=mesh)
 
         step_fn = build_step(plan.robust_cfg)
         injector = make_injector(plan.faults, m, plan.seed)
+        if injector is not None and mesh is not None:
+            raise SpecError("streaming cannot drop whole workers on a mesh; "
+                            "run faults without mesh")
         fault_steps: dict = {}      # (m', b', q', q_atk') -> step
         if init_state is not None:
             params, opt_state = init_state[:2]
@@ -641,13 +653,23 @@ class Streaming(Topology):
             params = plan.model.init(
                 torch.Generator(device=dev).manual_seed(plan.seed))
             opt_state = init_opt_state(plan.opt_cfg, params)
+        writer, join = True, (lambda tree: tree)
+        if mesh is not None:
+            from repro_torch.dist.sharding import FsdpLayout
+            layout = FsdpLayout(plan.model.abstract_params(), mesh,
+                                plan.model.tensor_parallel)
+            params, opt_state = layout.shard(params), layout.shard(opt_state)
+            writer, join = mesh.rank == 0, layout.join
         dense_dim = tree_util.size(params) if codec is not None else 0
         history: list = []
         metrics: dict = {}
         t0 = time.time()
-        with make_recorder(plan.telemetry_path, plan.obs) as rec:
+        with make_recorder(plan.telemetry_path if writer else None,
+                           _rank_obs(plan, writer)) as rec:
             for i in range(plan.steps):
                 batch = make_worker_batches(plan.batch_fn(i), m)
+                if mesh is not None:
+                    batch = data_rows(batch, mesh)
                 fr = _fault_round(rec, injector, i)
                 if fr is not None and fr.m_eff < 2:
                     _log_lost_round(rec, fr, i)
@@ -689,9 +711,11 @@ class Streaming(Topology):
                     if fr is not None:
                         row["present"] = int(fr.m_eff)
                     if plan.eval_fn is not None:
-                        row["eval"] = float(plan.eval_fn(params))
+                        whole = join(params)
+                        if writer:
+                            row["eval"] = float(plan.eval_fn(whole))
                     history.append(row)
-                    if plan.verbose:
+                    if plan.verbose and writer:
                         msg = f"step {i:5d}  loss {row['loss']:.4f}"
                         if "eval" in row:
                             msg += f"  eval {row['eval']:.4f}"
@@ -699,6 +723,7 @@ class Streaming(Topology):
             wall = time.time() - t0
             rec.gauge("steps_per_sec", plan.steps / max(wall, 1e-9),
                       topology=self.name)
+        params, opt_state = join(params), join(opt_state)
 
         return ExperimentResult(
             spec=plan.spec, history=history, params=params,

@@ -11,7 +11,9 @@ step of ``train/step.py`` with the hand-written kernels' route (K1 counted
 by its own reckoning, not a sort), the forward for a prefill, and
 ``serve/engine.py::MeshServing``'s decode step against its cache.  Nothing
 is computed, nothing is compiled, and no card is needed.
-``launch/trace_analysis.py::trace_cost`` counts the call.  K6 stays off
+``launch/trace_analysis.py::trace_cost`` counts the call, the
+streaming step's passes over the workers folded as the reference's
+analysis folds its scan (``obs/loops.py::iterations``).  K6 stays off
 (training and the forward take the plain attention) unless
 ``REPRO_FLASH_ATTN=1``, which sends the prefill's self-attention to it, as
 the reference's flag does.
@@ -22,8 +24,15 @@ Each record keeps the reference's keys where they mean the same
 ``trace_s`` stands for ``lower_s``/``compile_s``, ``flops`` and
 ``bytes_accessed`` (the aten count plus the kernels' reckoning) for the
 ``xla_*_raw`` keys, and there are no ``loops`` (trace_analysis's
-docstring).  ``--mode streaming`` is not ported (ROADMAP.md, queue 1): such
-a pair fails with a ``NotImplementedError``.
+docstring).
+
+``--mode streaming`` traces the reference's memory-bounded mode: the
+params (and SGD state) are the rank's FSDP shards
+(``dist/sharding.py::FsdpLayout``, ``param_pspec_fsdp``'s bytes); a
+training pair runs ``train/streaming.py``'s mesh step, every worker in
+turn with its batch rows cut over ``data``, each period's shards gathered
+where they are used; a prefill or decode pair runs the forward or the
+decode step on the same shards.
 
 Usage (CPU or GPU host; no card is used):
   python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k
@@ -48,10 +57,6 @@ from repro_torch.launch import fake
 # long_500k skips: pure full-attention archs (DESIGN.md §4)
 LONG_SKIP = {"granite-8b", "kimi-k2-1t-a32b", "internvl2-26b",
              "whisper-large-v3", "deepseek-v2-lite-16b"}
-
-STREAMING_TODO = ("--mode streaming is not ported: the port has no FSDP "
-                  "streaming step on a mesh (ROADMAP.md, queue 1, the dry "
-                  "run's --mode streaming)")
 
 _WORLD_MESHES = {}
 
@@ -193,8 +198,8 @@ def build_traced(arch, shape, mesh, *, layout: str = "sharded",
     under :func:`fake_tensors`, in the fake world of ``mesh.size`` ranks
     (``fake.init_fake_world``); it refuses a real world.  ``attack`` (an
     ``AttackConfig``, none by default as in the reference) corrupts the
-    training step's worker matrix.  ``mode="streaming"`` raises
-    ``NotImplementedError`` (module docstring)."""
+    training step's worker matrix.  ``mode="streaming"``: the FSDP
+    streaming program of the module docstring."""
     import torch
 
     from repro_torch.configs import get_arch, get_shape
@@ -205,9 +210,7 @@ def build_traced(arch, shape, mesh, *, layout: str = "sharded",
     from repro_torch.optim import OptConfig, init_opt_state
     from repro_torch.serve.engine import MeshServing
     from repro_torch.train.step import make_train_step
-    if mode == "streaming":
-        raise NotImplementedError(STREAMING_TODO)
-    if mode != "vmap":
+    if mode not in ("vmap", "streaming"):
         raise ValueError(f"mode {mode!r}; valid: vmap, streaming")
     if not fake.in_fake_world():
         raise RuntimeError("build_traced traces rank 0 of a fake world "
@@ -218,11 +221,13 @@ def build_traced(arch, shape, mesh, *, layout: str = "sharded",
         raise RuntimeError(f"mesh {dict(mesh.shape)} needs a fake world of "
                            f"{mesh.size} ranks, this one has "
                            f"{dist.get_world_size()}")
-    if attack is not None and not fake.cuda_build():
+    draws = mode == "vmap" or (attack is not None and attack.name.lower()
+                               in ("gaussian", "bitflip", "gambler"))
+    if attack is not None and draws and not fake.cuda_build():
         raise RuntimeError("an attack draws from a CUDA generator "
-                           "(core/robust.py::slice_generator), which a "
-                           "CPU-only torch has not: trace it where torch is "
-                           "built for CUDA")
+                           "(core/robust.py::slice_generator, or the "
+                           "streaming step's), which a CPU-only torch has "
+                           "not: trace it where torch is built for CUDA")
     cfg = get_arch(arch) if isinstance(arch, str) else arch
     shape = get_shape(shape) if isinstance(shape, str) else shape
     model = build_model(cfg, remat=remat)
@@ -230,7 +235,13 @@ def build_traced(arch, shape, mesh, *, layout: str = "sharded",
     m = _worker_size(mesh)
     full = _fake_params(model)
     total, active = _active_params(cfg, full)
-    params = shard_params(full, world)
+    fsdp = None
+    if mode == "streaming":
+        from repro_torch.dist.sharding import FsdpLayout
+        fsdp = FsdpLayout(full, world, model.tensor_parallel)
+        params = fsdp.shard(full)
+    else:
+        params = shard_params(full, world)
     del full
     meta = {"total_params": total, "active_params": active}
     B = shape.global_batch
@@ -240,11 +251,26 @@ def build_traced(arch, shape, mesh, *, layout: str = "sharded",
                               **({} if attack is None else
                                  {"attack": attack}))
         opt_cfg = OptConfig(name="sgd", lr=0.01)
-        step = make_train_step(model, robust_cfg=robust, opt_cfg=opt_cfg,
-                               num_workers=m, mesh=world)
         if B % m:
             raise ValueError(f"{cfg.name}/{shape.name}: batch {B} % m={m}")
         batch = {}
+        if fsdp is not None:
+            from repro_torch.train.streaming import (data_rows,
+                                                     make_streaming_train_step)
+            step = make_streaming_train_step(
+                model, robust_cfg=robust, opt_cfg=opt_cfg, num_workers=m,
+                mesh=world)
+            for k, s in model.input_specs(shape).items():
+                # every worker's rows, cut over data: the reference's
+                # P(None, "data") on the (m, B/m, ...) stack
+                whole = torch.zeros((m, B // m) + s.shape[1:],
+                                    dtype=s.dtype, device="cuda")
+                batch[k] = data_rows({k: whole}, world)[k].clone()
+                del whole
+            args = (params, init_opt_state(opt_cfg, params), batch, 0)
+            return step, args, meta
+        step = make_train_step(model, robust_cfg=robust, opt_cfg=opt_cfg,
+                               num_workers=m, mesh=world)
         for k, s in model.input_specs(shape).items():
             # this rank's worker group, the (m, B/m, ...) stack the step
             # indexes: the reference's P(worker axes) on the stack
@@ -264,7 +290,7 @@ def build_traced(arch, shape, mesh, *, layout: str = "sharded",
 
         def prefill(params, batch):
             with torch.no_grad(), _flash_prefill(), \
-                    use_mesh(world, batch_sharded=sharded):
+                    use_mesh(world, batch_sharded=sharded, fsdp=fsdp):
                 logits, _ = model.forward(params, batch)
             return logits
 
@@ -274,7 +300,7 @@ def build_traced(arch, shape, mesh, *, layout: str = "sharded",
     rows = ms.rows.stop - ms.rows.start
     cache = ms.cache(B, shape.seq_len, "cuda")
     tokens = torch.zeros((rows, 1), dtype=torch.int32, device="cuda")
-    step = ms.step()
+    step = ms.step(fsdp=fsdp)
 
     def decode(params, cache, tokens, pos):
         with torch.no_grad():
@@ -309,7 +335,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool, layout: str,
                                           remat=remat, mode=mode)
             rec.update(meta)
             t1 = time.time()
-            cost = trace_cost(fn, *args)
+            cost = trace_cost(fn, *args, fold_loops=True)
             del fn, args
         rec["trace_s"] = time.time() - t1
         rec["flops"] = cost["flops"]

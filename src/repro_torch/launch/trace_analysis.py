@@ -36,6 +36,9 @@ once under PyTorch dispatch modes, which see every aten op and every
 There are no ``loops``: the reference recovers while-loop trip counts
 because XLA's cost analysis counts a loop body once; an eager trace runs
 every layer's ops as they come, so there is no trip count to recover.
+With ``fold_loops``, a loop that runs through ``obs/loops.py::
+iterations`` (the streaming step's passes over the workers) is traced
+folded, as the reference's scan is analysed (that module's docstring).
 """
 from __future__ import annotations
 
@@ -43,6 +46,8 @@ import weakref
 from typing import Dict
 
 import torch
+
+from repro_torch.obs.loops import folding
 
 COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
                     "all-to-all", "collective-permute")
@@ -118,6 +123,19 @@ def _count_mode():
         def _free(self, key) -> None:
             self.live -= self._held.pop(key, 0)
 
+        def totals(self) -> tuple:
+            return (self.bytes, self.writes, dict(self.coll_bytes),
+                    dict(self.coll_counts))
+
+        def add(self, before: tuple, times: int) -> None:
+            """Count what was counted since ``before`` ``times`` more."""
+            b, w, cb, cc = before
+            self.bytes += times * (self.bytes - b)
+            self.writes += times * (self.writes - w)
+            for k in COLLECTIVE_KINDS:
+                self.coll_bytes[k] += times * (self.coll_bytes[k] - cb[k])
+                self.coll_counts[k] += times * (self.coll_counts[k] - cc[k])
+
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             name = f"{func._opname}.{func._overloadname}"
@@ -138,22 +156,47 @@ def _count_mode():
     return Count()
 
 
-def trace_cost(fn, *args, **kwargs) -> Dict:
+class _Folds:
+    """The counters a folded loop repeats (``obs/loops.py::iterations``)."""
+
+    def __init__(self, flops, count, kernels, calls):
+        self.flops, self.count, self.kernels, self.calls = (
+            flops, count, kernels, calls)
+        self.extra_flops = 0
+
+    def snapshot(self) -> tuple:
+        return (self.flops.get_total_flops(), self.count.totals(),
+                dict(self.kernels), len(self.calls))
+
+    def repeat(self, before: tuple, times: int) -> None:
+        flops, counts, kernels, ncalls = before
+        self.extra_flops += times * (self.flops.get_total_flops() - flops)
+        self.count.add(counts, times)
+        for k in ("flops", "bytes"):
+            self.kernels[k] += times * (self.kernels[k] - kernels[k])
+        self.calls.extend(self.calls[ncalls:] * times)
+
+
+def trace_cost(fn, *args, fold_loops: bool = False, **kwargs) -> Dict:
     """Call ``fn(*args, **kwargs)`` once under the counters and return its
-    costs (the module docstring's keys); the output is dropped."""
+    costs (the module docstring's keys); the output is dropped.
+    ``fold_loops``: trace the loops of ``obs/loops.py::iterations``
+    folded."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.kernels.build import counting_costs
     calls = []
     with counting_costs(calls) as kernels, \
             FlopCounterMode(display=False) as flops, _count_mode() as count:
+        folds = _Folds(flops, count, kernels, calls)
         count.hold(_tensors((args, kwargs)))
         arguments = count.live
-        out = fn(*args, **kwargs)
+        with folding(folds if fold_loops else None):
+            out = fn(*args, **kwargs)
         output_bytes = storage_bytes(out)
         del out
     coll = dict(count.coll_bytes)
-    dot = float(flops.get_total_flops())
+    dot = float(flops.get_total_flops() + folds.extra_flops)
     return {"dot_flops": dot,
             "flops": dot + kernels["flops"],
             "bytes_accessed": float(count.bytes + kernels["bytes"]),

@@ -38,11 +38,16 @@ Megatron operators), and the vocab-sharded ``table`` is looked up on this
 rank's rows and summed.  Attention (the decoders', whisper's encoder, self-
 and cross-attention) runs on this rank's heads when every q and KV column
 block falls on head boundaries (``H % tp == 0`` and ``Kv % tp == 0``, so
-every GQA group stays whole); otherwise the blocks are gathered and every
-rank attends over all heads, which gives the values of the reference's
-padded-heads branch.  The Mamba2 block runs on this rank's SSD heads
-(``models/ssm.py``).  A whole leaf (``tree_pspecs`` replicates a dim that
-does not divide) computes whole.  A tensor that every model rank holds
+every GQA group stays whole).  Otherwise, on S > 1 query positions, it
+follows the reference's padded-heads branch (:func:`head_mode`): each
+rank attends over its block of the q heads (padded to a multiple of the
+model axes, none for the padding) with the K/V heads those read, and the
+blocks are gathered along the heads, or, where only the K/V heads do not
+split, feed ``wo``'s row block; a decode step (S == 1) gathers the blocks
+and every rank attends over all heads.  The Mamba2 block runs on this
+rank's SSD heads (``models/ssm.py``).  A whole leaf (``tree_pspecs``
+replicates a dim that does not divide) computes whole.  A tensor that
+every model rank holds
 whole and each rank uses a part of (a per-head leaf such as ``A_log``, a
 gathered projection) goes through ``copy_to_model``, so that its
 gradient is the sum of the parts'.
@@ -75,6 +80,7 @@ import torch.nn.functional as F
 
 from repro_torch.dist import collectives as coll
 from repro_torch.dist.mesh import ambient, ambient_as, model_axes
+from repro_torch.dist.sharding import heads_split
 
 # Query-chunk length for attention: bounds the live (B,H,qc,T) score tensor.
 ATTN_QUERY_CHUNK = 1024
@@ -172,6 +178,60 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Inside (the full remat's backward recompute), a product marked
+    ``unread`` (:func:`row_linear`) yields no computed output: its value is
+    read by nothing in the backward pass, so only its gradient is formed."""
+    prev = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
+
+
+class _UnreadProduct(torch.autograd.Function):
+    """``h @ w``, or with ``axes`` its sum over them (reduce-scattered
+    along dim -2 when ``seq``), whose value nothing reads: forward a zero
+    stand-in of the output's shape (no product, no collective); backward
+    the product's gradient, as :func:`row_linear`'s autograd gives it."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(h, w, axes, seq):
+        shape = h.shape[:-1] + (w.shape[-1],)
+        if seq:
+            shape = shape[:-2] + (shape[-2] // coll.axis_size(axes),
+                                  shape[-1])
+        return h.new_zeros(()).expand(shape)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        h, w, axes, seq = inputs
+        ctx.axes, ctx.seq = axes, seq
+        ctx.save_for_backward(h, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        if ctx.seq:
+            g = coll.gather_from_model(g, ctx.axes, -2)
+        gh = g @ w.transpose(-1, -2)
+        gw = (h.reshape(-1, h.shape[-1]).transpose(0, 1)
+              @ g.reshape(-1, g.shape[-1]))
+        return gh, gw, None, None
+
+
+def _dead(unread: bool) -> bool:
+    """Whether an ``unread`` product yields :class:`_UnreadProduct`'s
+    stand-in: inside :func:`recomputing`."""
+    return unread and getattr(_RECOMPUTE, "on", False)
+
+
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -226,20 +286,28 @@ def col_linear(p: dict, x, xc, n: int, *, keep_block: bool = False):
     return y if keep_block else coll.gather_from_model(y, block_axes(), -1)
 
 
-def row_linear(p: dict, h, n: int):
+def row_linear(p: dict, h, n: int, *, unread: bool = False):
     """``h @ w`` of a row-parallel leaf of ``n`` whole input features.  A
     block sums its partial output over the model axes (with the sequence
     sharded, reduce-scatters it along the sequence, dim -2): ``h`` is
     this rank's block of the input, or the whole input, of which it takes
-    this rank's columns (through ``copy_to_model``)."""
+    this rank's columns (through ``copy_to_model``).  ``unread``: the
+    output is a remat period's last, which only a residual add reads, so
+    the full remat's recompute forms only its gradient
+    (:func:`recomputing`)."""
     if not is_block(p, n, -2):
+        if _dead(unread):
+            return _UnreadProduct.apply(h, p["w"], (), False)
         return linear(p, h)
     axes = block_axes()
     if h.shape[-1] == n:
         rows = p["w"].shape[-2]
         i = coll.worker_slice_index(axes)
         h = coll.copy_to_model(h, axes)[..., i * rows:(i + 1) * rows]
-    if seq_axes():
+    seq = bool(seq_axes())
+    if _dead(unread):
+        return _UnreadProduct.apply(h, p["w"], tuple(axes), seq)
+    if seq:
         return coll.reduce_scatter_to_model(linear(p, h), axes, -2)
     return coll.reduce_from_model(linear(p, h), axes)
 
@@ -251,14 +319,129 @@ def model_copy(x):
 
 def heads_local(p: dict, cfg) -> bool:
     """Whether a GQA layer's ``wq``/``wk``/``wv`` are all blocks that
-    fall on head boundaries, so that it attends on this rank's heads."""
+    fall on head boundaries, so that it attends on this rank's heads and
+    its K/V cache holds this rank's K/V heads: the K/V heads split
+    (``dist/sharding.py::heads_split``, the rule ``cache_pspec`` cuts a
+    cache by), and then the q heads do too."""
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     blocks = [is_block(p[n], w) for n, w in
               (("wq", H * hd), ("wk", Kv * hd), ("wv", Kv * hd))]
     if not all(blocks):
         return False
-    tp = coll.axis_size(block_axes())
-    return H % tp == 0 and Kv % tp == 0
+    return heads_split(Kv, coll.axis_size(block_axes()))
+
+
+def head_mode(p: dict, cfg, S: int) -> str:
+    """How a GQA layer of ``S`` query positions attends on a mesh, after
+    the reference's padded-heads branch ("§Perf H1"):
+
+    - "whole": no model axis, or a decode step (S == 1) whose heads do not
+      split: the blocks are gathered and every rank attends over all
+      heads (the reference keeps decode replicated too);
+    - "local": :func:`heads_local`, every rank on its q and K/V heads;
+    - "kv": only the K/V heads do not split (granite-8b's 32/8 on 16
+      ranks): a rank attends over its q heads (``wq``'s head-aligned
+      block) with the K/V heads that their groups read, and ``wo`` stays
+      row-parallel over those heads;
+    - "pad": the q heads do not split (S > 1): a rank attends over its
+      block of the heads padded to a multiple of the model axes (none for
+      the padding), and the blocks are gathered along the heads.
+
+    q, k and v are projected on the blocks and their outputs gathered
+    where a mode needs them whole: a projection's cost is small beside the
+    S² attention that the modes share out."""
+    axes = model_axes()
+    tp = coll.axis_size(axes)
+    if tp <= 1:
+        return "whole"
+    if heads_local(p, cfg):
+        return "local"
+    if S == 1 or heads_split(cfg.num_kv_heads, tp):
+        return "whole"          # whole leaves of heads that split
+    H, hd = cfg.num_heads, cfg.head_dim
+    if (H % tp == 0 and is_block(p["wq"], H * hd)
+            and is_block(p["wo"], H * hd, -2)):
+        return "kv"
+    return "pad"
+
+
+def _kv_for(t, lo: int, hi: int, H: int):
+    """The K/V heads of ``t`` (B, T, Kv, hd) that q heads lo..hi-1 of
+    ``H`` read: a slice when those q heads fall into equal groups (GQA),
+    else each q head's K/V head (MHA)."""
+    rep = H // t.shape[2]
+    idx = [h // rep for h in range(lo, hi)]
+    if not idx:
+        return t[:, :, :0]
+    a, b = idx[0], idx[-1] + 1
+    if all(idx.count(j) == len(idx) // (b - a) for j in range(a, b)):
+        return t[:, :, a:b]
+    heads = torch.arange(lo, hi, device=t.device) // rep
+    return t.index_select(2, heads)
+
+
+def mesh_attention(mode: str, cfg, q, k, v, q_pos, k_pos, **kw):
+    """:func:`attention_core` on the heads that ``mode``
+    (:func:`head_mode`) gives this rank; returns (B, Sq, heads, hd): this
+    rank's q heads in "local" and "kv" (for ``wo``'s row block), all H
+    heads otherwise.  ``q`` holds this rank's heads in "local" and "kv",
+    all of them otherwise; ``k``/``v`` this rank's K/V heads in "local",
+    all of them otherwise."""
+    if mode in ("local", "whole"):
+        return attention_core(q, k, v, q_pos, k_pos, **kw)
+    axes = block_axes()
+    tp, i = coll.axis_size(axes), coll.worker_slice_index(axes)
+    H = cfg.num_heads
+    n = -(-H // tp)                         # heads a rank, padding included
+    lo, hi = min(i * n, H), min((i + 1) * n, H)
+    if q.shape[2] == H:
+        # every rank uses its part of the whole q, k and v: their
+        # gradients are summed over the model axes (copy_to_model)
+        q = coll.copy_to_model(q, axes)[:, :, lo:hi]
+    k, v = (_kv_for(coll.copy_to_model(t, axes), lo, hi, H) for t in (k, v))
+    if hi > lo:
+        out = attention_core(q, k, v, q_pos, k_pos, **kw)
+    else:
+        # padding alone: nothing to attend; the empty parts still reach
+        # the output, so every rank's backward issues the same collectives
+        out = q + (k.sum() + v.sum()).to(q.dtype)
+    if mode == "kv":
+        return out
+    out = F.pad(out, (0, 0, 0, n - out.shape[2]))
+    return coll.gather_from_model(out, axes, 2)[:, :, :H]
+
+
+# ---------------------------------------------------------------------------
+# FSDP shards, gathered on use
+# ---------------------------------------------------------------------------
+
+def _fsdp():
+    am = ambient()
+    return None if am is None else am.fsdp
+
+
+def gathered(tree, path: str, period: Optional[int] = None):
+    """The params subtree ``tree`` at ``path`` as the layers compute on
+    it: where the ambient mesh holds an FSDP layout, its shards gathered
+    (period ``period`` of a stacked subtree, from :func:`period_of`),
+    else ``tree`` itself.  Called where the leaves are used, inside a
+    remat period's function, so that the recompute gathers again."""
+    layout = _fsdp()
+    return tree if layout is None else layout.gather(tree, path, period)
+
+
+def period(tree, i: int):
+    """Period ``i`` of a stacked tree, as views."""
+    from repro_torch import tree as tree_util
+    return tree_util.map(lambda x: x[i], tree)
+
+
+def period_of(tree, path: str, i: int):
+    """Period ``i`` of the stacked params subtree ``tree`` at ``path``, as
+    views: of its FSDP shards where the ambient mesh holds a layout."""
+    layout = _fsdp()
+    return period(tree, i) if layout is None else layout.period(tree, path,
+                                                                  i)
 
 
 # ---------------------------------------------------------------------------
@@ -393,10 +576,12 @@ def attention_core(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     flash = flash or getattr(_FLASH, "on", False)
     if (flash and q.is_cuda and causal and Sq > 1 and Sq == k.shape[1]
             and q.is_floating_point()):
-        # self-attention prefill (q_pos == k_pos == arange)
+        # self-attention prefill (q_pos == k_pos == arange); a rank's head
+        # block on a mesh may be a slice of the whole heads
         from repro_torch.kernels.ops import flash_attention
-        return flash_attention(q, k, v, causal=True, window=window, cap=cap,
-                               scale=scale)
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True, window=window,
+                               cap=cap, scale=scale)
     if Sq <= chunk or Sq % chunk != 0:
         return _attend(q, k, v, q_pos, k_pos, causal=causal, window=window,
                        cap=cap, scale=scale)
@@ -466,18 +651,22 @@ def _cache_positions(size: int, pos: int, window: Optional[int],
 
 
 def gqa_qkv(p, cfg, x):
-    """q, k, v of a GQA layer as (B, S, heads, hd), with the head counts:
-    this rank's heads when every block is head-aligned (and the k/v of a
-    sharded cache), all of them otherwise (blocks gathered)."""
+    """q, k, v of a GQA layer as (B, S, heads, hd) and its
+    :func:`head_mode`: q holds this rank's heads in "local" and "kv"
+    (``wq``'s head-aligned block), all of them otherwise; k and v this
+    rank's K/V heads in "local" (and the k/v of a sharded cache), all of
+    them otherwise (blocks gathered)."""
     B, S, d = x.shape
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xc = model_copy(x)
-    local = heads_local(p, cfg)
-    q = col_linear(p["wq"], x, xc, H * hd, keep_block=local)
+    mode = head_mode(p, cfg, S)
+    local = mode == "local"
+    q = col_linear(p["wq"], x, xc, H * hd,
+                   keep_block=mode in ("local", "kv"))
     k = col_linear(p["wk"], x, xc, Kv * hd, keep_block=local)
     v = col_linear(p["wv"], x, xc, Kv * hd, keep_block=local)
     return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
-            v.reshape(B, S, -1, hd))
+            v.reshape(B, S, -1, hd), mode)
 
 
 def attention_block(p, cfg, x, *, positions, window, cache=None):
@@ -487,13 +676,14 @@ def attention_block(p, cfg, x, *, positions, window, cache=None):
     written in place and returned.  On a mesh the cache holds this rank's
     KV heads when they are sharded (``cache_pspec``)."""
     B, S, d = x.shape
-    q, k, v = gqa_qkv(p, cfg, x)
+    q, k, v, mode = gqa_qkv(p, cfg, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = attention_core(q, k, v, positions, positions, causal=True,
-                             window=window, cap=cfg.attn_logit_softcap)
+        out = mesh_attention(mode, cfg, q, k, v, positions, positions,
+                             causal=True, window=window,
+                             cap=cfg.attn_logit_softcap)
     else:
         size = cache["k"].shape[1]
         # the write offset (decode: the step) and the newest position now
@@ -508,10 +698,10 @@ def attention_block(p, cfg, x, *, positions, window, cache=None):
         # slots alone is the same softmax, and a self-attention the
         # flash-attention kernel takes (Sq == T).
         T = S if start == 0 and S > 1 else size
-        out = attention_core(q, cache["k"][:, :T], cache["v"][:, :T],
-                             positions, k_pos[:T], causal=True,
-                             window=window, cap=cfg.attn_logit_softcap,
-                             flash=True)
+        out = mesh_attention(mode, cfg, q, cache["k"][:, :T],
+                             cache["v"][:, :T], positions, k_pos[:T],
+                             causal=True, window=window,
+                             cap=cfg.attn_logit_softcap, flash=True)
     H, hd = cfg.num_heads, cfg.head_dim
     return row_linear(p["wo"], out.reshape(B, S, -1), H * hd), cache
 
@@ -731,13 +921,15 @@ def init_mlp(gen: torch.Generator, cfg, d_ff: Optional[int] = None,
     }
 
 
-def mlp_block(p, x: torch.Tensor, d_ff: Optional[int] = None
-              ) -> torch.Tensor:
+def mlp_block(p, x: torch.Tensor, d_ff: Optional[int] = None, *,
+              unread: bool = False) -> torch.Tensor:
     """The GLU MLP; given its whole hidden width ``d_ff``, leaves cut on it
-    compute tensor-parallel (``wi``/``wg`` column, ``wo`` row)."""
+    compute tensor-parallel (``wi``/``wg`` column, ``wo`` row).
+    ``unread``: ``wo``'s output is read by a residual add alone
+    (:func:`row_linear`)."""
     if d_ff is None or not is_block(p["wi"], d_ff):
-        return linear(p["wo"], F.silu(linear(p["wg"], x))
-                      * linear(p["wi"], x))
+        h = F.silu(linear(p["wg"], x)) * linear(p["wi"], x)
+        return row_linear(p["wo"], h, h.shape[-1], unread=unread)
     xc = model_copy(x)
     h = F.silu(linear(p["wg"], xc)) * linear(p["wi"], xc)
-    return row_linear(p["wo"], h, d_ff)
+    return row_linear(p["wo"], h, d_ff, unread=unread)

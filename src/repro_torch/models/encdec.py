@@ -22,7 +22,8 @@ On a mesh the layers compute tensor-parallel on this rank's blocks, as the
 decoders of ``models/common.py`` do: ``frontend_proj`` is column-parallel
 (its output gathered), the encoder's self-attention, the decoder's self-
 and cross-attention run on this rank's heads (the cross-attention K/V of
-:func:`prefill_cache` and of the cache too), the GLU MLPs split their
+:func:`prefill_cache` and of the cache too; heads the model axes do not
+split take ``models/common.py::head_mode``'s paths), the GLU MLPs split their
 hidden width, the vocab-sharded table is looked up on this rank's rows and
 ``lm_head`` gives vocab blocks of the logits, gathered before the loss;
 a leaf that ``tree_pspecs`` leaves whole computes whole.
@@ -88,28 +89,29 @@ def init(gen: torch.Generator, cfg) -> dict:
     }
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a layer-stacked tree, as views."""
-    return tree_util.map(lambda x: x[i], tree)
-
-
-def _scan(body, x, layers, n: int, remat: str, *consts):
-    """``x = body(x, layer_i, *consts)`` for i < n; each layer recomputed in
-    the backward pass unless ``remat`` is "none"."""
+def _scan(body, x, layers, n: int, remat: str, *consts, path: str):
+    """``x = body(x, layer_i, *consts)`` for i < n over the layer-stacked
+    params at ``path``; each layer recomputed in the backward pass unless
+    ``remat`` is "none", its FSDP shards gathered inside."""
     if remat not in REMAT_MODES:
         raise ValueError(f"remat {remat!r}; valid: {REMAT_MODES}")
-    like, k = tree_util.map(lambda _: None, _layer(layers, 0)), len(consts)
+    k = len(consts)
 
-    def fn(x, *args):
-        p = tree_util.unflatten(like, list(args[k:]))
-        return body(x, p, *args[:k]), torch.zeros((), device=x.device)
+    def fn_of(like, i):
+        def fn(x, *args):
+            p = C.gathered(tree_util.unflatten(like, list(args[k:])), path, i)
+            return body(x, p, *args[:k]), torch.zeros((), device=x.device)
+        return fn
 
     for i in range(n):
-        lp = _layer(layers, i)
+        lp = C.period_of(layers, path, i)
         if remat == "none":   # aliases, or the modes' grads are not bit-equal
-            x = body(x, lp, *(c.view_as(c) for c in consts))
+            x = body(x, C.gathered(lp, path, i),
+                     *(c.view_as(c) for c in consts))
         else:
-            x, _ = checkpointed(fn, x, *consts, *tree_util.leaves(lp))
+            like = tree_util.map(lambda _: None, lp)
+            x, _ = checkpointed(fn_of(like, i), x, *consts,
+                                *tree_util.leaves(lp))
     return x
 
 
@@ -119,9 +121,9 @@ def _scan(body, x, layers, n: int, remat: str, *consts):
 
 def _enc_attn(p, cfg, x):
     B, S, d = x.shape
-    q, k, v = C.gqa_qkv(p, cfg, x)
+    q, k, v, mode = C.gqa_qkv(p, cfg, x)
     pos = torch.arange(S, device=x.device)
-    out = C.attention_core(q, k, v, pos, pos, causal=False)
+    out = C.mesh_attention(mode, cfg, q, k, v, pos, pos, causal=False)
     return C.row_linear(p["wo"], out.reshape(B, S, -1),
                         cfg.num_heads * cfg.head_dim)
 
@@ -130,19 +132,20 @@ def _enc_layer(x, lp, cfg):
     h = C.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     x = x + _enc_attn(lp["attn"], cfg, h)
     h = C.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + C.mlp_block(lp["mlp"], h, cfg.d_ff)
+    return x + C.mlp_block(lp["mlp"], h, cfg.d_ff, unread=True)
 
 
 def encode(params, cfg, audio_embeds, *, remat: str = "none"
            ) -> torch.Tensor:
     """(B, F, frontend_dim) -> (B, F, d_model)."""
     a = audio_embeds.to(C.dtype_of(cfg))
-    x = C.col_linear(params["frontend_proj"], a, C.model_copy(a),
-                     cfg.d_model)
+    x = C.col_linear(C.gathered(params["frontend_proj"], "frontend_proj"),
+                     a, C.model_copy(a), cfg.d_model)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)
     x = _scan(lambda x, lp: _enc_layer(x, lp, cfg), x, params["enc"],
-              cfg.encoder_layers, remat)
-    return C.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+              cfg.encoder_layers, remat, path="enc")
+    return C.rmsnorm(C.gathered(params["enc_norm"], "enc_norm"), x,
+                     cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -151,14 +154,18 @@ def encode(params, cfg, audio_embeds, *, remat: str = "none"
 
 def _cross_attn(p, cfg, x, enc_kv):
     """Cross-attention of ``x`` to ``enc_kv``, which holds this rank's KV
-    heads when the layer's heads are local (:func:`_cross_kv`)."""
+    heads when the layer's heads are local (:func:`_cross_kv`); the q
+    heads as ``models/common.py::head_mode`` gives them to this rank."""
     B, S, d = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
+    mode = C.head_mode(p, cfg, S)
     q = C.col_linear(p["wq"], x, C.model_copy(x), H * hd,
-                     keep_block=C.heads_local(p, cfg)).reshape(B, S, -1, hd)
+                     keep_block=mode in ("local", "kv")
+                     ).reshape(B, S, -1, hd)
     k, v = enc_kv
     T = k.shape[1]
-    out = C.attention_core(q, k, v, torch.arange(S, device=x.device),
+    out = C.mesh_attention(mode, cfg, q, k, v,
+                           torch.arange(S, device=x.device),
                            torch.arange(T, device=x.device), causal=False)
     return C.row_linear(p["wo"], out.reshape(B, S, -1), H * hd)
 
@@ -171,7 +178,7 @@ def _dec_layer(lp, cfg, x, enc_kv, *, positions, cache=None):
     h = C.rmsnorm(lp["ln_x"], x, cfg.norm_eps)
     x = x + _cross_attn(lp["cross_attn"], cfg, h, enc_kv)
     h = C.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + C.mlp_block(lp["mlp"], h, cfg.d_ff)
+    return x + C.mlp_block(lp["mlp"], h, cfg.d_ff, unread=True)
 
 
 def _cross_kv(lp, cfg, enc_out):
@@ -189,24 +196,26 @@ def _cross_kv(lp, cfg, enc_out):
 def forward(params, cfg, batch, *, remat: str = "none"):
     """Full enc-dec training forward -> (logits (B,S,V) f32, aux = 0)."""
     enc_out = encode(params, cfg, batch["audio_embeds"], remat=remat)
-    x = (C.embed(params["embed"], batch["tokens"], cfg.vocab_size)
-         * math.sqrt(cfg.d_model))
+    x = (C.embed(C.gathered(params["embed"], "embed"), batch["tokens"],
+                 cfg.vocab_size) * math.sqrt(cfg.d_model))
 
     def body(x, lp, enc_out):
         positions = torch.arange(x.shape[1], device=x.device)
         return _dec_layer(lp, cfg, x, _cross_kv(lp, cfg, enc_out),
                           positions=positions)
 
-    x = _scan(body, x, params["dec"], cfg.num_layers, remat, enc_out)
+    x = _scan(body, x, params["dec"], cfg.num_layers, remat, enc_out,
+              path="dec")
     logits = _logits(params, cfg, x)
     return logits, torch.zeros((), device=logits.device)
 
 
 def _logits(params, cfg, x) -> torch.Tensor:
     """f32 logits of the decoder's output, every vocab block gathered."""
-    x = C.rmsnorm(params["dec_norm"], x, cfg.norm_eps)
-    return C.col_linear(params["lm_head"], x, C.model_copy(x),
-                        cfg.vocab_size).float()
+    x = C.rmsnorm(C.gathered(params["dec_norm"], "dec_norm"), x,
+                  cfg.norm_eps)
+    return C.col_linear(C.gathered(params["lm_head"], "lm_head"), x,
+                        C.model_copy(x), cfg.vocab_size).float()
 
 
 def loss_fn(params, cfg, batch, *, remat: str = "none") -> torch.Tensor:
@@ -236,7 +245,8 @@ def prefill_cache(params, cfg, cache, audio_embeds):
     """Run the encoder and put every decoder layer's cross-attention K/V
     into ``cache["cross"]``; returns the same cache."""
     enc_out = encode(params, cfg, audio_embeds)
-    kv = [_cross_kv(_layer(params["dec"], i), cfg, enc_out)
+    kv = [_cross_kv(C.gathered(C.period_of(params["dec"], "dec", i), "dec",
+                               i), cfg, enc_out)
           for i in range(cfg.num_layers)]
     cache["cross"] = {"k": torch.stack([k for k, _ in kv]),
                       "v": torch.stack([v for _, v in kv])}
@@ -247,13 +257,14 @@ def decode_step(params, cfg, cache, tokens, pos):
     """One decoder token (tokens (B,1), pos an int) against the cached
     self/cross KV; the self-attention cache is written in place.  Returns
     (logits (B,1,V) f32, cache)."""
-    x = C.embed(params["embed"], tokens, cfg.vocab_size) * math.sqrt(
-        cfg.d_model)
+    x = C.embed(C.gathered(params["embed"], "embed"), tokens,
+                cfg.vocab_size) * math.sqrt(cfg.d_model)
     positions = C.step_positions(pos, tokens.device)
     sk, sv = cache["self"]["k"], cache["self"]["v"]
     xk, xv = cache["cross"]["k"], cache["cross"]["v"]
     for i in range(cfg.num_layers):
-        x = _dec_layer(_layer(params["dec"], i), cfg, x, (xk[i], xv[i]),
+        lp = C.gathered(C.period_of(params["dec"], "dec", i), "dec", i)
+        x = _dec_layer(lp, cfg, x, (xk[i], xv[i]),
                        positions=positions,
                        cache={"k": sk[i], "v": sv[i]})
     return _logits(params, cfg, x), cache

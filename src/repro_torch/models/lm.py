@@ -20,6 +20,10 @@ On a mesh every family's layers compute on this rank's blocks
 which are gathered before the final softcap, so the loss and the argmax
 see every logit; the VLM projector's ``fc1`` is column-parallel and its
 ``fc2`` row-parallel, the tanh GELU between them on this rank's block.
+In the FSDP streaming step the params are shards, gathered into those
+blocks where they are used (``models/common.py::gathered``): the
+embedding table at the lookup and again at a tied head, the final norm,
+the head and the projector, the stack's layers a period at a time.
 """
 from __future__ import annotations
 
@@ -50,15 +54,15 @@ def init(gen: torch.Generator, cfg) -> dict:
 
 
 def _embed_tokens(params, cfg, tokens) -> torch.Tensor:
-    return (C.embed(params["embed"], tokens, cfg.vocab_size)
-            * math.sqrt(cfg.d_model))
+    return (C.embed(C.gathered(params["embed"], "embed"), tokens,
+                    cfg.vocab_size) * math.sqrt(cfg.d_model))
 
 
 def _embed_inputs(params, cfg, batch) -> torch.Tensor:
     x = _embed_tokens(params, cfg, batch["tokens"])
     if cfg.num_patches:
         pe = batch["patch_embeds"].to(x.dtype)
-        pj = params["projector"]
+        pj = C.gathered(params["projector"], "projector")
         h = C.col_linear(pj["fc1"], pe, C.model_copy(pe), cfg.d_model,
                          keep_block=True)
         proj = C.row_linear(pj["fc2"], F.gelu(h, approximate="tanh"),
@@ -68,14 +72,15 @@ def _embed_inputs(params, cfg, batch) -> torch.Tensor:
 
 
 def _logits(params, cfg, x) -> torch.Tensor:
-    x = C.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = C.rmsnorm(C.gathered(params["final_norm"], "final_norm"), x,
+                  cfg.norm_eps)
     if cfg.tie_embeddings:
-        table = params["embed"]["table"]
+        table = C.gathered(params["embed"], "embed")["table"]
         logits = C.col_linear({"w": table.T}, x, C.model_copy(x),
                               cfg.vocab_size)
     else:
-        logits = C.col_linear(params["lm_head"], x, C.model_copy(x),
-                              cfg.vocab_size)
+        logits = C.col_linear(C.gathered(params["lm_head"], "lm_head"), x,
+                              C.model_copy(x), cfg.vocab_size)
     return C.softcap(logits.float(), cfg.final_logit_softcap)
 
 

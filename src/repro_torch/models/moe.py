@@ -144,8 +144,10 @@ def _moe_ffn(p, cfg, xt: torch.Tensor):
     return out, aux
 
 
-def moe_block(p, cfg, x: torch.Tensor):
-    """x: (B,S,d) -> (out (B,S,d), aux_loss scalar)."""
+def moe_block(p, cfg, x: torch.Tensor, *, unread: bool = False):
+    """x: (B,S,d) -> (out (B,S,d), aux_loss scalar).  ``unread``: the
+    shared experts' output is summed into an output that a residual add
+    alone reads (``models/common.py::row_linear``)."""
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     g = data_axis_size() if grouping_enabled() else 0
@@ -171,5 +173,6 @@ def moe_block(p, cfg, x: torch.Tensor):
         out, aux = _moe_ffn(p, cfg, xt)
     if "shared" in p:
         out = out + mlp_block(p["shared"], xt,
-                              cfg.d_ff * cfg.num_shared_experts)
+                              cfg.d_ff * cfg.num_shared_experts,
+                              unread=unread)
     return out.reshape(B, S, d), aux

@@ -205,10 +205,13 @@ def _gated_norm(p, y: torch.Tensor, eps: float, d_inner: int, axes
             * p["scale"].float()).to(y.dtype)
 
 
-def mamba_block(p, cfg, x, *, cache: Optional[dict] = None):
+def mamba_block(p, cfg, x, *, cache: Optional[dict] = None,
+                unread: bool = False):
     """Mamba2 block.  Training/prefill when cache is None; one decode step
     (S == 1) otherwise, which writes the conv history and the SSM state into
-    ``cache`` in place.  Returns (out (B,S,d), cache).
+    ``cache`` in place.  Returns (out (B,S,d), cache).  ``unread``:
+    ``out_proj``'s output is read by a residual add alone
+    (``models/common.py::row_linear``).
 
     On a mesh whose model axes divide the heads, the block runs
     head-parallel: ``in_proj``'s column block (cut over the packed z | x |
@@ -288,10 +291,11 @@ def mamba_block(p, cfg, x, *, cache: Optional[dict] = None):
     y = y * F.silu(z.float())
     if axes is None:
         y = C.rmsnorm(p["norm"], y.to(x.dtype), cfg.norm_eps)
-        return C.row_linear(p["out_proj"], y, d_inner), cache
+        return C.row_linear(p["out_proj"], y, d_inner,
+                            unread=unread), cache
     scale = coll.copy_to_model(p["norm"]["scale"], axes)[lo:hi]
     y = _gated_norm({"scale": scale}, y.to(x.dtype), cfg.norm_eps, d_inner,
                     axes)
     # the model axes divide the heads, so tree_pspecs cut out_proj's
     # d_inner rows: its block is exactly this rank's heads
-    return C.row_linear(p["out_proj"], y, d_inner), cache
+    return C.row_linear(p["out_proj"], y, d_inner, unread=unread), cache

@@ -16,10 +16,16 @@ saved-tensor hooks), so a period is a ``torch.autograd.Function``
 (:class:`_RematPeriod`, also used through :func:`checkpointed` by the
 enc-dec layers) whose backward recomputes it through
 ``torch.func.vjp``; ``generate_vmap_rule`` lets the worker ``vmap`` of the
-train step batch it.  "full" keeps only the period's input; "dots" also
-keeps the output of every ``linear`` product, the products without batch
-dimensions that ``dots_with_no_batch_dims_saveable`` saves, and recomputes
-the rest (``models/common.py::record_dots``).
+train step batch it.  "full" keeps only the period's input, and its
+recompute forms no output that nothing reads: the period's last product,
+which only the residual add reads (its gradient formed by hand,
+``models/common.py::recomputing``), as XLA drops that recompute; "dots"
+also keeps the output of every ``linear`` product, the products without
+batch dimensions that ``dots_with_no_batch_dims_saveable`` saves, and
+recomputes the rest (``models/common.py::record_dots``).  Where the params
+are FSDP shards (the streaming step on a mesh) each period gathers its
+leaves inside the function the remat recomputes, so the recompute gathers
+them again and no period's gathered leaves outlive it.
 
 On a mesh a period's layers issue collectives over the model axes
 (``models/common.py``); the remat backward's recompute issues them a
@@ -103,14 +109,17 @@ def init_layer_cache(cfg, batch: int, max_len: int, window, lead: tuple = (),
     return cache
 
 
-def _ffn(p, cfg, x):
-    """The FFN half of a layer; returns (x, aux)."""
+def _ffn(p, cfg, x, unread: bool = False):
+    """The FFN half of a layer; returns (x, aux).  ``unread``: its last
+    product's output reaches the layer's output through the residual add
+    alone (no post-norm)."""
     h = C.seq_enter(C.seq_norm(p["ln2"], x, cfg.norm_eps))
+    unread = unread and not cfg.use_post_norms
     if cfg.is_moe:
         with C.whole_sequence():
-            f, aux = M.moe_block(p["ffn"], cfg, h)
+            f, aux = M.moe_block(p["ffn"], cfg, h, unread=unread)
     else:
-        f = C.mlp_block(p["ffn"], h, cfg.d_ff)
+        f = C.mlp_block(p["ffn"], h, cfg.d_ff, unread=unread)
         aux = torch.zeros((), device=x.device)
     f = C.seq_exit(f, x.shape[1])
     if cfg.use_post_norms:
@@ -118,15 +127,19 @@ def _ffn(p, cfg, x):
     return x + f, aux
 
 
-def layer_fwd(p, cfg, x, *, window, positions, cache=None):
+def layer_fwd(p, cfg, x, *, window, positions, cache=None,
+              unread: bool = False):
     """Returns (x, cache, aux); the cache is updated in place.  On a
     sequence-sharded stream ``x`` is this rank's block of the sequence
-    and ``positions`` the whole sequence's."""
+    and ``positions`` the whole sequence's.  ``unread``: the layer's
+    output is its remat period's, whose value the period's backward does
+    not read (``models/common.py::row_linear``)."""
     S_ = x.shape[1]
     h = C.seq_enter(C.seq_norm(p["ln1"], x, cfg.norm_eps))
     c = cache or {}
     if cfg.is_ssm:
-        mix, _ = S.mamba_block(p["mixer"], cfg, h, cache=c.get("mixer"))
+        mix, _ = S.mamba_block(p["mixer"], cfg, h, cache=c.get("mixer"),
+                               unread=unread)
         return (x + C.seq_exit(mix, S_), cache,
                 torch.zeros((), device=x.device))
     if cfg.hybrid:
@@ -147,7 +160,7 @@ def layer_fwd(p, cfg, x, *, window, positions, cache=None):
     mix = C.seq_exit(mix, S_)
     if cfg.use_post_norms:
         mix = C.seq_norm(p["post_ln1"], mix, cfg.norm_eps)
-    x, aux = _ffn(p, cfg, x + mix)
+    x, aux = _ffn(p, cfg, x + mix, unread)
     return x, cache, aux
 
 
@@ -160,11 +173,6 @@ def _period_geometry(cfg):
     P = max(len(cfg.window_pattern), 1)
     n_periods, tail = divmod(cfg.num_layers, P)
     return windows, P, n_periods, tail
-
-
-def _period(tree, i: int):
-    """Period ``i`` of a stacked tree, as views."""
-    return tree_util.map(lambda x: x[i], tree)
 
 
 def init_stack(gen, cfg) -> dict:
@@ -221,7 +229,11 @@ class _RematPeriod(torch.autograd.Function):
                   else contextlib.nullcontext())
         grouping = (contextlib.nullcontext() if ctx.grouping
                     else M.no_data_grouping())
-        with replay, ambient_as(ctx.ambient), grouping:
+        # the full remat forms no output that nothing reads (a period's
+        # last product, under a residual add); "dots" replays them all
+        dead = (contextlib.nullcontext() if ctx.dots
+                else C.recomputing())
+        with replay, ambient_as(ctx.ambient), grouping, dead:
             _, vjp = torch.func.vjp(ctx.fn, x, *leaves)
             grads = vjp((gy, gaux))
         # ``torch.func.grad`` runs its backward with create_graph=True, so
@@ -243,21 +255,23 @@ def checkpointed(fn, x, *leaves, dots: bool = False):
     return y, aux
 
 
-def _run_period(blk_p, cfg, x, windows, remat, S_: int):
-    """Apply one period's layers to a cacheless (training) input at
+def _run_period(blk_p, cfg, x, windows, remat, S_: int, i: int):
+    """Apply period ``i``'s layers to a cacheless (training) input at
     positions 0..S_-1 (``x`` holds them all, or this rank's block of them
     on a sequence-sharded stream); returns (x, aux).  ``period`` captures
     no tensor (a ``torch.autograd.Function`` under ``vmap`` must not): the
-    positions are made inside it."""
+    positions are made inside it, and FSDP shards are gathered inside it
+    (so the remat recompute gathers them again)."""
     P = len(blk_p)
 
     def period(x, *leaves):
-        p = tree_util.unflatten(blk_p, list(leaves))
+        p = C.gathered(tree_util.unflatten(blk_p, list(leaves)),
+                       "stack/blocks", i)
         positions = torch.arange(S_, device=x.device)
         aux = torch.zeros((), device=x.device)
         for j in range(P):
             x, _, a = layer_fwd(p[f"l{j}"], cfg, x, window=windows[j],
-                                positions=positions)
+                                positions=positions, unread=j == P - 1)
             aux = aux + a
         return x, aux
 
@@ -291,19 +305,21 @@ def _stack_fwd(params, cfg, x, *, positions, cache, remat):
     windows, P, n_periods, tail = _period_geometry(cfg)
     aux = torch.zeros((), device=x.device)
     for i in range(n_periods):
-        blk_p = _period(params["blocks"], i)
+        blk_p = C.period_of(params["blocks"], "stack/blocks", i)
         if cache is None:
             x, a = _run_period(blk_p, cfg, x, windows, remat,
-                               positions.shape[0])
+                               positions.shape[0], i)
             aux = aux + a
             continue
-        blk_c = _period(cache["blocks"], i)
+        blk_p = C.gathered(blk_p, "stack/blocks", i)
+        blk_c = C.period(cache["blocks"], i)
         for j in range(P):
             x, _, a = layer_fwd(blk_p[f"l{j}"], cfg, x, window=windows[j],
                                 positions=positions, cache=blk_c[f"l{j}"])
             aux = aux + a
     for j in range(tail):
-        x, _, a = layer_fwd(params[f"tail{j}"], cfg, x,
+        x, _, a = layer_fwd(C.gathered(params[f"tail{j}"], f"stack/tail{j}"),
+                            cfg, x,
                             window=windows[n_periods * P + j],
                             positions=positions,
                             cache=None if cache is None
@@ -365,8 +381,8 @@ def stack_fwd_paged(params, cfg, x, *, positions, block_tables, cache,
     Returns (x, cache)."""
     windows, P, n_periods, tail = _period_geometry(cfg)
     for i in range(n_periods):
-        blk_p = _period(params["blocks"], i)
-        blk_c = _period(cache["blocks"], i)
+        blk_p = C.period(params["blocks"], i)
+        blk_c = C.period(cache["blocks"], i)
         for j in range(P):
             x, _ = layer_fwd_paged(blk_p[f"l{j}"], cfg, x,
                                    positions=positions,

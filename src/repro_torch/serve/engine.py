@@ -48,12 +48,14 @@ from repro_torch.serve.robust_decode import RobustDecoder
 from repro_torch.serve.scheduler import DECODE, Request, Scheduler
 
 
-def make_serve_step(model, *, mesh=None, batch_sharded: bool = False):
+def make_serve_step(model, *, mesh=None, batch_sharded: bool = False,
+                    fsdp=None):
     """Returns ``serve_step(params, cache, tokens, pos) -> (next_tokens,
     logits, cache)``.  With tokens (B,1) and an int pos it is one decode
     step; with tokens (B,S0) and pos = arange(S0) it is a batched prefill
     whose next_tokens continue the prompt.  With ``mesh`` the step runs
-    under ``use_mesh`` on this rank's blocks; ``batch_sharded`` says the
+    under ``use_mesh`` on this rank's blocks (with ``fsdp``, an
+    ``FsdpLayout``, on its FSDP shards); ``batch_sharded`` says the
     tokens are this rank's rows of a batch sharded over the worker axes."""
 
     def serve_step(params, cache, tokens, pos):
@@ -64,7 +66,7 @@ def make_serve_step(model, *, mesh=None, batch_sharded: bool = False):
         return serve_step
 
     def stepped(params, cache, tokens, pos):
-        with use_mesh(mesh, batch_sharded=batch_sharded):
+        with use_mesh(mesh, batch_sharded=batch_sharded, fsdp=fsdp):
             return serve_step(params, cache, tokens, pos)
 
     return stepped
@@ -95,9 +97,9 @@ class MeshServing:
         return shard_cache(self.model.init_cache(batch, total, device),
                            self.mesh)
 
-    def step(self):
+    def step(self, fsdp=None):
         return make_serve_step(self.model, mesh=self.mesh,
-                               batch_sharded=self.sharded)
+                               batch_sharded=self.sharded, fsdp=fsdp)
 
     def gather(self, toks):
         from repro_torch.dist.collectives import all_gather_axes

@@ -4,24 +4,35 @@
 Without a trace: every arch's parameter counts, and on the production
 meshes every pair's per-rank bytes of parameters, SGD state, batch and
 cache, against the reference's ``tree_pspecs`` / ``cache_pspec`` /
-``input_specs`` on a ``jax.sharding.AbstractMesh``; ``pairs()`` and
-``LONG_SKIP``.  With a trace: the reduced gemma2-2b, deepseek-v2-lite and
-mamba2-2.7b train and decode pairs, rank 0 of a fake (4, 2) world (a
+``input_specs`` on a ``jax.sharding.AbstractMesh``, and in streaming mode
+each rank's FSDP shards against ``param_pspec_fsdp``'s blocks; ``pairs()``
+and ``LONG_SKIP``.  With a trace: the reduced gemma2-2b, deepseek-v2-lite
+and mamba2-2.7b train and decode pairs, rank 0 of a fake (4, 2) world (a
 subprocess, JAX blocked), against the reference's ``build_lowerable`` and
-``analyze_hlo`` compiled for 8 fake XLA devices (another subprocess), and
-the reference's own CLI pair at full width.  The subprocesses start
-together, once for the module.
+``analyze_hlo`` compiled for 8 fake XLA devices (another subprocess); the
+same train pairs in streaming mode on a fake (8, 1) world and, but the
+MoE's, on the (4, 2) one (a subprocess of their own); a train pair on
+(2, 4) and a prefill pair on (1, 8), whose
+model axes do not split the heads (a third subprocess holds the
+reference's streaming and head pairs); and the reference's own CLI pair
+at full width, in both modes.  The subprocesses start together, once for
+the module.
 
-Two gaps are exact and have their causes (ROADMAP.md, queue 3):
-- the port's full remat recomputes a period's last row-parallel product
-  (deepseek's MLP ``wo``, mamba2's ``out_proj``), whose output the backward
-  never reads; XLA drops that recompute.  mamba2's SSD einsums also
-  contract in another order;
+The gaps are exact and have their causes (ROADMAP.md, queue 3):
+- mamba2's SSD einsums contract in another order than XLA's (786,432
+  dot FLOPs in the (4, 2) train pair's gradient);
 - the port cuts a Mamba2 SSM state's heads over the model axis
-  (``dist/sharding.py::cache_pspec``), the reference leaves them whole.
+  (``dist/sharding.py::cache_pspec``), the reference leaves them whole;
+- the reference's streaming step computes each worker's loss in a second
+  forward beside ``jax.grad`` (``repro/train/streaming.py``'s pass 1):
+  on the (8, 1) mesh its dot FLOPs exceed the port's by m forwards of a
+  worker's rows (and, for mamba2, by the SSD's order in each of the 2m
+  gradients).  On the (4, 2) mesh GSPMD's partition of its scan adds more
+  (ROADMAP.md, queue 3), so there the port's streaming step is held to m
+  times its own vmap step's gradient, which matches the reference's.
 XLA's argument bytes also hold the SGD step count (an int here) and the
 decode position (an int here), and leave out what the program does not
-read (the unused PRNG key, an SSM's position).
+read (the unused PRNG key, an SSM's position, a prefill's labels).
 """
 import json
 import math
@@ -41,13 +52,26 @@ SRC = os.path.join(REPO, "src")
 ARCHS = list_archs()
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
-# the reduced pairs: name -> (seq_len, global batch, kind)
+# the reduced pairs: name -> (seq_len, global batch, kind); the streaming
+# train pairs' batches give each worker one row a data rank
 SHAPES = {"dryrun_train": (64, 8, "train"), "dryrun_decode": (64, 8, "decode")}
+STREAM_SHAPES = {(8, 1): ("dryrun_stream8", 64, 64),
+                 (4, 2): ("dryrun_stream4", 64, 16)}
+# pairs whose model axis does not split the reduced configs' 4/2 heads:
+# "kv" on (2, 4) (q heads split, K/V heads not), "pad" on (1, 8)
+HEAD_PAIRS = {"train on (2, 4)": ("dryrun_train", (2, 4)),
+              "prefill on (1, 8)": ("dryrun_prefill", (1, 8))}
 REDUCED = ("gemma2-2b-reduced", "deepseek-v2-lite-16b-reduced",
            "mamba2-2.7b-reduced")
+# the archs whose streaming pair on (4, 2) is held (not the MoE's:
+# test_streaming_on_a_model_axis_is_m_vmap_gradients)
+MODEL_AXIS_STREAM = ("gemma2-2b-reduced", "mamba2-2.7b-reduced")
 # the port's dot FLOPs above the reference's (module docstring)
-REMAT_GAP = {"deepseek-v2-lite-16b-reduced": 33_554_432,
-             "mamba2-2.7b-reduced": 34_340_864}
+REMAT_GAP = {"mamba2-2.7b-reduced": 786_432}
+# the reference's streaming dot FLOPs on (8, 1) above the port's, besides
+# its m extra forwards: mamba2's SSD order, 262,144 in each of the 2m = 16
+# one-row gradients (module docstring)
+STREAM_GAP = {"mamba2-2.7b-reduced": 16 * 262_144}
 
 _PORT = r"""
 import json, sys
@@ -61,16 +85,34 @@ from repro_torch.launch.trace_analysis import trace_cost
 fake.init_fake_world(8)
 mesh = Mesh(("data", "model"), (4, 2))
 out = {}
+KEYS = ("dot_flops", "argument_bytes", "peak_bytes", "kernels",
+        "collective_counts", "bytes_accessed", "collective_bytes")
+def traced(key, arch, shape, mesh, fold=True, b=1, **kw):
+    with dryrun.fake_tensors():
+        fn, args, meta = dryrun.build_traced(
+            arch, shape, mesh, layout="sharded", rule="phocas", b=b,
+            remat="full", **kw)
+        cost = trace_cost(fn, *args, fold_loops=fold)
+    out[key] = dict(meta, **{k: cost[k] for k in KEYS})
+if %(part)r == "streaming":
+    for arch in %(archs)r:
+        for grid, (name, S, B) in %(stream)r.items():
+            if grid == (8, 1) or arch in %(model_axis)r:
+                traced(arch + "/" + name, arch,
+                       InputShape(name, S, B, "train"),
+                       Mesh(("data", "model"), grid), mode="streaming")
+    name, S, B = %(stream)r[(4, 2)]
+    traced("unfolded", "gemma2-2b-reduced", InputShape(name, S, B, "train"),
+           mesh, fold=False, mode="streaming")
+    print("RESULT " + json.dumps(out))
+    sys.exit()
 for arch in %(archs)r:
     for name, (S, B, kind) in %(shapes)r.items():
-        with dryrun.fake_tensors():
-            fn, args, meta = dryrun.build_traced(
-                arch, InputShape(name, S, B, kind), mesh, layout="sharded",
-                rule="phocas", b=1, remat="full")
-            cost = trace_cost(fn, *args)
-        out[arch + "/" + name] = dict(meta, **{
-            k: cost[k] for k in ("dot_flops", "argument_bytes", "peak_bytes",
-                                 "kernels", "collective_counts")})
+        traced(arch + "/" + name, arch, InputShape(name, S, B, kind), mesh)
+for key, (name, grid) in %(heads)r.items():
+    S, B, kind = dict(%(shapes)r, dryrun_prefill=(64, 8, "prefill"))[name]
+    traced(key, "gemma2-2b-reduced", InputShape(name, S, B, kind),
+           Mesh(("data", "model"), grid), b=0)
 import os
 for flag in ("0", "1"):          # K6 takes the prefill only under the flag
     os.environ["REPRO_FLASH_ATTN"] = flag
@@ -109,6 +151,44 @@ for arch in %(archs)r:
 print("RESULT " + json.dumps(out))
 """
 
+# the reference's streaming pairs on (8, 1), a forward of a rank's row
+# there (its prefill of one row a rank), and the head pairs
+_REFERENCE_STREAMING = r"""
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["JAX_PLATFORMS"] = "cpu"
+import jax, numpy as np
+from jax.sharding import Mesh
+import repro.configs as C
+from repro.configs.base import InputShape
+from repro.launch.hlo_analysis import analyze_hlo
+name, S, B = %(stream)r[(8, 1)]
+SH = {name: (S, B, "train"), "dryrun_prefill": (64, 8, "prefill"),
+      "dryrun_train": (64, 8, "train")}
+for n, (s, b, kind) in SH.items():
+    C.INPUT_SHAPES[n] = InputShape(n, s, b, kind)
+from repro.launch.dryrun import build_lowerable
+out = {}
+def lowered(key, arch, shape, grid, b=1, **kw):
+    mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(*grid),
+                ("data", "model"))
+    with jax.set_mesh(mesh):
+        fn, args, meta = build_lowerable(arch, shape, mesh, layout="sharded",
+                                         rule="phocas", b=b, remat="full",
+                                         **kw)
+        compiled = fn.lower(*args).compile()
+    out[key] = dict(meta,
+                    dot_flops=analyze_hlo(compiled.as_text())["dot_flops"],
+                    argument_bytes=compiled.memory_analysis()
+                    .argument_size_in_bytes)
+for arch in %(archs)r:
+    lowered(arch + "/stream", arch, name, (8, 1), mode="streaming")
+    lowered(arch + "/forward", arch, "dryrun_prefill", (8, 1))
+for key, (shape, grid) in %(heads)r.items():
+    lowered(key, "gemma2-2b-reduced", shape, grid, b=0)
+print("RESULT " + json.dumps(out))
+"""
+
 
 def _cli(argv, out_dir):
     code = ("import runpy, sys\nsys.modules['jax'] = None\n"
@@ -125,12 +205,17 @@ def runs(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("dryrun"))
     env = dict(os.environ, PYTHONPATH=SRC)
     env.pop("XLA_FLAGS", None)
-    args = {"archs": REDUCED, "shapes": SHAPES}
-    cmds = {"port": [sys.executable, "-c", _PORT % args],
+    args = {"archs": REDUCED, "shapes": SHAPES, "stream": STREAM_SHAPES,
+            "heads": HEAD_PAIRS, "model_axis": MODEL_AXIS_STREAM}
+    cmds = {"port": [sys.executable, "-c", _PORT % dict(args, part="vmap")],
+            "port_streaming": [sys.executable, "-c",
+                               _PORT % dict(args, part="streaming")],
             "reference": [sys.executable, "-c", _REFERENCE % args],
+            "reference_streaming": [sys.executable, "-c",
+                                    _REFERENCE_STREAMING % args],
             "cli": _cli(["--arch", "gemma2-2b", "--shape", "decode_32k"],
                         out),
-            "streaming": _cli(["--arch", "gemma2-2b", "--shape", "train_4k",
+            "streaming": _cli(["--arch", "gemma2-2b", "--shape", "decode_32k",
                                "--mode", "streaming"], out)}
     procs = {k: subprocess.Popen(c, env=env, cwd=REPO, text=True,
                                  stdout=subprocess.PIPE,
@@ -144,11 +229,15 @@ def runs(tmp_path_factory):
             done[key] = (procs[key].returncode, so, se)
         return done[key]
 
-    yield wait
+    yield wait, out
     for p in procs.values():
         if p.poll() is None:
             p.kill()
             p.wait()
+
+
+def _run(runs, key):
+    return runs[0](key)
 
 
 def _result(run):
@@ -294,7 +383,7 @@ def test_input_specs_match_reference():
 @pytest.mark.parametrize("arch", REDUCED)
 @pytest.mark.parametrize("kind", ["train", "decode"])
 def test_reduced_pairs_match_reference(runs, arch, kind):
-    port, ref = _result(runs("port")), _result(runs("reference"))
+    port, ref = _result(_run(runs, "port")), _result(_run(runs, "reference"))
     key = f"{arch}/dryrun_{kind}"
     got, want = port[key], ref[key]
     assert (got["total_params"], got["active_params"]) == \
@@ -330,34 +419,172 @@ def _ssm_cut(arch, S, B):
 
 
 def test_prefill_reaches_k6_only_under_repro_flash_attn(runs):
-    port = _result(runs("port"))
+    port = _result(_run(runs, "port"))
     # gemma2-2b-reduced's 2 layers; (B/4, S, H, hd) on the (4, 2) mesh
     assert port["flash0"] == []
     assert port["flash1"] == [["flash_attn", [2, 64, 2, 64]]] * 2
 
 
 def test_reference_pair_runs_through_the_cli(runs):
-    rc, so, se = runs("cli")
+    rc, so, se = _run(runs, "cli")
     assert rc == 0, se[-3000:]
     assert "OK" in so and "[dryrun] 1/1 OK" in so
 
 
-def test_streaming_mode_is_refused(runs):
-    rc, so, se = runs("streaming")
-    assert rc == 1, se[-3000:]
-    assert "NotImplementedError" in so and "[dryrun] 0/1 OK" in so
+def test_streaming_mode_runs_through_the_cli(runs):
+    """``--mode streaming`` traces the reference's CLI pair on the FSDP
+    shards and tags its record ``__streaming``, as the reference does."""
+    rc, so, se = _run(runs, "streaming")
+    assert rc == 0, se[-3000:]
+    assert "[dryrun] 1/1 OK" in so
+    tag = "gemma2-2b__decode_32k__16x16__sharded__phocas__full__streaming"
+    with open(os.path.join(runs[1], tag + ".json")) as f:
+        rec = json.load(f)
+    assert rec["ok"] and rec["mode"] == "streaming"
+    # each rank's FSDP shards of the params (the reference's
+    # param_pspec_fsdp bytes) and its cache blocks
+    rank = dryrun.reckon("gemma2-2b", "decode_32k",
+                         Mesh(("data", "model"), (16, 16)))
+    assert rec["argument_size_in_bytes"] == (
+        _fsdp_bytes("gemma2-2b", MESHES["16x16"]) + rank["batch"]
+        + rank["cache"])
 
 
 def test_build_traced_refuses_no_world():
     import torch.distributed as dist
     assert not dist.is_initialized()
-    with pytest.raises(RuntimeError, match="fake world"):
-        dryrun.build_traced("gemma2-2b-reduced", "decode_32k",
-                            Mesh(("data", "model"), (4, 2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for mode in ("vmap", "streaming"):
+        with pytest.raises(RuntimeError, match="fake world"):
+            dryrun.build_traced("gemma2-2b-reduced", "decode_32k",
+                                Mesh(("data", "model"), (4, 2)), mode=mode)
+    with pytest.raises(ValueError, match="mode"):
         dryrun.build_traced("gemma2-2b-reduced", "train_4k",
-                            Mesh(("data", "model"), (4, 2)),
-                            mode="streaming")
+                            Mesh(("data", "model"), (4, 2)), mode="scan")
+
+
+def _fsdp_bytes(arch, mesh_def) -> int:
+    """A device's bytes of the reference's params under
+    ``param_pspec_fsdp`` on an ``AbstractMesh``."""
+    import jax
+    from jax.sharding import AbstractMesh, PartitionSpec
+
+    from repro.dist.sharding import param_pspec_fsdp, tree_pspecs
+    sizes, names = mesh_def
+    am = AbstractMesh(sizes, names)
+    params = _trees(arch)[1]
+    leaves = jax.tree_util.tree_leaves
+    specs = leaves(tree_pspecs(params, am, leaf_rule=param_pspec_fsdp),
+                   is_leaf=lambda x: isinstance(x, PartitionSpec))
+    return sum(_ref_block_bytes(x, p, am)
+               for x, p in zip(leaves(params), specs))
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_each_streaming_rank_holds_its_fsdp_share(arch, mesh_name):
+    """Every leaf's FSDP shard (``dist/sharding.py::FsdpLayout``: the
+    model-axis block the layers compute on, cut into equal runs over the
+    rest of ``param_pspec_fsdp``'s axes, a period at a time where it
+    cuts) holds as many bytes as the reference's ``param_pspec_fsdp``
+    block; summed, a rank's params."""
+    from repro_torch.dist.sharding import fsdp_leaf
+    from repro_torch.models.registry import build_model
+    sizes, names = MESHES[mesh_name]
+    mesh = Mesh(names, sizes)
+    full = build_model(get_arch(arch)).abstract_params()
+    total = 0
+    for name, leaf in dryrun._walk(full):
+        plan = fsdp_leaf(name, leaf, mesh, True)
+        runs = math.prod(mesh.shape[a] for a in plan.axes)
+        n = math.prod(plan.block) // runs
+        total += n * (leaf.shape[0] if plan.per_period else 1) \
+            * leaf.dtype.itemsize
+    assert total == _fsdp_bytes(arch, MESHES[mesh_name])
+
+
+@pytest.mark.parametrize("arch", REDUCED)
+def test_streaming_train_pairs_match_reference(runs, arch):
+    """On a fake (8, 1) world (m = 8, one row a worker a rank): a rank's
+    arguments are the reference's but for its int step count; its dot
+    FLOPs are the reference's less the reference's m extra forwards (its
+    own forward of one row a rank, ``dryrun_prefill``) and mamba2's SSD
+    order; no kernel runs (the streaming statistics are sorts)."""
+    port = _result(_run(runs, "port_streaming"))
+    ref = _result(_run(runs, "reference_streaming"))
+    name = STREAM_SHAPES[(8, 1)][0]
+    got, want = port[f"{arch}/{name}"], ref[f"{arch}/stream"]
+    assert (got["total_params"], got["active_params"]) == \
+        (want["total_params"], want["active_params"])
+    assert got["argument_bytes"] == want["argument_bytes"] - 4
+    forward = ref[f"{arch}/forward"]["dot_flops"]
+    assert want["dot_flops"] - got["dot_flops"] == \
+        8 * forward + STREAM_GAP.get(arch, 0)
+    assert got["kernels"] == []
+
+
+@pytest.mark.parametrize("arch", MODEL_AXIS_STREAM)
+def test_streaming_on_a_model_axis_is_m_vmap_gradients(runs, arch):
+    """On the fake (4, 2) world (m = 4, one row a worker a data rank,
+    tensor-parallel on the gathered blocks): the two passes' 2m one-row
+    gradients are m times the vmap step's one gradient of two rows (whose
+    dot FLOPs match the reference's, test_reduced_pairs_match_reference);
+    a rank's arguments are its ``param_pspec_fsdp`` bytes and its rows of
+    every worker.  (Not the MoE: the streaming step dispatches each data
+    rank's tokens as a group, as the reference's streaming step does on a
+    mesh, where the vmap step turns the grouping off, so the experts'
+    capacity differs.)"""
+    from repro.configs import get_arch as ref_arch
+    from repro.configs.base import InputShape as RShape
+    from repro.models import build_model as ref_build
+    port = _result(_run(runs, "port"))
+    name, S, B = STREAM_SHAPES[(4, 2)]
+    got = _result(_run(runs, "port_streaming"))[f"{arch}/{name}"]
+    vmap = port[f"{arch}/dryrun_train"]
+    assert got["dot_flops"] == 4 * vmap["dot_flops"]
+    specs = ref_build(ref_arch(arch)).input_specs(RShape(name, S, B,
+                                                         "train"))
+    # the (m, B/m, ...) stack's rows cut over the 4 data ranks
+    rows = sum(B // 4 * math.prod(s.shape[1:]) * s.dtype.itemsize
+               for s in specs.values())
+    assert got["argument_bytes"] == _fsdp_bytes(
+        arch, ((4, 2), ("data", "model"))) + rows
+
+
+def test_folded_trace_equals_the_whole_trace(runs):
+    """``trace_cost(fold_loops=True)`` (the dry run's) traces the two
+    passes over the workers as two iterations each, the second standing
+    for the rest: on gemma2's (4, 2) streaming pair its counts are the
+    whole trace's but for the workers' loss and mass scalars it leaves
+    out (a few bytes a worker)."""
+    port = _result(_run(runs, "port_streaming"))
+    folded = port["gemma2-2b-reduced/" + STREAM_SHAPES[(4, 2)][0]]
+    whole = port["unfolded"]
+    for k in ("dot_flops", "kernels", "collective_counts", "argument_bytes"):
+        assert folded[k] == whole[k], k
+    assert 0 <= whole["peak_bytes"] - folded["peak_bytes"] <= 8 * 4
+    for k in ("bytes_accessed",):
+        assert 0 <= whole[k] - folded[k] <= 256 * 4
+    for k, v in whole["collective_bytes"].items():
+        assert 0 <= v - folded["collective_bytes"][k] <= 8 * 4
+
+
+@pytest.mark.parametrize("key", list(HEAD_PAIRS))
+def test_heads_that_do_not_split_match_reference(runs, key):
+    """gemma2-2b-reduced's 4/2 heads on a model axis of 4 (train: q heads
+    split, K/V heads not) and of 8 (prefill: padded to 8, one a rank, the
+    last four ranks none): dot FLOPs exactly the reference's padded-heads
+    branch's; arguments the reference's but for the step count (train)
+    or the labels a forward does not read (prefill)."""
+    port = _result(_run(runs, "port"))
+    ref = _result(_run(runs, "reference_streaming"))
+    got, want = port[key], ref[key]
+    assert got["dot_flops"] == want["dot_flops"]
+    name, (d, _) = HEAD_PAIRS[key]
+    if name == "dryrun_train":
+        assert got["argument_bytes"] == want["argument_bytes"] - 4
+    else:
+        labels = 8 // d * 64 * 4
+        assert got["argument_bytes"] == want["argument_bytes"] + labels
 
 
 def test_production_meshes_and_the_cards_constants():

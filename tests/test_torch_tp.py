@@ -34,6 +34,23 @@ Every rank holds only its ``tree_pspecs`` blocks of params and optimizer
 state, and its cache blocks, counted in bytes.  Without a world, the
 port's ``moe_block`` under a pure data-2 mesh description equals the
 monkeypatched reference's in both branches.
+
+The same world then makes a (1, 4) mesh, whose 4 model ranks split the
+q heads but not the K/V heads of granite-8b-reduced (4/2: each rank its
+q head and the K/V head its group reads) nor the q heads of a 6/2
+gemma2-2b-reduced (padded to 8, 2 a rank, the last rank none): one
+batch's loss and gradient (remat full) and the serving step's logits
+equal the single process's, and each rank attends over its head block
+alone.  And it runs the FSDP streaming step (``train/streaming.py``'s
+mesh form) on a (4, 1) mesh (m = 4 workers, b = 1, each worker's 4 rows
+one a rank) and a (2, 2) one (m = 2, b = 0, tensor-parallel compute on
+the gathered blocks), the MLP and gemma2-2b-reduced, step for step
+against the port's one-process streaming step under the deterministic
+attacks (``test_torch_streaming.py``'s tolerances) and by bands under
+gaussian; every rank holds a quarter of gemma2's params, momentum and
+bottom statistic; and the ``streaming`` topology with a (4, 1) mesh on
+its plan equals the reference's ``run_experiment`` from the same params
+on the same batches.
 """
 import concurrent.futures
 import dataclasses
@@ -71,7 +88,7 @@ from repro_torch.experiment.topologies import SyncPS
 from repro_torch.models import moe as t_moe
 from repro_torch.models.registry import build_model as t_build
 from repro_torch.optim.optimizers import init_opt_state
-from torch_tp_ranks import MESH, tp_rank
+from torch_tp_ranks import MESH, stream_single, tp_rank
 
 # case -> (arch, config changes, batch, prompt tokens, MoE grouping,
 #          generated tokens a prompt)
@@ -109,6 +126,32 @@ CLI = ["--arch", "whisper-large-v3-reduced", "--batch", "2",
        "--prompt-len", "4", "--new-tokens", "2", "--device", "cpu"]
 CLI_CASE = "whisper"
 DESC = Mesh(("data", "model"), MESH)
+# case -> (arch, config changes): attention on a (1, 4) mesh whose model
+# axis splits the q heads but not the K/V heads ("kv"), or neither ("pad")
+HEADS = {"granite kv": ("granite-8b-reduced", {}),
+         "gemma2 6/2 pad": ("gemma2-2b-reduced",
+                            dict(num_heads=6, num_kv_heads=2))}
+HEADS_MESH = (1, 4)
+# case -> (model, rule, attack, (data, model) mesh, steps): the FSDP
+# streaming step on the world against the one-process streaming step
+# (gemma2's steps kept few: each costs 2m gradients through the world's
+# collectives)
+STREAM = {
+    "mlp trmean signflip": ("mlp", "trmean", "signflip", (4, 1), 2),
+    "mlp phocas signflip": ("mlp", "phocas", "signflip", (4, 1), 2),
+    "mlp phocas zero": ("mlp", "phocas", "zero", (4, 1), 2),
+    "gemma2 trmean signflip": ("gemma2-2b-reduced", "trmean", "signflip",
+                               (4, 1), 1),
+    # gemma2's phocas one step, whose worker matrix the tie check reads
+    # (each step meets a few distance ties among 1.3 M coordinates)
+    "gemma2 phocas signflip": ("gemma2-2b-reduced", "phocas", "signflip",
+                               (4, 1), 1),
+    "gemma2 phocas zero": ("gemma2-2b-reduced", "phocas", "zero", (4, 1), 1),
+    "gemma2 mean on 2x2": ("gemma2-2b-reduced", "mean", "none", (2, 2), 1),
+    "gemma2 phocas gaussian": ("gemma2-2b-reduced", "phocas", "gaussian",
+                               (4, 1), 2),
+}
+STREAM_BANDED = ("gemma2 phocas gaussian",)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -262,6 +305,45 @@ def _cli_mesh(argv: list, mesh: str) -> str:
     return proc.stdout
 
 
+def _stream_spec_case():
+    """The reference's MLP streaming spec (m = 4, phocas b = 1 under
+    signflip, 4 rows a worker), its run from its own params on its own
+    batches, and those inputs for the port's run on a (4, 1) mesh."""
+    spec = rexp.ScenarioSpec(
+        name="stream-mesh", topology="streaming",
+        model=rexp.ModelSpec(kind="mlp"),
+        data=rexp.DataSpec(dim=16, batch_per_worker=4),
+        robust=RobustConfig(rule="phocas", b=1, q=1),
+        attack=AttackConfig(name="signflip", num_byzantine=1),
+        num_workers=4, steps=3, log_every=1)
+    plan = rexp.resolve(spec)
+    init = jax.tree.map(np.asarray,
+                        plan.model.init(jax.random.PRNGKey(spec.seed)))
+    batches = [jax.tree.map(np.asarray, plan.batch_fn(s))
+               for s in range(spec.steps)]
+    ref = rexp.run_experiment(spec)
+    return (dict(spec_json=spec.to_json(), init=init, batches=batches),
+            ref)
+
+
+def _heads_single(arch, changes, params, batch, prompts) -> dict:
+    """The single process's loss, gradient and serving logits of a head
+    case (what ``torch_tp_ranks._heads`` computes on the mesh)."""
+    from repro_torch.serve.engine import make_serve_step
+    model = t_build(dataclasses.replace(t_arch(arch), **changes),
+                    remat="full")
+    p = lm_params_from_numpy(params)
+    grads, loss = torch.func.grad_and_value(model.loss)(
+        p, {k: torch.tensor(v) for k, v in batch.items()})
+    prompts = torch.tensor(prompts).long()
+    cache = model.init_cache(prompts.shape[0], prompts.shape[1] + 1)
+    step = make_serve_step(model)
+    nxt, pre, cache = step(p, cache, prompts, torch.arange(prompts.shape[1]))
+    _, dec, _ = step(p, cache, nxt, prompts.shape[1])
+    return {"loss": float(loss), "grads": lm_params_to_numpy(grads),
+            "prefill": pre.numpy(), "decode": dec.numpy()}
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """The reference's values and the (2, 2) world's, for every case: the
@@ -295,35 +377,61 @@ def world(tmp_path_factory):
                        if arch == TRAIN[0] else None),
             seq_shard=arch in SEQ_SHARDED)
 
+    head_cases = {}
+    for key, (arch, changes) in HEADS.items():
+        cfg = dataclasses.replace(r_arch(arch), **changes)
+        head_cases[key] = dict(
+            arch=arch, changes=changes, params=_port_params(arch, changes),
+            batch=_grad_batch(cfg), prompts=_prompts(arch, changes, 2, 8))
+    spec_case, spec_ref = _stream_spec_case()
+
     def world_then_cli():
         ranks = spawn(tp_rank, MESH[0] * MESH[1], serve_cases, train_cases,
-                      grad_cases, CLI)
+                      grad_cases, CLI, head_cases, STREAM, spec_case)
         return ranks, _cli_mesh(CLI, "2x1")
 
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        ranks = pool.submit(world_then_cli)
-        want = {key: _reference_serving(
-            case["arch"], case["changes"], case["prompts"], SERVE[key][4],
-            case["params"], case["new_tokens"])
-            for key, case in serve_cases.items()}
-        for key, case in serve_cases.items():
-            if "audio" in case:
-                want[key]["audio"] = _reference_audio(
+    # this process's torch work is small ops; on a loaded machine a pool
+    # of every core makes each op wait for all of them (the one-process
+    # streaming runs took 12 times as long), so it runs on one thread
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            ranks = pool.submit(world_then_cli)
+            want = {key: _reference_serving(
+                case["arch"], case["changes"], case["prompts"],
+                SERVE[key][4], case["params"], case["new_tokens"])
+                for key, case in serve_cases.items()}
+            for key, case in serve_cases.items():
+                if "audio" in case:
+                    want[key]["audio"] = _reference_audio(
+                        case["arch"], case["changes"], case["params"],
+                        case["prompts"], case["audio"],
+                        case["prompts"].shape[1] + case["new_tokens"])
+            for key, case in grad_cases.items():
+                want["grad", key] = _reference_grad(
                     case["arch"], case["changes"], case["params"],
-                    case["prompts"], case["audio"],
-                    case["prompts"].shape[1] + case["new_tokens"])
-        for key, case in grad_cases.items():
-            want["grad", key] = _reference_grad(
-                case["arch"], case["changes"], case["params"], case["batch"])
-        for arch, case in train_cases.items():
-            ref = _reference_run(specs[arch], case["init"], case["batches"])
-            want[arch] = ([r["loss"] for r in ref.history],
-                          _flat(jax.tree.leaves(ref.params)), case["init"],
-                          _local_port_run(specs[arch], case["init"],
-                                          case["batches"]))
-        ranks, cli = ranks.result()
-        ranks[0]["cli"]["2x1"] = cli
-        return want, ranks
+                    case["batch"])
+            for arch, case in train_cases.items():
+                ref = _reference_run(specs[arch], case["init"],
+                                     case["batches"])
+                want[arch] = ([r["loss"] for r in ref.history],
+                              _flat(jax.tree.leaves(ref.params)),
+                              case["init"],
+                              _local_port_run(specs[arch], case["init"],
+                                              case["batches"]))
+            for key, case in head_cases.items():
+                want["heads", key] = _heads_single(**case)
+            for key, (kind, rule, attack, shape, steps) in STREAM.items():
+                want["stream", key] = stream_single(kind, rule, attack,
+                                                    shape[0], steps)
+            want["spec"] = ([r["loss"] for r in spec_ref.history],
+                            _flat(jax.tree.leaves(spec_ref.params)))
+            ranks, cli = ranks.result()
+    finally:
+        torch.set_num_threads(threads)
+    ranks[0]["cli"]["2x1"] = cli
+    return want, ranks
 
 
 def _block_bytes(tree) -> int:
@@ -587,3 +695,143 @@ def test_grouped_moe_block_matches_the_reference(shape, grouped,
                                atol=1e-5)
     assert grouped == (not np.allclose(np.asarray(r_out),
                                        np.asarray(plain[0]), atol=1e-4))
+
+
+@pytest.mark.parametrize("key", list(HEADS))
+def test_heads_that_do_not_split_match_the_single_process(world, key):
+    """On the (1, 4) mesh: one batch's loss and every leaf's gradient
+    (remat full; the blocks joined) at this file's gradient tolerances
+    (rtol 1e-4, atol 1e-6), the serving step's prefill and first decode
+    logits within 1e-5, of the single process's."""
+    want, ranks = world
+    got, ref = ranks[0]["heads"][key], want["heads", key]
+    np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-5)
+    for g, r in zip(tree_util.leaves(got["grads"]),
+                    tree_util.leaves(ref["grads"])):
+        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6)
+    for k in ("prefill", "decode"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=1e-5)
+
+
+def _head_block(rank: int, H: int, Kv: int, tp: int) -> tuple:
+    """(q heads, K/V heads) a rank attends over: its block of H padded to
+    a multiple of tp, and the K/V heads its q heads read (each its own
+    where the groups come out uneven); None for padding alone."""
+    n = -(-H // tp)
+    lo, hi = min(rank * n, H), min((rank + 1) * n, H)
+    if hi <= lo:
+        return None
+    kv = [h // (H // Kv) for h in range(lo, hi)]
+    even = all(kv.count(j) == len(kv) // len(set(kv)) for j in set(kv))
+    return hi - lo, len(set(kv)) if even else hi - lo
+
+
+@pytest.mark.parametrize("key", list(HEADS))
+def test_each_rank_attends_over_its_head_block(world, key):
+    """Every attention call of the loss (forward and remat recompute) on
+    each rank of the (1, 4) mesh gets that rank's head block alone:
+    granite's 4/2 one q head and its group's K/V head a rank; the 6/2
+    model's heads padded to 8, two a rank (their K/V heads), the last
+    rank none, so it attends over nothing."""
+    _, ranks = world
+    arch, changes = HEADS[key]
+    cfg = dataclasses.replace(t_arch(arch), **changes)
+    for r, rk in enumerate(ranks):
+        want = _head_block(r, cfg.num_heads, cfg.num_kv_heads,
+                           HEADS_MESH[1])
+        seen = {tuple(x) for x in rk["heads"][key]["heads"]}
+        assert seen == (set() if want is None else {want}), (r, seen)
+
+
+def _phocas_ties(workers: np.ndarray, bad: np.ndarray) -> np.ndarray:
+    """The phocas b = 1 boundary gap at coordinates ``bad`` of the (m, D)
+    worker matrix: how much farther from the trimmed mean the farthest
+    value lies than the next (0 at a distance tie, where the value that
+    phocas drops flips with the rounding of the center)."""
+    u = workers[:, bad].astype(np.float64)
+    srt = np.sort(u, axis=0)
+    center = srt[1:-1].mean(0)
+    d = np.sort(np.abs(u - center), axis=0)
+    return (d[-1] - d[-2]) / np.maximum(np.abs(u).max(0), 1e-30)
+
+
+@pytest.mark.parametrize("key", [k for k in STREAM
+                                 if k not in STREAM_BANDED])
+def test_mesh_streaming_matches_the_single_process(world, key):
+    """The FSDP streaming step on its mesh, step for step against the
+    one-process streaming step from the same params on the same batches:
+    params at rtol 1e-4, atol 1e-6 and the workers' losses at rtol 1e-4
+    (``test_torch_streaming.py``'s).  Phocas is discontinuous at a
+    distance tie, where the mesh's sums over the data ranks and the one
+    process's round the center apart and flip the value dropped: a first
+    step's coordinate past the tolerance must be such a tie (the gap
+    under 1e-5 of the coordinate's largest value, as
+    ``test_kernels.py::_assert_phocas_close`` allows), and a later step is
+    held on the rest (a flip there moves the momentum); the MLP's steps
+    meet no tie."""
+    want, ranks = world
+    got, ref = ranks[0]["stream"][key], want["stream", key]
+    ok = None
+    for a, b in zip(got["params"], ref["params"]):
+        close = np.isclose(a, b, rtol=1e-4, atol=1e-6)
+        if ok is None and "workers" in ref:
+            bad = np.flatnonzero(~close)
+            assert bad.size <= 4, bad.size
+            assert (_phocas_ties(ref["workers"], bad) < 1e-5).all()
+            ok = close
+        np.testing.assert_allclose(a[ok] if ok is not None else a,
+                                   b[ok] if ok is not None else b,
+                                   rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(np.stack(got["losses"]),
+                               np.stack(ref["losses"]), rtol=1e-4)
+
+
+@pytest.mark.parametrize("key", STREAM_BANDED)
+def test_mesh_streaming_gaussian_is_held_by_bands(world, key):
+    """Under gaussian the shards draw their own noise (the single
+    process's draws are not reproduced), so the runs are held by bands:
+    the workers' losses within 1 % of the single process's, each step's
+    update as long within 5 % (L2), and pointing the same way (cosine
+    above 0.99)."""
+    want, ranks = world
+    got, ref = ranks[0]["stream"][key], want["stream", key]
+    np.testing.assert_allclose(np.stack(got["losses"]),
+                               np.stack(ref["losses"]), rtol=1e-2)
+    start = _port_stream_init(key)
+    for a, b in zip(got["params"], ref["params"]):
+        da, db = a - start, b - start
+        na, nb = np.linalg.norm(da), np.linalg.norm(db)
+        assert abs(na / nb - 1) <= 0.05, (na, nb)
+        assert float(da @ db) / (na * nb) >= 0.99
+        start = b
+
+
+def _port_stream_init(key) -> np.ndarray:
+    from torch_tp_ranks import stream_setup
+    model, _ = stream_setup(STREAM[key][0], STREAM[key][3][0])
+    return _flat(x.numpy() for x in tree_util.leaves(
+        model.init(torch.Generator().manual_seed(0))))
+
+
+@pytest.mark.parametrize("key", [k for k in STREAM if k.startswith("gemma2")])
+def test_each_streaming_rank_holds_a_quarter(world, key):
+    """Every rank of the 4-rank world holds a quarter of gemma2's params,
+    of its momentum and (b = 1) of the bottom statistic over the
+    workers' f32 gradients: its FSDP shards (every leaf cuts 4 ways)."""
+    _, ranks = world
+    for rk in ranks:
+        for what, (mine, whole) in rk["stream"][key]["bytes"].items():
+            assert 4 * mine == whole, (what, mine, whole)
+
+
+def test_mesh_streaming_topology_matches_the_reference(world):
+    """The ``streaming`` topology on a (4, 1) mesh (the spec's plan given
+    the mesh; the MLP, m = 4, phocas b = 1 under signflip) from the
+    reference's params on its batches equals the reference's
+    ``run_experiment`` of the spec (no mesh): losses at rtol 1e-4, params
+    at rtol 1e-4, atol 1e-6."""
+    want, ranks = world
+    losses, params = want["spec"]
+    got = ranks[0]["spec"]
+    np.testing.assert_allclose(got["losses"], losses, rtol=1e-4)
+    np.testing.assert_allclose(got["params"], params, rtol=1e-4, atol=1e-6)

@@ -4,7 +4,9 @@ It lives apart from the test module so that a spawned rank imports
 ``torch`` and ``repro_torch`` only, never JAX or the reference: the test
 process computes the reference's values and hands the rank numpy inputs
 (parameters, prompts, batches, spec JSON).  The body runs as one rank of a
-(data, model) = (2, 2) mesh under ``repro_torch.dist.launch.spawn``.
+(data, model) = (2, 2) mesh under ``repro_torch.dist.launch.spawn``, then
+of a (1, 4) mesh (attention on heads that 4 model ranks do not split) and
+of the FSDP streaming step's (4, 1) and (2, 2) meshes, over the same world.
 """
 from __future__ import annotations
 
@@ -195,6 +197,151 @@ def _train(spec_json, init, batches, resume_dir=None, cost_path=None,
     return out
 
 
+def _heads(mesh, arch, changes, params, batch, prompts) -> dict:
+    """On a mesh whose model axis does not split the heads: one batch's
+    loss and gradient (joined over the model axis, remat full), the
+    serving step's prefill and first decode logits, and the heads each
+    attention call of the loss got on this rank (q's and k's)."""
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.dist.collectives import join_blocks, model_cuts
+    from repro_torch.dist.mesh import use_mesh
+    from repro_torch.models import common as C
+    from repro_torch.serve.engine import MeshServing
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    model = build_model(dataclasses.replace(get_arch(arch), **changes),
+                        remat="full")
+    full = model.abstract_params()
+    blocks = MeshServing(model, mesh, len(prompts)).params(
+        lm_params_from_numpy(params))
+    batch = {k: torch.tensor(v) for k, v in batch.items()}
+    seen = []
+    real = C.attention_core
+
+    def spy(q, k, v, *a, **kw):
+        seen.append((q.shape[2], k.shape[2]))
+        return real(q, k, v, *a, **kw)
+
+    C.attention_core = spy
+    try:
+        with use_mesh(mesh):
+            grads, loss = torch.func.grad_and_value(model.loss)(blocks,
+                                                                batch)
+    finally:
+        C.attention_core = real
+    grads = join_blocks(grads, model_cuts(full, mesh))
+    prompts = torch.tensor(prompts).long()
+    ms = MeshServing(model, mesh, prompts.shape[0])
+    cache = ms.cache(prompts.shape[0], prompts.shape[1] + 1, prompts.device)
+    step = ms.step()
+    nxt, pre, cache = step(blocks, cache, prompts,
+                           torch.arange(prompts.shape[1]))
+    _, dec, _ = step(blocks, cache, nxt, prompts.shape[1])
+    return {"loss": float(loss), "grads": lm_params_to_numpy(grads),
+            "prefill": _np(pre), "decode": _np(dec), "heads": seen}
+
+
+def _stream(mesh, kind, rule, attack, steps) -> dict:
+    """The FSDP streaming step on ``mesh`` (``train/streaming.py``) from
+    the seed-0 init of ``kind`` ("mlp", or an arch) on the batches of
+    ``stream_setup``: each step's joined params and workers' losses, and
+    the bytes of this rank's shards of the params, the momentum and the
+    bottom statistic against the whole tree's."""
+    from repro_torch import tree as tree_util
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust import RobustConfig
+    from repro_torch.dist.sharding import FsdpLayout
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.train import streaming
+    model, batches = stream_setup(kind, mesh.axis_sizes[0])
+    rc = RobustConfig(rule=rule, b=1 if mesh.axis_sizes[0] > 2 else 0,
+                      q=1, attack=AttackConfig(name=attack, num_byzantine=1))
+    opt = OptConfig(name="momentum", lr=0.1)
+    whole = model.init(torch.Generator().manual_seed(0))
+    layout = FsdpLayout(model.abstract_params(), mesh, model.tensor_parallel)
+    params = layout.shard(whole)
+    state = layout.shard(init_opt_state(opt, whole))
+    step = streaming.make_streaming_train_step(
+        model, robust_cfg=rc, opt_cfg=opt, num_workers=mesh.axis_sizes[0],
+        mesh=mesh)
+    stats = []
+    real = streaming._merge_bottom
+
+    def spy(bot, g):
+        stats.append(bot.numel() * bot.element_size())
+        return real(bot, g)
+
+    streaming._merge_bottom = spy
+    out = {"params": [], "losses": []}
+    try:
+        for s, batch in enumerate(batches[:steps]):
+            stats.clear()
+            params, state, metrics = step(
+                params, state, streaming.data_rows(batch, mesh), s)
+            out["params"].append(_flat(layout.join(params)))
+            out["losses"].append(_np(metrics["loss_per_worker"]))
+    finally:
+        streaming._merge_bottom = real
+    n = len(tree_util.leaves(whole))
+    out["bytes"] = {"params": (_bytes(params), _bytes(whole)),
+                    "mu": (_bytes(state["mu"]), _bytes(init_opt_state(
+                        opt, whole)["mu"])),
+                    "bot": (sum(stats[-n:]) if rc.b else 0,
+                            rc.b * _bytes(tree_util.map(
+                                lambda x: x.float(), whole)))}
+    return out
+
+
+def stream_setup(kind: str, m: int):
+    """The model and three (m, 4, ...) worker-stacked batches (seeded) of
+    the streaming cases: 4 rows a worker, one a data rank of a 4-way
+    data axis."""
+    g = torch.Generator().manual_seed(5)
+    if kind == "mlp":
+        from repro_torch.models.mlp import build_mlp_model
+        model = build_mlp_model((6, 8, 3))
+        return model, [{"x": torch.randn((m, 4, 6), generator=g),
+                        "y": torch.randint(0, 3, (m, 4), generator=g)}
+                       for _ in range(3)]
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    model = build_model(get_arch(kind), remat="full")
+    out = []
+    for _ in range(3):
+        t = torch.randint(0, model.cfg.vocab_size, (m, 4, 8), generator=g)
+        out.append({"tokens": t, "labels": torch.roll(t, -1, 2)})
+    return model, out
+
+
+def stream_single(kind, rule, attack, m, steps) -> dict:
+    """The one-process streaming step of the same case: each step's params
+    and workers' losses."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust import RobustConfig
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.train import streaming
+    model, batches = stream_setup(kind, m)
+    rc = RobustConfig(rule=rule, b=1 if m > 2 else 0, q=1,
+                      attack=AttackConfig(name=attack, num_byzantine=1))
+    opt = OptConfig(name="momentum", lr=0.1)
+    params = model.init(torch.Generator().manual_seed(0))
+    state = init_opt_state(opt, params)
+    step = streaming.make_streaming_train_step(
+        model, robust_cfg=rc, opt_cfg=opt, num_workers=m)
+    out = {"params": [], "losses": []}
+    if rule == "phocas":        # the first step's worker matrix (attacked)
+        grad = torch.func.grad(model.loss)
+        out["workers"] = np.stack([_flat(streaming._worker_attack(
+            rc.attack, streaming.tree_util.map(lambda x: x.float(), grad(
+                params, {k: v[w] for k, v in batches[0].items()})), w, 0))
+            for w in range(m)])
+    for s, batch in enumerate(batches[:steps]):
+        params, state, metrics = step(params, state, batch, s)
+        out["params"].append(_flat(params))
+        out["losses"].append(_np(metrics["loss_per_worker"]))
+    return out
+
+
 def _flat(params) -> np.ndarray:
     from repro_torch import tree as tree_util
     return np.concatenate([_np(x).reshape(-1)
@@ -202,13 +349,16 @@ def _flat(params) -> np.ndarray:
 
 
 def tp_rank(rank: int, world: int, serve_cases: dict, train_cases: dict,
-            grad_cases: dict, cli_argv: list) -> dict:
+            grad_cases: dict, cli_argv: list, head_cases: dict,
+            stream_cases: dict, stream_spec: dict) -> dict:
     """Every serving case, every training case, every gradient case and
-    the serve CLI on the (2, 2) mesh; rank 0 returns the values, every
-    rank its byte counts."""
-    from repro_torch.dist.mesh import make_host_mesh
+    the serve CLI on the (2, 2) mesh, the head cases on a (1, 4) mesh, the
+    streaming cases on their meshes and ``stream_spec``'s streaming run
+    on its own; rank 0 returns the values, every rank its byte counts and
+    the heads it attended over."""
+    from repro_torch.dist.mesh import make_host_mesh, make_mesh
     mesh = make_host_mesh(*MESH)
-    out = {"serve": {}, "train": {}, "grad": {}}
+    out = {"serve": {}, "train": {}, "grad": {}, "heads": {}, "stream": {}}
     for key, case in serve_cases.items():
         got = _serve(mesh, **case)
         out["serve"][key] = got if rank == 0 else {
@@ -224,4 +374,38 @@ def tp_rank(rank: int, world: int, serve_cases: dict, train_cases: dict,
     cli = _cli(cli_argv, alone=rank == 0)
     if rank == 0:
         out["cli"] = cli
+    wide = make_mesh((1, 4), ("data", "model"))
+    for key, case in head_cases.items():
+        got = _heads(wide, **case)
+        out["heads"][key] = got if rank == 0 else {"heads": got["heads"]}
+    meshes = {}
+    for key, (kind, rule, attack, shape, steps) in stream_cases.items():
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"))
+        got = _stream(meshes[shape], kind, rule, attack, steps)
+        out["stream"][key] = got if rank == 0 else {"bytes": got["bytes"]}
+    res = _stream_spec(**stream_spec)
+    if rank == 0:
+        out["spec"] = res
     return out
+
+
+def _stream_spec(spec_json, init, batches) -> dict:
+    """The spec's streaming run (the topology, its plan given a (4, 1)
+    mesh) from the reference's params on its batches: losses and
+    params."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.dist.mesh import make_host_mesh
+    from repro_torch.experiment import ScenarioSpec, resolve
+    from repro_torch.experiment.topologies import Streaming
+    from repro_torch.optim.optimizers import init_opt_state
+    plan = resolve(ScenarioSpec.from_json(spec_json), device="cpu")
+    plan.mesh = make_host_mesh(4, 1)
+    feed = [{"x": torch.tensor(b["x"]), "y": torch.tensor(b["y"]).long()}
+            for b in batches]
+    plan.batch_fn = lambda s: feed[s]
+    params = params_from_numpy(init)
+    res = Streaming().run(plan, init_state=(
+        params, init_opt_state(plan.opt_cfg, params)))
+    return {"losses": [r["loss"] for r in res.history],
+            "params": _flat(res.params)}
