@@ -275,6 +275,16 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
    (vii)'s hymba FSDP streaming step on "4x2": each predicted peak within
    10 % of the peak rank 0 measured in phase 11 (for ``generate``, the
    larger of the prefill's and the decode step's);
+14. the static-analysis gate (no card: its subprocess starts after the
+   build, beside phase 13's, and is held after phase 13): ``python -m
+   repro_torch.analysis`` over the port's files (``src/repro_torch``,
+   this script, ``tools``, ``tests/test_torch_*.py`` and
+   ``tests/torch_*_ranks.py``) with ``--jsonl``: the plugin contracts of
+   the live registries, the telemetry kinds, the mesh axis names and
+   ``spawn``'s rank-function arity, seed provenance, the kernel caps owned
+   once and held against the CUDA sources; exit 0 and no error-severity
+   record, one line with the files read, the findings per rule and the
+   seconds taken;
 8. report: the card's name and power limit, one JSON line describing every
    kernel (launches include rank 0's in phases 10 and 11 and the kernel
    events of phase 12's traces), and as the last line ``{"ok": true,
@@ -4625,6 +4635,52 @@ def dryrun_phase(runs: dict) -> None:
     check(not failed, f"phase 13: {failed}")
 
 
+ANALYSIS_DIR = os.path.join(REPO, "build", "chip_smoke", "analysis")
+
+
+def analysis_start() -> dict:
+    """Phase 14's subprocess, started right after the build: the port's
+    static-analysis gate over the port's files.  It uses only this host's
+    CPU, so it runs beside the card's phases; :func:`analysis_phase` waits
+    for it."""
+    import glob
+    import shutil
+    shutil.rmtree(ANALYSIS_DIR, ignore_errors=True)
+    os.makedirs(ANALYSIS_DIR)
+    tests = sorted(glob.glob(os.path.join(REPO, "tests", "test_torch_*.py"))
+                   + glob.glob(os.path.join(REPO, "tests",
+                                            "torch_*_ranks.py")))
+    paths = ["src/repro_torch", "chip_smoke.py", "tools",
+             *(os.path.relpath(t, REPO) for t in tests)]
+    return cli_start("analysis", "repro_torch.analysis",
+                     paths + ["--jsonl", os.path.join(ANALYSIS_DIR,
+                                                      "analysis.jsonl")],
+                     ANALYSIS_DIR)
+
+
+def analysis_phase(run: dict) -> None:
+    """Phase 14: the gate of :func:`analysis_start` exits 0 and writes no
+    error-severity record."""
+    from repro_torch.analysis.findings import RULES
+    from repro_torch.defense.telemetry import read_jsonl
+    text = cli_wait(run)
+    records = read_jsonl(os.path.join(ANALYSIS_DIR, "analysis.jsonl"))
+    per_rule = {rule: sum(r["rule"] == rule for r in records)
+                for rule in RULES}
+    errors = [r for r in records if r["severity"] == "error"]
+    # "repro_torch.analysis: <files> file(s) in <seconds> s"
+    tail = [x.split() for x in text.splitlines()
+            if x.startswith("repro_torch.analysis: ") and "file(s)" in x]
+    check(len(tail) == 1, f"phase 14: no file count in:\n{text[-3000:]}")
+    print(f"phase 14: python -m repro_torch.analysis (no card): "
+          f"{tail[0][1]} files, {len(errors)} errors, findings per rule "
+          f"{json.dumps(per_rule)}; the gate took {tail[0][4]} s (started "
+          f"after the build, held {run['s']:.1f} s after its start)")
+    check(not errors, "phase 14: the gate found errors:\n"
+          + "\n".join(f"{r['path']}:{r['line']}: {r['rule']}: "
+                      f"{r['message']}" for r in errors))
+
+
 def host_available_gib() -> float:
     with open("/proc/meminfo") as f:
         for line in f:
@@ -4670,11 +4726,13 @@ def main() -> int:
                 print(f"  {fn}: {line.split(':', 1)[1].strip()}; {frame}")
 
     dry = dryrun_start()
+    gate = analysis_start()
     try:
         report, launches = card_phases()
         dryrun_phase(dry)
+        analysis_phase(gate)
     finally:
-        for run in dry.values():
+        for run in (*dry.values(), gate):
             cli_stop(run)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "

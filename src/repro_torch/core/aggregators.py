@@ -307,19 +307,17 @@ class MedianRule(AggregatorRule):
 
 
 class _TrimFamilyRule(AggregatorRule):
-    """Score and gate plumbing shared by trmean and phocas.
+    """Score and gate plumbing shared by trmean, phocas and mediam.
 
     Subclasses set ``trim_kind`` (a ``selection.trim_family`` kind) and
     ``_baseline(m)``, the drop frequency an exchangeable benign worker
-    expects.  On the kernel backend the counts
-    come from the counts kernel and a gated aggregate, once a worker is
-    ejected, from a second kernel launch (the base-class composition); on
-    the plain backend one ``selection.trim_family`` pass gives both.
+    expects.  On the plain backend one ``selection.trim_family`` pass gives
+    the aggregate and the counts; the kernel backend is
+    :class:`_TrimKernelRule`'s.
     """
     trim_kind = ""
     resilience = "dimensional"
     uses_b = True
-    has_kernel = True
     emits_scores = True
     fused_gate = True
 
@@ -328,6 +326,31 @@ class _TrimFamilyRule(AggregatorRule):
 
     def _reduce_plain(self, u):
         return selection.trim_family(u, self.params.b, self.trim_kind)[0]
+
+    def _stats(self, u, b):
+        return selection.trim_family(u, b, self.trim_kind, with_scores=True)
+
+    def reduce_sharded_with_scores(self, mat, psum_axes=()):
+        return trim_mask_scores(self._stats, mat, self.params.b,
+                                self._baseline(mat.shape[0]), psum_axes)
+
+    def reduce_sharded_gated_with_scores(self, mat, active, psum_axes=()):
+        if self.uses_kernel(mat):
+            return super().reduce_sharded_gated_with_scores(mat, active,
+                                                            psum_axes)
+        return fused_trim_family_scores(mat, self.params.b, self.trim_kind,
+                                        self._baseline(mat.shape[0]), active,
+                                        psum_axes)
+
+
+class _TrimKernelRule(_TrimFamilyRule):
+    """The trim-family rules with CUDA kernels, trmean and phocas: the
+    kernel hooks live here and not on the family base, so that mediam, which
+    has no kernel, inherits none (as the reference puts ``_reduce_pallas``
+    on these two rules only).  On the kernel backend the counts come from
+    the counts kernel and a gated aggregate, once a worker is ejected, from
+    a second kernel launch (the base-class composition)."""
+    has_kernel = True
 
     def _reduce_kernel(self, u):
         from repro_torch.kernels import ops
@@ -345,23 +368,11 @@ class _TrimFamilyRule(AggregatorRule):
     def _stats(self, u, b):
         if self.uses_kernel(u):
             return self._kernel_stats(u, b)
-        return selection.trim_family(u, b, self.trim_kind, with_scores=True)
-
-    def reduce_sharded_with_scores(self, mat, psum_axes=()):
-        return trim_mask_scores(self._stats, mat, self.params.b,
-                                self._baseline(mat.shape[0]), psum_axes)
-
-    def reduce_sharded_gated_with_scores(self, mat, active, psum_axes=()):
-        if self.uses_kernel(mat):
-            return super().reduce_sharded_gated_with_scores(mat, active,
-                                                            psum_axes)
-        return fused_trim_family_scores(mat, self.params.b, self.trim_kind,
-                                        self._baseline(mat.shape[0]), active,
-                                        psum_axes)
+        return super()._stats(u, b)
 
 
 @register_rule
-class TrmeanRule(_TrimFamilyRule):
+class TrmeanRule(_TrimKernelRule):
     """b-trimmed coordinate-wise mean (Definition 7)."""
     name = "trmean"
     trim_kind = "trmean"
@@ -373,7 +384,7 @@ class TrmeanRule(_TrimFamilyRule):
 
 
 @register_rule
-class PhocasRule(_TrimFamilyRule):
+class PhocasRule(_TrimKernelRule):
     """Phocas (Definition 8)."""
     name = "phocas"
     trim_kind = "phocas"

@@ -36,6 +36,11 @@ MODEL_AXIS_NAMES = frozenset({"model", "tensor", "tp", "mp"})
 # Worker-role axis names the meshes of this package use.
 WORKER_AXIS_NAMES = frozenset({"data", "pod"})
 
+# Every axis name a mesh of this package may carry (the reference's
+# vocabulary); ``python -m repro_torch.analysis`` (AXIS001) holds the
+# literal names handed to a mesh to it.
+AXIS_VOCAB = WORKER_AXIS_NAMES | MODEL_AXIS_NAMES
+
 
 class P(tuple):
     """A partition spec: one entry per tensor dimension, ``None``

@@ -779,6 +779,10 @@ class Serve(Topology):
     final metrics are the latency/throughput summary."""
 
     name = "serve"
+    # Replica count lives here (NOT spec.num_workers, which is the training
+    # fan-out and must stay >= 2); every key is read via a literal
+    # topology_params.get(...) below so repro_torch.analysis CONTRACT006 can
+    # cross-check this tuple against the loop body.
     param_names = ("replicas", "max_slots", "max_seq_len", "block_tokens",
                    "num_requests", "arrival_rate", "prompt_len",
                    "max_new_tokens")
@@ -819,16 +823,15 @@ class Serve(Topology):
         from repro_torch.serve import (RobustDecoder, ServeEngine,
                                        corrupt_replica, make_replicas)
 
-        tp = plan.topology_params
-        replicas = int(tp.get("replicas", 1))
-        max_slots = int(tp.get("max_slots", 8))
-        max_seq_len = int(tp.get("max_seq_len", 128))
-        block_tokens = int(tp.get("block_tokens", 16))
-        num_requests = int(tp.get("num_requests", 16))
+        replicas = int(plan.topology_params.get("replicas", 1))
+        max_slots = int(plan.topology_params.get("max_slots", 8))
+        max_seq_len = int(plan.topology_params.get("max_seq_len", 128))
+        block_tokens = int(plan.topology_params.get("block_tokens", 16))
+        num_requests = int(plan.topology_params.get("num_requests", 16))
         # arrival_rate: requests per engine step (Poisson)
-        arrival_rate = float(tp.get("arrival_rate", 2.0))
-        prompt_len = int(tp.get("prompt_len", 8))
-        max_new = int(tp.get("max_new_tokens", 16))
+        arrival_rate = float(plan.topology_params.get("arrival_rate", 2.0))
+        prompt_len = int(plan.topology_params.get("prompt_len", 8))
+        max_new = int(plan.topology_params.get("max_new_tokens", 16))
 
         model = plan.model
         if init_state is None:
