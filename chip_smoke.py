@@ -285,10 +285,22 @@ Phases, each of which fails the run (non-zero exit) on any wrong result:
    once and held against the CUDA sources; exit 0 and no error-severity
    record, one line with the files read, the findings per rule and the
    seconds taken;
+15. the NCCL mesh, one rank a card (``dist/launch.py::spawn`` with
+   ``device="cuda"``): (i) always, a 1-rank NCCL world on ``cuda:0`` runs
+   the paper's MLP on "1x1" (m = 1, phocas b = q = 0: the plain mean, no
+   kernel, as the reference's ``ops.py``), held against the same run in
+   one process at phase 10's tolerances, with the world's backend, the
+   rank's device and the NCCL forms' tensor calls checked; (ii) only on a
+   host with NCCL_RANKS cards, a 4-rank NCCL world: the MLP on "4x1" (m =
+   4, b = q = 1, K1 on each rank's slices) held as phase 10 holds "20x1",
+   cell A on "2x2" (m = 2, so b = 0 and no K1) held to one process's
+   losses, granite-8b (8 layers) served on "1x4" (K6 in its prefill) at
+   TP_LOGIT_ATOL, the ms of a model-axis all_reduce printed; on fewer
+   cards (ii) prints one line and runs nothing;
 8. report: the card's name and power limit, one JSON line describing every
-   kernel (launches include rank 0's in phases 10 and 11 and the kernel
-   events of phase 12's traces), and as the last line ``{"ok": true,
-   "device": {...}}``.
+   kernel (launches include rank 0's in phases 10, 11 and 15 and the
+   kernel events of phase 12's traces), and as the last line ``{"ok":
+   true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN convolutions throughout.  Without a CUDA
 device the script exits non-zero and prints no result.
@@ -4493,7 +4505,8 @@ def dryrun_predict() -> None:
     training step on TP_TRAIN_MESH (m = TP_M, phocas b = q = TP_B under
     omniscient, remat full), granite-8b's prefill of its prompts and
     decode step against its cache on TP_SERVE_MESH, and part (vii)'s
-    hymba FSDP streaming step on TP_TRAIN_MESH.  Prints one line
+    hymba FSDP streaming step on TP_TRAIN_MESH, each under the gloo
+    collective forms that phase 11's one-card runs took.  Prints one line
     ``DRYRUN {json}``."""
     from repro_torch.configs import InputShape
     from repro_torch.core.attacks import AttackConfig
@@ -4506,8 +4519,10 @@ def dryrun_predict() -> None:
     def traced(tag, arch, shape, mesh, **kw):
         t0 = time.perf_counter()
         with dryrun.fake_tensors():
+            # the gloo forms: phase 11 ran its ranks on one card over gloo
             fn, args, _ = dryrun.build_traced(arch, shape, mesh,
-                                              remat="full", **kw)
+                                              remat="full", forms="gloo",
+                                              **kw)
             params = storage_bytes(args[0])
             cost = trace_cost(fn, *args, fold_loops=True)  # as the dry run
         out[tag] = {"peak": cost["peak_bytes"], "params": params,
@@ -4681,6 +4696,320 @@ def analysis_phase(run: dict) -> None:
                       f"{r['message']}" for r in errors))
 
 
+# ---------------------------------------------------------------------------
+# phase 15: one rank a card over NCCL
+# ---------------------------------------------------------------------------
+
+NCCL_RANKS = 4                   # part (ii): a card for each of 4 ranks
+NCCL_I_STEPS = 3                 # part (i): the "1x1" MLP run
+NCCL_MLP_STEPS = 10              # part (ii): the "4x1" MLP run
+NCCL_CELL_MESH = (2, 2)          # part (ii): cell A's tensor-parallel step
+NCCL_CELL_STEPS = 2
+NCCL_SERVE = "granite-8b"        # part (ii): served on NCCL_SERVE_MESH,
+NCCL_SERVE_MESH = (1, 4)         # phase 11's cut (TP_SERVE)
+NCCL_COLL_CALLS = 20             # model-axis all_reduces timed
+
+
+def nccl_one_plan(mesh):
+    """Part (i)'s sync_ps plan: the paper's MLP (full width) as one
+    worker on its data, phocas b = q = 0 with no attack, NCCL_I_STEPS
+    steps, on ``mesh`` (a spec asks for two workers at least, so the plan
+    is made from the resolved parts of a two-worker spec)."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust import RobustConfig
+    from repro_torch.experiment import resolve
+    from repro_torch.experiment.runner import plan_from_parts
+    robust = RobustConfig(rule="phocas", b=0, q=0, layout="sharded")
+    spec = dataclasses.replace(paper_spec("mlp", NCCL_I_STEPS),
+                               num_workers=2, attack=AttackConfig(),
+                               robust=robust)
+    parts = resolve(spec, device="cuda")
+    plan = plan_from_parts(
+        model=parts.model, batch_fn=parts.batch_fn, robust_cfg=robust,
+        opt_cfg=parts.opt_cfg, num_workers=1, steps=NCCL_I_STEPS,
+        record_every=1, device="cuda")
+    plan.mesh = mesh
+    return plan
+
+
+def nccl_cell_plan(mesh):
+    """Cell A's sync_ps plan at m = NCCL_CELL_MESH[0] (phocas b = 0, the
+    only b at m = 2) on the token stream."""
+    from repro_torch.data.pipeline import TokenStream
+    model = lm_model("A")
+    m = NCCL_CELL_MESH[0]
+    batch_fn = TokenStream(vocab_size=model.cfg.vocab_size,
+                           seq_len=LM_SEQ_LEN, global_batch=m * LM_SEQS,
+                           seed=0, device="cuda").batch
+    plan = sync_plan(model, batch_fn, m=m, b=0, steps=NCCL_CELL_STEPS,
+                     tag="nccl-A", spans=False)
+    plan.mesh = mesh
+    return plan
+
+
+def nccl_run(run) -> tuple:
+    """``run()`` (an ``ExperimentResult``) as this rank, with the launches
+    counted around it: (losses, the params on the host, the params'
+    digest, launches, the params' device)."""
+    from repro_torch.tree import leaves
+    res, counts = launch_counts(run)
+    params = leaves(res.params)
+    return ([r["loss"] for r in res.history], [x.cpu() for x in params],
+            _digest(res.params), counts, str(params[0].device))
+
+
+def nccl_rank_setup(t_spawn: float) -> dict:
+    """A rank's first steps on its card: TF32 off, the world's backend,
+    its device (``dist/launch.py::rank_device``) and the card CUDA made
+    current, and on an NCCL world the NCCL forms' two tensor calls
+    (``dist/collectives.py``) over the world on its card, whose outputs
+    must be the gather and the sum of every rank's input (None on
+    gloo)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.launch import rank_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(rank_device())
+    world, rank = dist.get_world_size(), dist.get_rank()
+    calls = None
+    if dist.get_backend() == "nccl":
+        x = torch.arange(4 * world, dtype=torch.float32, device=dev) + rank
+        gathered = x.new_empty(world * x.numel())
+        C._all_gather_single(gathered, x)
+        summed = x.new_empty(4)
+        C._reduce_scatter_single(summed, x)
+        base = torch.arange(4 * world, dtype=torch.float32, device=dev)
+        calls = bool(torch.equal(gathered, torch.cat(
+            [base + r for r in range(world)])) and torch.equal(
+                summed, (world * base + world * (world - 1) / 2)[
+                    4 * rank:4 * rank + 4]))
+    dist.barrier()
+    return {"spawn_s": time.time() - t_spawn, "backend": dist.get_backend(),
+            "device": str(dev), "current": torch.cuda.current_device(),
+            "calls": calls}
+
+
+def nccl_rank_one(rank: int, world: int, t_spawn: float) -> dict:
+    """Part (i) as the one rank of its world: the plan on a "1x1" mesh."""
+    from repro_torch.dist.mesh import make_host_mesh
+    from repro_torch.experiment.topologies import SyncPS
+    out = nccl_rank_setup(t_spawn)
+    t0 = time.perf_counter()
+    plan = nccl_one_plan(make_host_mesh(1, 1))
+    out["run"] = nccl_run(lambda: SyncPS().run(plan))
+    out["run_s"] = time.perf_counter() - t0
+    return out
+
+
+def nccl_coll_ms(mesh) -> float:
+    """The median ms of a model-axis all_reduce of a decode step's
+    (TP_BATCH, 1, d_model) bf16 activation (``reduce_from_model``, the
+    row-parallel sum; synchronized host clock, a barrier before each)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.collectives import reduce_from_model
+    from repro_torch.dist.sharding import model_axes_of
+    axes = [a for a in mesh.axes(model_axes_of(mesh)) if a.size > 1]
+    x = torch.randn((TP_BATCH, 1, arch_cfg(NCCL_SERVE).d_model),
+                    device="cuda").bfloat16()
+    times = []
+    with torch.no_grad():
+        for i in range(NCCL_COLL_CALLS + 3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reduce_from_model(x, axes)
+            torch.cuda.synchronize()
+            if i >= 3:                       # the first calls warm up
+                times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def nccl_rank_four(rank: int, world: int, handoff: str,
+                   t_spawn: float) -> dict:
+    """Part (ii) as one rank of its world: the MLP on "4x1", cell A on
+    NCCL_CELL_MESH, NCCL_SERVE served on NCCL_SERVE_MESH (phase 11's
+    rank body), a model-axis all_reduce timed."""
+    from repro_torch.dist.mesh import make_host_mesh
+    from repro_torch.experiment import run_experiment
+    from repro_torch.experiment.topologies import SyncPS
+    out = nccl_rank_setup(t_spawn)
+    t0 = time.perf_counter()
+    spec = dataclasses.replace(mesh_compare_spec("sharded", world),
+                               steps=NCCL_MLP_STEPS)
+    out["mlp"] = nccl_run(lambda: run_experiment(spec))
+    out["mlp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = nccl_cell_plan(make_host_mesh(*NCCL_CELL_MESH))
+    res, counts = launch_counts(lambda: SyncPS().run(plan))
+    out["cell"] = {"losses": [r["loss"] for r in res.history],
+                   "counts": counts,
+                   "walls": [r["wall"] for r in res.history]}
+    del res, plan
+    torch.cuda.empty_cache()
+    out["cell_s"] = time.perf_counter() - t0
+    serve = make_host_mesh(*NCCL_SERVE_MESH)
+    out["serve"] = tp_serve_rank(serve, NCCL_SERVE, *TP_SERVE[NCCL_SERVE],
+                                 handoff)
+    out["coll_ms"] = nccl_coll_ms(serve)
+    return out
+
+
+def nccl_phase() -> dict:
+    """Phase 15: part (i) always, part (ii) on a host with NCCL_RANKS
+    cards (else one line).  Returns rank 0's launches of (ii)."""
+    from repro_torch.dist.launch import spawn
+    from repro_torch.experiment.topologies import SyncPS
+    t0 = time.perf_counter()
+    local = SyncPS().run(nccl_one_plan(None))
+    local_s = time.perf_counter() - t0
+    r0 = spawn(nccl_rank_one, 1, time.time(), device="cuda")[0]
+    losses, params, _, counts, where = r0["run"]
+    check(r0["backend"] == "nccl" and r0["device"] == "cuda:0"
+          and r0["current"] == 0 and where == "cuda:0",
+          f"phase 15 (i): backend {r0['backend']}, rank device "
+          f"{r0['device']} (current {r0['current']}), params on {where}; "
+          "expected nccl on cuda:0")
+    check(r0["calls"], "phase 15 (i): the NCCL forms' all_gather_single / "
+                       "reduce_scatter_single gave wrong values")
+    check(not any(counts.values()),
+          f"phase 15 (i): launches {counts} (b = 0 is the plain mean)")
+    perr = nccl_hold("(i) 1x1", losses, params, local)
+    print(f"phase 15 (i): a 1-rank NCCL world (ready {r0['spawn_s']:.2f} s "
+          f"after the spawn) on cuda:0: the MLP on '1x1' (m = 1, phocas b "
+          f"= 0), {NCCL_I_STEPS} steps, losses "
+          f"{[round(x, 4) for x in losses]} within rtol {MESH_TOL[0]} atol "
+          f"{MESH_TOL[1]} of one process, params max diff {perr:.2e}; "
+          f"all_gather_single and reduce_scatter_single over NCCL right; "
+          f"no kernel launched (b = 0); {time.perf_counter() - t0:.1f} s "
+          f"(one process's run {local_s:.1f} s, the rank's "
+          f"{r0['run_s']:.1f} s)")
+    cards = torch.cuda.device_count()
+    if cards < NCCL_RANKS:
+        print(f"phase 15 (ii): this host has {cards} card"
+              f"{'s' if cards != 1 else ''}; the 4-rank NCCL mesh needs "
+              f"{NCCL_RANKS}, so it is not run")
+        return {}
+    return nccl_part_two()
+
+
+def nccl_hold(tag: str, losses, params, local) -> float:
+    """A mesh run's losses and params against one process's run at phase
+    10's tolerances; returns the params' max difference."""
+    from repro_torch.tree import leaves
+    rtol, atol = MESH_TOL
+    want_l = [r["loss"] for r in local.history]
+    want_p = [x.cpu() for x in leaves(local.params)]
+    perr = max((a - b).abs().max().item() for a, b in zip(params, want_p))
+    check(torch.allclose(torch.tensor(losses), torch.tensor(want_l),
+                         rtol=rtol, atol=atol)
+          and all(torch.allclose(a, b, rtol=rtol, atol=atol)
+                  for a, b in zip(params, want_p)),
+          f"phase 15 {tag}: losses {losses} vs one process {want_l}, "
+          f"params max diff {perr}")
+    return perr
+
+
+def nccl_part_two() -> dict:
+    """Phase 15 (ii): the single process's references first, then the
+    4-rank world (NCCL with a card a rank; where the host has fewer cards
+    the same world runs over gloo on one card, which rehearses the part),
+    then the holds.  Returns rank 0's launches."""
+    import gc
+    import tempfile
+
+    from repro_torch.dist.launch import plan_world, spawn
+    from repro_torch.experiment import run_experiment
+    from repro_torch.experiment.topologies import SyncPS
+    t0 = time.perf_counter()
+    local = run_experiment(dataclasses.replace(
+        mesh_compare_spec("sharded", NCCL_RANKS), steps=NCCL_MLP_STEPS,
+        mesh=""))
+    cell_ref = [r["loss"] for r in SyncPS().run(nccl_cell_plan(None))
+                .history]
+    serve_ref = tp_serve_reference(NCCL_SERVE, *TP_SERVE[NCCL_SERVE])
+    gc.collect()
+    torch.cuda.empty_cache()
+    backend, _ = plan_world("cuda", torch.cuda.device_count(), NCCL_RANKS)
+    ref_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="phase15-") as handoff:
+        tp_handoff(handoff, "serve", {NCCL_SERVE: serve_ref})
+        ranks = spawn(nccl_rank_four, NCCL_RANKS, handoff, time.time(),
+                      device="cuda")
+    r0 = ranks[0]
+    for r, rk in enumerate(ranks):
+        want = f"cuda:{r}" if backend == "nccl" else "cuda"
+        check(rk["backend"] == backend and rk["device"] == want
+              and rk["calls"] is not False,
+              f"phase 15 (ii): rank {r} on {rk['device']} over "
+              f"{rk['backend']} (expected {want} over {backend}), tensor "
+              f"calls {rk['calls']}")
+    losses, params, digest, _, _ = r0["mlp"]
+    for r, rk in enumerate(ranks):
+        c = rk["mlp"][3]
+        check(rk["mlp"][2] == digest,
+              f"phase 15 (ii) mlp: rank {r}'s params differ from rank 0's")
+        check(c["phocas"] == NCCL_MLP_STEPS and sum(c.values())
+              == NCCL_MLP_STEPS, f"phase 15 (ii) mlp: rank {r} launches {c}")
+    perr = nccl_hold("(ii) 4x1", losses, params, local)
+    print(f"phase 15 (ii): a {NCCL_RANKS}-rank {backend} world (ready "
+          f"{r0['spawn_s']:.2f} s after the spawn); the single process's "
+          f"references took {ref_s:.1f} s")
+    print(f"  mlp phocas signflip on '{NCCL_RANKS}x1' (b = q = 1), "
+          f"{NCCL_MLP_STEPS} steps: losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} within rtol {MESH_TOL[0]} atol {MESH_TOL[1]} "
+          f"of one process, params max diff {perr:.2e}, bit-equal across "
+          f"ranks; K1 {r0['mlp'][3]['phocas']} launches a rank on its "
+          f"slice; {r0['mlp_s']:.1f} s")
+    got = r0["cell"]["losses"]
+    check(len(got) == NCCL_CELL_STEPS
+          and all(x == x and abs(x) != float("inf") for x in got)
+          and torch.allclose(torch.tensor(got), torch.tensor(cell_ref),
+                             rtol=TP_LOSS_RTOL, atol=0),
+          f"phase 15 (ii) cell A: losses {got} vs one process {cell_ref}")
+    for r, rk in enumerate(ranks):
+        check(not any(rk["cell"]["counts"].values()),
+              f"phase 15 (ii) cell A: rank {r} launches "
+              f"{rk['cell']['counts']} (b = 0 is the plain mean)")
+    walls = [round(x, 2) for x in r0["cell"]["walls"]]
+    print(f"  cell A ({LM_CELLS['A'][0]}, {LM_CELLS['A'][1]} layers) on "
+          f"{NCCL_CELL_MESH} (data, model), tensor-parallel, m = "
+          f"{NCCL_CELL_MESH[0]}, phocas b = 0: {NCCL_CELL_STEPS} steps, "
+          f"losses {[round(x, 4) for x in got]} within rtol {TP_LOSS_RTOL} "
+          f"of one process {[round(x, 4) for x in cell_ref]}; step walls "
+          f"{walls} s; {r0['cell_s']:.1f} s")
+    layers, changes, plen, new = TP_SERVE[NCCL_SERVE]
+    got = r0["serve"]
+    err = (got["logits"] - serve_ref["logits"][:TP_FORCED + 1]).abs() \
+        .max().item()
+    atol = TP_LOGIT_ATOL[changes.get("dtype", "bfloat16")]
+    check(err <= atol, f"phase 15 (ii) {NCCL_SERVE}: logits {err} from one "
+                       f"process (> {atol})")
+    k6 = model_layers(NCCL_SERVE, layers)
+    for r, rk in enumerate(ranks):
+        c = rk["serve"]["counts"]
+        check(c["flash_attn"] == k6 and sum(c.values()) == k6,
+              f"phase 15 (ii) {NCCL_SERVE}: rank {r} launches {c}, "
+              f"expected {k6} K6")
+    same_toks = int((got["tokens"] == serve_ref["tokens"]).all(1).sum())
+    coll = sorted(rk["coll_ms"] for rk in ranks)
+    print(f"  {NCCL_SERVE} ({k6} layers) on {NCCL_SERVE_MESH} (data, "
+          f"model): {TP_BATCH} prompts of {plen} + {new}: generate "
+          f"{got['gen_s']:.2f} s, one decode step {got['step_ms']:.2f} ms "
+          f"(median, rank 0); logits max|mesh - single| {err:.2e} (limit "
+          f"{atol}); tokens equal in {same_toks} of {TP_BATCH} requests; "
+          f"K6 {got['counts']['flash_attn']} launches a rank; a model-axis "
+          f"all_reduce of ({TP_BATCH}, 1, d_model) bf16 "
+          f"{coll[0]:.3f}-{coll[-1]:.3f} ms over the ranks (median of "
+          f"{NCCL_COLL_CALLS}; gloo with 8 ranks on one card: 13-18 ms, "
+          f"PERF.md section 5)")
+    print(f"phase 15 (ii): {time.perf_counter() - t0:.1f} s")
+    return {"phocas": r0["mlp"][3]["phocas"],
+            "flash_attn": got["counts"]["flash_attn"]}
+
+
 def host_available_gib() -> float:
     with open("/proc/meminfo") as f:
         for line in f:
@@ -4731,6 +5060,8 @@ def main() -> int:
         report, launches = card_phases()
         dryrun_phase(dry)
         analysis_phase(gate)
+        for k, v in nccl_phase().items():
+            launches[k] += v
     finally:
         for run in (*dry.values(), gate):
             cli_stop(run)

@@ -12,8 +12,8 @@ literal: the receiver's type is not known statically), and the axes
 argument of the ``dist/collectives.py`` functions.
 
 AXIS002 is the counterpart of the reference's shard_map spec arity:
-``dist/launch.py::spawn(fn, world, *args)`` runs ``fn(rank, world,
-*args)`` in each rank, so where ``fn`` names a plain ``def`` without
+``dist/launch.py::spawn(fn, world, *args, device=None)`` runs ``fn(rank,
+world, *args)`` in each rank, so where ``fn`` names a plain ``def`` without
 ``*args`` (in the same file, or in a module beside it imported by name),
 its positional parameters must take ``2 + len(args)`` arguments.
 """
@@ -179,8 +179,9 @@ def analyze(path: str, tree: ast.Module) -> List[Finding]:
 
 
 def _check_spawn(path: str, call: ast.Call, defs: _Defs) -> List[Finding]:
+    # spawn's one keyword, ``device``, is not handed to the rank function
     if len(call.args) < 2 or not isinstance(call.args[0], ast.Name) \
-            or call.keywords \
+            or any(k.arg != "device" for k in call.keywords) \
             or any(isinstance(a, ast.Starred) for a in call.args):
         return []
     fname = call.args[0].id

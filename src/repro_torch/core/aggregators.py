@@ -38,8 +38,10 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core import selection
-from repro_torch.core.registry import (AggregatorRule, distance_ratio_scores,
-                                       drop_frequency_scores, register_rule)
+from repro_torch.core.registry import (AggregatorRule, RuleParams,
+                                       distance_ratio_scores,
+                                       drop_frequency_scores, make_rule,
+                                       register_rule)
 from repro_torch.core.selection import vector_median
 from repro_torch.kernels.krum.ref import pairwise_sq_dists_ref
 
@@ -516,3 +518,30 @@ class GeomedianRule(AggregatorRule):
                                 psum_axes=psum_axes)
         d2 = _row_sq_dists(flat, z, psum_axes)
         return z.reshape(mat.shape[1:]), distance_ratio_scores(torch.sqrt(d2))
+
+
+# ---------------------------------------------------------------------------
+# Name-based lookup (registry-backed)
+# ---------------------------------------------------------------------------
+
+def get_aggregator(name: str, *, b: int = 0, q: int = 0,
+                   multikrum_k: Optional[int] = None,
+                   geomedian_iters: int = 8, backend: str = "xla"):
+    """Return a unary ``(m, ...) -> (...)`` aggregation closure by name.
+
+    Thin compatibility wrapper over the registry: any rule registered via
+    ``@register_rule`` (including single-file plugins) resolves here.
+    Defaults to the plain torch path, as the reference's defaults to its
+    jnp path; pass ``backend="auto"`` or ``"pallas"`` for the kernels.
+    """
+    rule = make_rule(name, RuleParams(b=b, q=q, multikrum_k=multikrum_k,
+                                      geomedian_iters=geomedian_iters,
+                                      backend=backend))
+    return rule.reduce
+
+
+# Deprecated: static snapshots kept for backwards compatibility.  The source
+# of truth is the registry (registry.coordinate_wise_rules() / ...), which
+# also covers plugin rules.
+COORDINATE_WISE = frozenset({"mean", "median", "trmean", "phocas"})
+VECTOR_WISE = frozenset({"krum", "multikrum", "geomedian"})

@@ -1,3 +1,3 @@
 """Deterministic synthetic data (the paper's classification substrate)."""
 from repro_torch.data.pipeline import (ClassificationData,  # noqa: F401
-                                       make_worker_batches)
+                                       TokenStream, make_worker_batches)

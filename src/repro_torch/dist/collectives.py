@@ -29,20 +29,34 @@ that axis's process group, in the reference's order of per-axis steps:
     computes on, one collective for a group of leaves, whose backward
     reduce-scatters the gradient back to the shards.
 
-The backend is gloo on the CPU and on the card (every rank of a mesh on one
-GPU shares it, which NCCL refuses); gloo stages CUDA tensors through the
-host.  Each operation has one form, one that gloo takes for CUDA tensors in
-torch 2.11 and 2.13 alike: ``all_reduce``, the list form of ``all_gather``
-(``all_gather_into_tensor`` is deprecated in 2.13 for ``all_gather_single``,
-which 2.11 lacks) and ``all_to_all_single`` (gloo has no list-form
-``all_to_all``).  Collectives over an axis of size 1 are the identity.
-The model-axis sums take bf16 and f16 operands in f32 and round once at
-the end, so a sum of tp partial products is rounded as one product is.
-gloo stages a CUDA tensor through pinned host buffers, which PyTorch's
-host allocator keeps: an all_gather or all_to_all of a CUDA tensor moves
-at most ``STAGE_BYTES`` a call, in as many calls as it takes, so that a
-rank's staging stays bounded however large the tensor (the bytes moved
-are the same).
+Each axis says which of two forms its collectives take
+(``dist/mesh.py::Axis.forms``, by default its group's backend), with the
+same semantics:
+
+  * **NCCL forms** (one rank a card, ``dist/launch.py``): an all_gather
+    is one ``all_gather_into_tensor`` straight into the output, an
+    all_to_all one ``all_to_all_single``, whatever their size; a
+    reduce-scatter (:func:`reduce_scatter_to_model`, the FSDP gradient)
+    is one ``reduce_scatter_tensor`` an axis, the first axis first, so
+    that a rank ends with the :func:`worker_slice_index`-th block.  gloo
+    takes these calls too on CPU tensors, which is how the CPU tests run
+    them.
+  * **gloo forms** (CPU ranks, or several ranks on one card, which NCCL
+    refuses), what every mesh ran before the NCCL forms, kept bit for bit:
+    ``all_reduce``, the list form of ``all_gather`` and
+    ``all_to_all_single`` (gloo has no list-form ``all_to_all``), and a
+    reduce-scatter as an f32 all_reduce and a cut.  gloo takes these on
+    CUDA tensors in torch 2.11 and 2.13, and in 2.11 on the card it takes
+    the NCCL forms' tensor calls too, in f32, bf16 and f16
+    (``tools/gloo_dtypes.py``).  gloo stages a CUDA tensor through pinned
+    host buffers, which PyTorch's host allocator keeps: an all_gather or
+    all_to_all of a CUDA tensor moves at most ``STAGE_BYTES`` a call, in
+    as many calls as it takes, so that a rank's staging stays bounded
+    however large the tensor (the bytes moved are the same).
+
+Collectives over an axis of size 1 are the identity.  The model-axis sums
+take bf16 and f16 operands in f32 and round once at the end, so a sum of
+tp partial products is rounded as one product is.
 """
 from __future__ import annotations
 
@@ -55,14 +69,22 @@ import torch.distributed as dist
 from repro_torch import tree as tree_util
 
 
-# Bytes an all_gather or all_to_all call moves for a CUDA tensor.
+# The tensor forms' calls: torch 2.13 names them ``*_single`` (and
+# deprecates the older names), torch 2.11 has only the older names.
+_all_gather_single = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+# Bytes a gloo-form all_gather or all_to_all call moves for a CUDA tensor.
 STAGE_BYTES = 64 << 20
 
 
-def _chunk(n_rows: int, row_len: int, t: torch.Tensor) -> int:
+def _chunk(n_rows: int, row_len: int, t: torch.Tensor, ax) -> int:
     """Elements a row of an (n_rows, row_len) collective carries per call:
-    the whole row on the CPU, at most STAGE_BYTES a call on the card."""
-    if not t.is_cuda:
+    the whole row under the NCCL forms and on the CPU, at most STAGE_BYTES
+    a call for a CUDA tensor under the gloo forms."""
+    if ax.forms == "nccl" or not t.is_cuda:
         return row_len
     return max(1, min(row_len, STAGE_BYTES // (n_rows * t.element_size())))
 
@@ -78,13 +100,20 @@ def _gather_cat(x: torch.Tensor, ax, dim: int) -> torch.Tensor:
     if ax.size == 1:
         return x
     x = x.contiguous()
+    if ax.forms == "nccl":      # one call, straight into the output
+        out = x.new_empty((ax.size * x.shape[0], *x.shape[1:]))
+        _all_gather_single(out, x, group=ax.group)
+        if dim == 0:
+            return out
+        return out.reshape(ax.size, *x.shape).movedim(0, dim).flatten(
+            dim, dim + 1)
     if dim == 0:                # gather straight into the output's rows
         out = x.new_empty((ax.size * x.shape[0], *x.shape[1:]))
         parts = list(out.chunk(ax.size, 0))
     else:
         out, parts = None, [torch.empty_like(x) for _ in range(ax.size)]
     flat, n = x.reshape(-1), x.numel()
-    step = _chunk(ax.size, n, x)
+    step = _chunk(ax.size, n, x, ax)
     if step >= n:
         dist.all_gather(parts, x, group=ax.group)
     else:
@@ -126,7 +155,7 @@ def _all_to_all(u: torch.Tensor, ax, split_dim: int) -> torch.Tensor:
     recv = torch.empty_like(send)
     rows_s, rows_r = send.reshape(n, -1), recv.reshape(n, -1)
     length = rows_s.shape[1]
-    step = _chunk(n, length, send)
+    step = _chunk(n, length, send, ax)
     if step >= length:
         dist.all_to_all_single(recv, send, group=ax.group)
     else:
@@ -237,6 +266,28 @@ def _psum_f32(x: torch.Tensor, axes) -> torch.Tensor:
     return psum_axes(x, axes)
 
 
+def _reduce_scatter_f32(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over ``axes``
+    (the :func:`worker_slice_index`-th of ``axis_size(axes)`` blocks),
+    narrow float types summed in f32.  Under the NCCL forms one
+    ``reduce_scatter_tensor`` an axis, the first axis first: the first
+    leaves this rank its coordinate's block, each further one a block of
+    that; under the gloo forms an all_reduce, then the cut."""
+    if any(ax.forms != "nccl" for ax in axes if ax.size > 1):
+        return _block(_psum_f32(x, axes), axes, dim).contiguous()
+    out = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    for ax in axes:
+        if ax.size == 1:
+            continue
+        n, s = ax.size, out.shape[dim] // ax.size
+        send = out.reshape(*out.shape[:dim], n, s,
+                           *out.shape[dim + 1:]).movedim(dim, 0).contiguous()
+        out = send.new_empty(send.shape[1:])
+        _reduce_scatter_single(out.view(-1), send.view(-1),
+                               group=ax.group)
+    return out.to(x.dtype)
+
+
 class _CopyToModel(torch.autograd.Function):
     """Identity forward, sum over the model axes backward: where a
     replicated activation enters a rank's block of a computation."""
@@ -312,12 +363,13 @@ class _ScatterToModel(torch.autograd.Function):
 
 class _ReduceScatterToModel(torch.autograd.Function):
     """The sum over the model axes, cut to this rank's block along ``dim``,
-    forward; the blocks' gradients all_gathered backward.  gloo has no
-    reduce_scatter: the sum is all_reduced, then cut."""
+    forward (a reduce-scatter under the NCCL forms, an all_reduce and a
+    cut under the gloo forms); the blocks' gradients all_gathered
+    backward."""
 
     @staticmethod
     def forward(x, axes, dim):
-        return _block(_psum_f32(x, axes), axes, dim).contiguous()
+        return _reduce_scatter_f32(x, axes, dim)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -375,8 +427,11 @@ class _FsdpGather(torch.autograd.Function):
     alike: the flat shards concatenated and all_gathered in one call,
     each block its runs, forward; backward, the blocks' gradients summed
     over ``rows`` (the axes a worker's batch rows are cut over: each
-    rank's gradient is its rows') in one call and this rank's runs taken,
-    a reduce-scatter (gloo has none: all_reduce, then cut)."""
+    rank's gradient is its rows') and this rank's runs taken: where
+    ``rows`` are ``axes``, a reduce-scatter (:func:`_reduce_scatter_f32`:
+    one call an axis under the NCCL forms, an all_reduce and a cut under
+    the gloo forms); where they differ, an all_reduce over ``rows`` and
+    this rank's runs taken."""
 
     @staticmethod
     def forward(axes, rows, shapes, *xs):
@@ -403,8 +458,12 @@ class _FsdpGather(torch.autograd.Function):
             (g if g is not None else ctx.like.new_zeros(
                 (n, math.prod(s)))).reshape(n, -1)
             for g, s in zip(gs, ctx.shards)], dim=1)
-        flat = _psum_f32(flat, ctx.rows)
-        mine = flat[worker_slice_index(ctx.axes)] if ctx.axes else flat[0]
+        if ctx.axes and ctx.rows == ctx.axes:
+            mine = _reduce_scatter_f32(flat, ctx.axes, 0)[0]
+        else:
+            flat = _psum_f32(flat, ctx.rows)
+            mine = (flat[worker_slice_index(ctx.axes)] if ctx.axes
+                    else flat[0])
         out, at = [], 0
         for s in ctx.shards:
             k = math.prod(s)

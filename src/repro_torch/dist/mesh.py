@@ -9,6 +9,16 @@ process group, so a collective "over axis a" runs in the group of ranks that
 share this rank's other coordinates.  Axes of size 1 get no group: a
 collective over them is the identity.
 
+Each axis also records the forms its collectives take
+(``dist/collectives.py``): ``"nccl"`` (one call a collective, a real
+reduce-scatter) or ``"gloo"`` (CUDA tensors staged in pieces, a
+reduce-scatter as an all_reduce and a cut).  By default they follow the
+backend of the axis's group, ``dist.get_backend(group)``;
+``make_mesh(..., forms=...)`` sets them, so that the NCCL forms can run on
+a gloo world of CPU ranks (gloo takes ``reduce_scatter_tensor`` and
+``all_gather_into_tensor`` on CPU tensors), and so that the dry run's fake
+world, which has no real backend, says which forms it traces.
+
 :func:`use_mesh` makes a mesh the ambient one of the code inside, as the
 reference's ``with mesh:`` does around its jitted serve step: the model
 layers read it through :func:`model_axis_size`, :func:`data_axis_size`
@@ -34,27 +44,31 @@ from repro_torch.dist.sharding import Mesh
 @dataclasses.dataclass(frozen=True)
 class Axis:
     """One mesh axis as this rank sees it: its name and size, this rank's
-    coordinate on it, and the process group of this rank's line along it
-    (None for an axis of size 1)."""
+    coordinate on it, the process group of this rank's line along it (None
+    for an axis of size 1) and the forms its collectives take (one of
+    ``FORMS``)."""
     name: str
     size: int
     index: int
     group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    forms: str = dataclasses.field(default="gloo", compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
 class HostMesh(Mesh):
-    """A :class:`Mesh` over the live world: this rank's coordinates and
-    one process group per axis line."""
+    """A :class:`Mesh` over the live world: this rank's coordinates, one
+    process group per axis line, and each axis's collective forms."""
     rank: int = 0
     coords: Tuple[int, ...] = ()
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict,
                                                compare=False, repr=False)
+    forms: Dict[str, str] = dataclasses.field(default_factory=dict,
+                                              compare=False)
 
     def axis(self, name: str) -> Axis:
         i = self.axis_names.index(name)
         return Axis(name, self.axis_sizes[i], self.coords[i],
-                    self.groups.get(name))
+                    self.groups.get(name), self.forms.get(name, "gloo"))
 
     def axes(self, names: Sequence[str]) -> Tuple[Axis, ...]:
         return tuple(self.axis(n) for n in names)
@@ -72,11 +86,31 @@ def parse_mesh(mesh: str) -> Tuple[int, int]:
     return d, mm
 
 
-def make_mesh(shape: Sequence[int], names: Sequence[str]) -> HostMesh:
+# The collective forms an axis can take (``dist/collectives.py``).
+FORMS = ("gloo", "nccl")
+
+
+def _backend_forms(group=None) -> str:
+    """The forms a group's backend takes: ``"nccl"`` for an NCCL group,
+    ``"gloo"`` for any other real backend.  The fake backend has none."""
+    backend = dist.get_backend(group)
+    if backend == "fake":
+        raise ValueError("the fake world has no collective backend: pass "
+                         "make_mesh the forms to trace (forms='nccl' or "
+                         "'gloo')")
+    return "nccl" if backend == "nccl" else "gloo"
+
+
+def make_mesh(shape: Sequence[int], names: Sequence[str], *,
+              forms: Optional[str] = None) -> HostMesh:
     """A mesh of ``shape`` over the initialized world, whose size must be
     the product of ``shape``.  Every rank must call this with the same
     arguments, in the same order as its other group creations: each call
-    creates the groups of every axis line, on every rank."""
+    creates the groups of every axis line, on every rank.  ``forms`` (one
+    of ``FORMS``) sets every axis's collective forms; by default each
+    axis takes its group's backend's (:func:`_backend_forms`)."""
+    if forms is not None and forms not in FORMS:
+        raise ValueError(f"forms {forms!r}; valid: {FORMS}")
     shape, names = tuple(int(s) for s in shape), tuple(names)
     if len(shape) != len(names):
         raise ValueError(f"mesh shape {shape} and axis names {names} differ "
@@ -90,7 +124,7 @@ def make_mesh(shape: Sequence[int], names: Sequence[str]) -> HostMesh:
                          f"{math.prod(shape)} ranks, the world has {world}")
     rank = dist.get_rank()
     coords = _unravel(rank, shape)
-    groups = {}
+    groups, axis_forms = {}, {}
     for i, name in enumerate(names):
         if shape[i] == 1:
             continue
@@ -104,13 +138,15 @@ def make_mesh(shape: Sequence[int], names: Sequence[str]) -> HostMesh:
             group = dist.new_group(line)
             if rank in line:
                 groups[name] = group
+                axis_forms[name] = forms or _backend_forms(group)
     return HostMesh(axis_names=names, axis_sizes=shape, rank=rank,
-                    coords=coords, groups=groups)
+                    coords=coords, groups=groups, forms=axis_forms)
 
 
-def make_host_mesh(data: int = 1, model: int = 1) -> HostMesh:
+def make_host_mesh(data: int = 1, model: int = 1, *,
+                   forms: Optional[str] = None) -> HostMesh:
     """A ``(data, model)`` mesh over the initialized world."""
-    return make_mesh((data, model), ("data", "model"))
+    return make_mesh((data, model), ("data", "model"), forms=forms)
 
 
 def _unravel(rank: int, shape: Tuple[int, ...]) -> Tuple[int, ...]:

@@ -108,6 +108,10 @@ class ExperimentResult:
                 return rec["eval"]
         return None
 
+    @property
+    def eval_curve(self) -> List[tuple]:
+        return [(r["step"], r["eval"]) for r in self.history if "eval" in r]
+
 
 def validate(spec: ScenarioSpec, resume: Optional[str] = None) -> None:
     """``spec.validate()``, and the checks a resumed run adds."""
@@ -127,11 +131,13 @@ def resolve(spec: ScenarioSpec, *, device=None, verbose: bool = False,
             obs: Any = None, resume: Optional[str] = None) -> Plan:
     """Validate ``spec`` and build the runtime bundle on ``device``."""
     validate(spec, resume)
-    dev = resolve_device(device)
     mesh = None
     if spec.mesh:
+        from repro_torch.dist.launch import rank_device
         from repro_torch.dist.mesh import make_host_mesh, parse_mesh
+        device = rank_device("cuda" if device is None else device)
         mesh = make_host_mesh(*parse_mesh(spec.mesh))
+    dev = resolve_device(device)
     model, batch_fn, eval_fn = _build_model_and_data(spec, dev)
 
     opt_cfg = spec.opt
@@ -190,11 +196,15 @@ def run_experiment(spec: ScenarioSpec, *, device=None, verbose: bool = False,
     bit as the uninterrupted run.
 
     With ``spec.mesh`` and no ``torch.distributed`` world, the spec is
-    validated here and then run by D x M spawned ranks over gloo on
-    ``device``; every rank must end with bit-equal params, and a rank's
-    exception fails the call.  Each rank gets ``obs``: rank 0 writes the
-    JSONL and the snapshot, and with ``obs.profile_dir`` every rank opens
-    its own profiler window (``<profile_dir>/rank<r>``)."""
+    validated here and then run by D x M spawned ranks
+    (``dist/launch.py::run_spawned``): over NCCL, rank r on ``cuda:r``,
+    where ``device`` is CUDA and the host has a card a rank, else over
+    gloo on ``device``; every rank must end with bit-equal params, and a
+    rank's exception fails the call.  In a world made already (a spawned
+    rank, or ``torchrun``) each rank runs on its own device
+    (``dist/launch.py::rank_device``).  Each rank gets ``obs``: rank 0
+    writes the JSONL and the snapshot, and with ``obs.profile_dir`` every
+    rank opens its own profiler window (``<profile_dir>/rank<r>``)."""
     import torch.distributed as dist
     if spec.mesh and not dist.is_initialized():
         from repro_torch.dist.launch import run_spawned

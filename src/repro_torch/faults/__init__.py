@@ -15,5 +15,6 @@ from repro_torch.faults.injector import (FaultInjector,  # noqa: F401
                                          resolve_quorum)
 from repro_torch.faults.spec import (FaultError, FaultSpec,  # noqa: F401
                                      available_fault_kinds, expand_faults,
-                                     get_fault_kind, register_fault,
-                                     validate_fault, validate_faults)
+                                     fault_kind_names, get_fault_kind,
+                                     register_fault, validate_fault,
+                                     validate_faults)

@@ -85,6 +85,11 @@ def available_fault_kinds() -> Tuple[str, ...]:
     return tuple(sorted(_FAULT_KINDS))
 
 
+# Back-compat alias some call sites prefer (reads like the registry API).
+def fault_kind_names() -> Tuple[str, ...]:
+    return available_fault_kinds()
+
+
 def get_fault_kind(name: str) -> FaultKindSpec:
     key = name.lower()
     if key not in _FAULT_KINDS:

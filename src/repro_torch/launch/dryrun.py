@@ -34,6 +34,14 @@ turn with its batch rows cut over ``data``, each period's shards gathered
 where they are used; a prefill or decode pair runs the forward or the
 decode step on the same shards.
 
+The rank's collectives take the NCCL forms by default (``--forms nccl``,
+``dist/collectives.py``), as a production H100 mesh runs one rank a card:
+one call a collective, a reduce-scatter counted under "reduce-scatter"
+with its output bytes, no staged pieces.  ``--forms gloo`` traces the
+forms of several ranks on one card (an all_reduce and a cut for a
+reduce-scatter, CUDA gathers in pieces of at most ``STAGE_BYTES``), which
+is what ``chip_smoke.py`` holds against runs on one card.
+
 Usage (CPU or GPU host; no card is used):
   python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--layout sharded]
@@ -157,13 +165,15 @@ def fake_tensors():
     return FakeTensorMode()
 
 
-def _world_mesh(mesh):
-    """A ``HostMesh`` of ``mesh`` over the fake world (made once a
-    process: each makes a process group per axis line)."""
+def _world_mesh(mesh, forms: str):
+    """A ``HostMesh`` of ``mesh`` over the fake world whose axes take
+    ``forms`` (made once a process and forms: each makes a process group
+    per axis line)."""
     from repro_torch.dist.mesh import make_mesh
-    key = (tuple(mesh.axis_names), tuple(mesh.axis_sizes))
+    key = (tuple(mesh.axis_names), tuple(mesh.axis_sizes), forms)
     if key not in _WORLD_MESHES:
-        _WORLD_MESHES[key] = make_mesh(mesh.axis_sizes, mesh.axis_names)
+        _WORLD_MESHES[key] = make_mesh(mesh.axis_sizes, mesh.axis_names,
+                                       forms=forms)
     return _WORLD_MESHES[key]
 
 
@@ -188,7 +198,7 @@ def _flash_prefill():
 
 def build_traced(arch, shape, mesh, *, layout: str = "sharded",
                  rule: str = "phocas", b: int = 2, remat: str = "full",
-                 mode: str = "vmap", attack=None):
+                 mode: str = "vmap", attack=None, forms: str = "nccl"):
     """Returns ``(fn, args, meta)``: rank 0's program of pair (``arch``,
     ``shape``) on ``mesh`` and its arguments, ready for
     ``trace_cost(fn, *args)``, and the pair's parameter counts.
@@ -199,7 +209,8 @@ def build_traced(arch, shape, mesh, *, layout: str = "sharded",
     (``fake.init_fake_world``); it refuses a real world.  ``attack`` (an
     ``AttackConfig``, none by default as in the reference) corrupts the
     training step's worker matrix.  ``mode="streaming"``: the FSDP
-    streaming program of the module docstring."""
+    streaming program of the module docstring.  ``forms``: the
+    collective forms the rank's mesh axes take (the module docstring)."""
     import torch
 
     from repro_torch.configs import get_arch, get_shape
@@ -231,7 +242,7 @@ def build_traced(arch, shape, mesh, *, layout: str = "sharded",
     cfg = get_arch(arch) if isinstance(arch, str) else arch
     shape = get_shape(shape) if isinstance(shape, str) else shape
     model = build_model(cfg, remat=remat)
-    world = _world_mesh(mesh)
+    world = _world_mesh(mesh, forms)
     m = _worker_size(mesh)
     full = _fake_params(model)
     total, active = _active_params(cfg, full)
@@ -311,13 +322,16 @@ def build_traced(arch, shape, mesh, *, layout: str = "sharded",
 
 def run_one(arch: str, shape_name: str, *, multi_pod: bool, layout: str,
             rule: str, b: int, remat: str, outdir: str,
-            skip_existing: bool = False, mode: str = "vmap") -> dict:
+            skip_existing: bool = False, mode: str = "vmap",
+            forms: str = "nccl") -> dict:
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.trace_analysis import trace_cost
     mesh_name = "2x16x16" if multi_pod else "16x16"
     tag = f"{arch}__{shape_name}__{mesh_name}__{layout}__{rule}__{remat}"
     if mode != "vmap":
         tag += f"__{mode}"
+    if forms != "nccl":
+        tag += f"__{forms}"
     path = os.path.join(outdir, tag + ".json")
     if skip_existing and os.path.exists(path):
         with open(path) as f:
@@ -325,14 +339,15 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool, layout: str,
     os.makedirs(outdir, exist_ok=True)
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
            "layout": layout, "rule": rule, "remat": remat, "mode": mode,
-           "ok": False}
+           "forms": forms, "ok": False}
     t0 = time.time()
     try:
         mesh = make_production_mesh(multi_pod=multi_pod)
         with fake_tensors():
             fn, args, meta = build_traced(arch, shape_name, mesh,
                                           layout=layout, rule=rule, b=b,
-                                          remat=remat, mode=mode)
+                                          remat=remat, mode=mode,
+                                          forms=forms)
             rec.update(meta)
             t1 = time.time()
             cost = trace_cost(fn, *args, fold_loops=True)
@@ -381,6 +396,8 @@ def main(argv=None):
     ap.add_argument("--remat", default="full",
                     choices=["none", "full", "dots"])
     ap.add_argument("--mode", default="vmap", choices=["vmap", "streaming"])
+    ap.add_argument("--forms", default="nccl", choices=["nccl", "gloo"],
+                    help="the collective forms traced (dist/collectives.py)")
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--skip-existing", action="store_true")
     args = ap.parse_args(argv)
@@ -392,7 +409,8 @@ def main(argv=None):
         rec = run_one(arch, shape, multi_pod=args.multi_pod,
                       layout=args.layout, rule=args.rule, b=args.b,
                       remat=args.remat, outdir=args.out,
-                      skip_existing=args.skip_existing, mode=args.mode)
+                      skip_existing=args.skip_existing, mode=args.mode,
+                      forms=args.forms)
         n_ok += bool(rec.get("ok"))
     print(f"[dryrun] {n_ok}/{len(todo)} OK")
     if n_ok != len(todo):

@@ -12,13 +12,15 @@ Two paths behind one CLI:
 
 The run is on ``cuda`` unless ``--device cpu`` is given.  ``--mesh DxM``
 serves the dense tier on a (data, model) mesh of D x M ranks: from a
-process with no ``torch.distributed`` world it spawns them (gloo, every
-rank on the one device), under ``torchrun`` each process is a rank.  The
-requests shard over the data axis, the KV heads, the SSM state's heads and
-every family's layers (dense, MoE, MLA, SSM, hybrid, whisper's
-encoder-decoder, the VLM) over the model axis; each rank builds only its
-blocks of the params, the ranks taking turns; rank 0 prints the ``tok/s``
-line and the tokens as without a mesh.  The paged engine takes no mesh.
+process with no ``torch.distributed`` world it spawns them (NCCL, one rank
+a card, where the host has a card a rank; gloo, every rank on the one
+device, else: ``dist/launch.py``), under ``torchrun`` each process is a
+rank.  The requests shard over the data axis, the KV heads, the SSM
+state's heads and every family's layers (dense, MoE, MLA, SSM, hybrid,
+whisper's encoder-decoder, the VLM) over the model axis; each rank builds
+only its blocks of the params, the ranks taking turns; rank 0 prints the
+``tok/s`` line and the tokens as without a mesh.  The paged engine takes no
+mesh.
 
 ``--metrics PATH`` arms the obs layer (the ``prefill``/``decode`` spans, the
 engine's counters and gauges, ``serve_tokens_per_sec``) and writes its
@@ -199,7 +201,10 @@ def main(argv=None):
         raise SystemExit("--mesh serves the dense tier; the paged engine "
                          "takes no mesh")
 
-    device = resolve_device(args.device)
+    from repro_torch.dist.launch import join_torchrun, rank_device
+    if args.mesh:
+        join_torchrun(args.device)
+    device = resolve_device(rank_device(args.device))
     model = build_model(get_arch(args.arch))
     if args.mesh:
         import torch.distributed as dist
@@ -209,8 +214,8 @@ def main(argv=None):
         if not dist.is_initialized():
             from repro_torch.dist.launch import spawn
             print(spawn(_serve_rank, d * mm,
-                        sys.argv[1:] if argv is None else list(argv))[0],
-                  end="")
+                        sys.argv[1:] if argv is None else list(argv),
+                        device=device)[0], end="")
             return
         from repro_torch.dist.sharding import init_blocks
         mesh = make_host_mesh(d, mm)

@@ -18,9 +18,12 @@ once under PyTorch dispatch modes, which see every aten op and every
 * ``collective_bytes`` / ``collective_counts`` by the reference's
   ``COLLECTIVE_KINDS``: each ``c10d`` call and the bytes of its output (the
   tensors it fills), as the reference counts a collective's output shape.
-  A CUDA all_gather or all_to_all goes in calls of at most
-  ``dist/collectives.py::STAGE_BYTES``, each of which counts once, and
-  their bytes sum to the whole;
+  Under the NCCL forms (``dist/collectives.py``, the dry run's default)
+  each collective is one call, and a reduce-scatter counts under
+  "reduce-scatter" with its output bytes; under the gloo forms a CUDA
+  all_gather or all_to_all goes in calls of at most ``STAGE_BYTES``, each
+  of which counts once, their bytes summing to the whole, and a
+  reduce-scatter is an all-reduce of the whole operand;
 * ``peak_bytes``: the most bytes live at once, from the arguments' bytes
   at the start, counted by storage (a view or an in-place result adds
   nothing; a storage counts until it is freed), and ``argument_bytes`` /

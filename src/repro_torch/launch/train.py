@@ -25,7 +25,9 @@ repro_torch.obs.report PATH``), and ``--profile-dir DIR`` a
 ``DIR/rank<r>/trace.json``).
 
 ``--mesh DxM`` runs sync_ps on D x M ``torch.distributed`` ranks (spawned
-from one process, or under ``torchrun`` one a process): each data rank is
+from one process, over NCCL one a card where the host has a card a rank,
+else over gloo on the one device; or under ``torchrun`` one a process,
+on ``cuda:$LOCAL_RANK`` over NCCL): each data rank is
 a worker, and an arch model computes tensor-parallel over the model axis,
 each rank holding its blocks of the params and optimizer state (every
 family; the paper's MLP and CNN compute whole on every model rank and
@@ -314,7 +316,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     import torch.distributed as dist
 
+    from repro_torch.dist.launch import join_torchrun
     from repro_torch.obs.profile import profile_trace
+    if spec.mesh:
+        join_torchrun(args.device)
     # A mesh run from one process spawns its ranks, and each rank opens its
     # own window (dist/launch.py); here the window would see no device work.
     spawns = bool(spec.mesh) and not dist.is_initialized()

@@ -97,6 +97,21 @@ class Histogram:
             out.append(acc)
         return out
 
+    def quantile(self, q: float) -> float:
+        """Bucket-resolution quantile estimate (upper bound of the bucket
+        holding the q-th observation; +Inf bucket reports the last finite
+        bound).  Good enough for p50/p99 dashboards, not for SLO math."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile must be in [0, 1], got {q}")
+        if self.count == 0:
+            return 0.0
+        rank = q * self.count
+        for i, acc in enumerate(self.cumulative()):
+            if acc >= rank:
+                return self.bounds[i] if i < len(self.bounds) \
+                    else self.bounds[-1]
+        return self.bounds[-1]
+
 
 _KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
 
@@ -210,6 +225,17 @@ class Recorder:
         self.metrics_path = metrics_path
         self._closed = False
 
+    # -- construction ------------------------------------------------------
+
+    @classmethod
+    def disabled(cls) -> "Recorder":
+        return cls()
+
+    @property
+    def enabled(self) -> bool:
+        """Is anything listening (a sink or the registry)?"""
+        return bool(self._sinks) or self.registry is not None
+
     @property
     def metrics_enabled(self) -> bool:
         return self.registry is not None
@@ -250,6 +276,12 @@ class Recorder:
     def gauge(self, name: str, value: float, **labels) -> None:
         if self.registry is not None:
             self.registry.gauge(name, **labels).set(value)
+
+    def observe(self, name: str, value: float,
+                buckets: Sequence[float] = DEFAULT_MS_BUCKETS,
+                **labels) -> None:
+        if self.registry is not None:
+            self.registry.histogram(name, buckets, **labels).observe(value)
 
     def span(self, name: str, step_num: Optional[int] = None, **labels):
         """A timed span context manager, or the shared zero-cost no-op

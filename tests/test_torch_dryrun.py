@@ -67,6 +67,11 @@ REDUCED = ("gemma2-2b-reduced", "deepseek-v2-lite-16b-reduced",
 # test_streaming_on_a_model_axis_is_m_vmap_gradients)
 MODEL_AXIS_STREAM = ("gemma2-2b-reduced", "mamba2-2.7b-reduced")
 # the port's dot FLOPs above the reference's (module docstring)
+# The collective forms' pair: gemma2-2b-reduced's train pair with
+# ``SEQ_SHARD`` on FORMS_GRID, traced under each form with the gloo forms'
+# pieces cut to FORMS_STAGE_BYTES, so that they show on a reduced pair.
+FORMS_GRID = (2, 4)
+FORMS_STAGE_BYTES = 4096
 REMAT_GAP = {"mamba2-2.7b-reduced": 786_432}
 # the reference's streaming dot FLOPs on (8, 1) above the port's, besides
 # its m extra forwards: mamba2's SSD order, 262,144 in each of the 2m = 16
@@ -113,6 +118,16 @@ for key, (name, grid) in %(heads)r.items():
     S, B, kind = dict(%(shapes)r, dryrun_prefill=(64, 8, "prefill"))[name]
     traced(key, "gemma2-2b-reduced", InputShape(name, S, B, kind),
            Mesh(("data", "model"), grid), b=0)
+from repro_torch.dist import collectives
+from repro_torch.models import stack
+stage, collectives.STAGE_BYTES = collectives.STAGE_BYTES, %(stage)r
+stack.SEQ_SHARD = True          # reduce-scatters out of the layers
+for forms in ("nccl", "gloo"):
+    S, B, kind = %(shapes)r["dryrun_train"]
+    traced("forms/" + forms, "gemma2-2b-reduced",
+           InputShape("dryrun_train", S, B, kind),
+           Mesh(("data", "model"), %(forms_grid)r), b=0, forms=forms)
+stack.SEQ_SHARD, collectives.STAGE_BYTES = False, stage
 import os
 for flag in ("0", "1"):          # K6 takes the prefill only under the flag
     os.environ["REPRO_FLASH_ATTN"] = flag
@@ -206,7 +221,8 @@ def runs(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=SRC)
     env.pop("XLA_FLAGS", None)
     args = {"archs": REDUCED, "shapes": SHAPES, "stream": STREAM_SHAPES,
-            "heads": HEAD_PAIRS, "model_axis": MODEL_AXIS_STREAM}
+            "heads": HEAD_PAIRS, "model_axis": MODEL_AXIS_STREAM,
+            "stage": FORMS_STAGE_BYTES, "forms_grid": FORMS_GRID}
     cmds = {"port": [sys.executable, "-c", _PORT % dict(args, part="vmap")],
             "port_streaming": [sys.executable, "-c",
                                _PORT % dict(args, part="streaming")],
@@ -694,3 +710,28 @@ def test_sync_ps_drops_the_first_params_after_the_first_step():
     finally:
         gc.enable()
     assert seen == [False, True, True]
+
+
+def test_nccl_forms_trace_reduce_scatters_where_gloo_all_reduced(runs):
+    """gemma2-2b-reduced's ``SEQ_SHARD`` train pair on (2, 4) traced under
+    each form: the NCCL forms count a reduce-scatter exactly where the gloo
+    forms counted an all-reduce, with 1/4 (the model axis) of its output
+    bytes; they gather and exchange the same bytes in whole calls where
+    the gloo forms' CUDA pieces (cut to FORMS_STAGE_BYTES here) take more;
+    and the NCCL forms' predicted peak is no higher."""
+    port = _result(_run(runs, "port"))
+    nccl, gloo = port["forms/nccl"], port["forms/gloo"]
+    counts = {k: (nccl["collective_counts"][k], gloo["collective_counts"][k])
+              for k in nccl["collective_counts"]}
+    sizes = {k: (nccl["collective_bytes"][k], gloo["collective_bytes"][k])
+             for k in nccl["collective_bytes"]}
+    assert counts["reduce-scatter"][1] == 0 < counts["reduce-scatter"][0]
+    assert counts["all-reduce"][0] + counts["reduce-scatter"][0] == \
+        counts["all-reduce"][1]
+    assert sizes["all-reduce"][0] + FORMS_GRID[1] * \
+        sizes["reduce-scatter"][0] == sizes["all-reduce"][1]
+    for kind in ("all-gather", "all-to-all"):
+        assert sizes[kind][0] == sizes[kind][1], kind
+    assert counts["all-gather"][0] < counts["all-gather"][1]
+    assert nccl["peak_bytes"] <= gloo["peak_bytes"]
+    assert nccl["dot_flops"] == gloo["dot_flops"]

@@ -3,7 +3,10 @@ on the CPU: the spec its flags build (JSON equal over a grid of flag sets),
 ``--dump-scenario`` files byte for byte, a scenario run's metrics snapshot
 (series names, counters and deterministic gauges equal to the reference
 run's), every example scenario to ``[train] done``, a ``--mesh 2x1`` run
-(the ``--workers`` override, rank 0's snapshot, one profiler trace a rank).
+(the ``--workers`` override, rank 0's snapshot, one profiler trace a rank,
+the spawner's backend line), the spawner's backend rule
+(``dist/launch.py::plan_world``) on a table of hosts, and a ``torchrun``
+world joined in this process (``join_torchrun``).
 ``tests/test_torch_import.py`` imports these modules, as every module of the
 port, with JAX blocked."""
 import dataclasses
@@ -171,6 +174,7 @@ def test_mesh_run_overrides_workers_and_rank0_writes(tmp_path, capfd):
                      "--telemetry", str(jsonl), "--profile-dir",
                      str(prof)])
     out = capfd.readouterr().out
+    assert "mesh: 2 ranks, gloo, on cpu" in out
     assert "[train] overriding --workers to mesh data size 2" in out
     assert "mesh=2x1" in out and out.rstrip().endswith("[train] done")
     # one step line a step: rank 0 alone prints
@@ -194,3 +198,62 @@ def test_only_rank0_keeps_the_snapshot_path():
     other = _rank_obs(plan, False)
     assert other.metrics_path is None and other.profile_dir == "p"
     assert other.enabled and other.profile_cost
+
+
+# (caller's device, cards on the host, world) -> (backend, each rank's device)
+WORLDS = {
+    "CPU ranks": (("cpu", 0, 4), ("gloo", ("cpu",) * 4)),
+    "1 card, world 8": (("cuda", 1, 8), ("gloo", ("cuda",) * 8)),
+    "4 cards, world 4": (("cuda", 4, 4),
+                         ("nccl", ("cuda:0", "cuda:1", "cuda:2", "cuda:3"))),
+    "2 cards, world 4": (("cuda", 2, 4), ("gloo", ("cuda",) * 4)),
+    "4 cards, world 2": (("cuda:0", 4, 2), ("nccl", ("cuda:0", "cuda:1"))),
+    "no device": ((None, 4, 4), ("gloo", (None,) * 4)),
+}
+
+
+@pytest.mark.parametrize("key", list(WORLDS))
+def test_spawn_backend_rule(key):
+    """NCCL with rank r on ``cuda:r`` where the caller's device is CUDA and
+    the host has a card a rank; gloo on the caller's device otherwise."""
+    from repro_torch.dist.launch import plan_world, rank_device
+    (device, cards, world), want = WORLDS[key]
+    assert plan_world(device, cards, world) == want
+    # outside a spawned rank and a world, a rank's device is the caller's
+    assert rank_device(device) == device
+
+
+def test_make_mesh_refuses_unknown_forms():
+    from repro_torch.dist.mesh import make_mesh
+    with pytest.raises(ValueError, match="forms 'mpi'"):
+        make_mesh((1, 1), ("data", "model"), forms="mpi")
+
+
+def test_join_torchrun_makes_this_process_its_rank(monkeypatch):
+    """With ``torchrun``'s variables set (a world of one rank here), the
+    launch CLIs' ``join_torchrun`` makes the world this process is a rank
+    of: gloo for a CPU device, and a rank's device is the caller's; with
+    no such variables it makes none."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.dist.launch import join_torchrun, rank_device
+    assert not dist.is_initialized()
+    monkeypatch.delenv("TORCHELASTIC_RUN_ID", raising=False)
+    assert not join_torchrun("cpu") and not dist.is_initialized()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(TORCHELASTIC_RUN_ID="test", RANK="0", LOCAL_RANK="0",
+                     WORLD_SIZE="1", LOCAL_WORLD_SIZE="1",
+                     MASTER_ADDR="localhost", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    try:
+        assert join_torchrun("cpu")
+        assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+        assert rank_device("cpu") == "cpu"
+        assert not join_torchrun("cpu")             # the world is made
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -51,6 +51,15 @@ gaussian; every rank holds a quarter of gemma2's params, momentum and
 bottom statistic; and the ``streaming`` topology with a (4, 1) mesh on
 its plan equals the reference's ``run_experiment`` from the same params
 on the same batches.
+
+Last, the world makes a (2, 2) and a (4, 1) mesh whose axes take the NCCL
+collective forms (one call a collective, a real reduce-scatter; gloo takes
+those calls on CPU tensors): all_gathers and all_to_alls equal the gloo
+forms' bit for bit, ``reduce_scatter_to_model`` equals the all_reduce and
+cut within rtol 1e-6 in f32 and one ulp in bf16, and gemma2-2b-reduced's
+``SEQ_SHARD`` run and the MLP's FSDP streaming step equal the gloo forms'
+(losses rtol 1e-5, params rtol 1e-5, atol 1e-7) and the reference at the
+tolerances above.
 """
 import concurrent.futures
 import dataclasses
@@ -88,7 +97,8 @@ from repro_torch.experiment.topologies import SyncPS
 from repro_torch.models import moe as t_moe
 from repro_torch.models.registry import build_model as t_build
 from repro_torch.optim.optimizers import init_opt_state
-from torch_tp_ranks import MESH, stream_single, tp_rank
+from torch_tp_ranks import (MESH, NCCL_STREAM, NCCL_TRAIN, stream_single,
+                            tp_rank)
 
 # case -> (arch, config changes, batch, prompt tokens, MoE grouping,
 #          generated tokens a prompt)
@@ -835,3 +845,89 @@ def test_mesh_streaming_topology_matches_the_reference(world):
     got = ranks[0]["spec"]
     np.testing.assert_allclose(got["losses"], losses, rtol=1e-4)
     np.testing.assert_allclose(got["params"], params, rtol=1e-4, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The NCCL collective forms, on the gloo world
+# ---------------------------------------------------------------------------
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at each value of ``x`` (8 significand bits)."""
+    mag = np.maximum(np.abs(x), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+def _nccl_ops(world, reduce_scatter: bool) -> list:
+    """(rank, op, (NCCL forms' output, gloo forms' output)) of every rank's
+    reduce-scatters, or of its other collectives."""
+    _, ranks = world
+    return [(r, key, pair) for r, rk in enumerate(ranks)
+            for key, pair in rk["nccl"]["ops"].items()
+            if key.startswith("reduce_scatter") == reduce_scatter]
+
+
+def test_nccl_gathers_and_all_to_alls_equal_the_gloo_forms(world):
+    """On every rank, each all_gather (dims 0 and 1 over both axes, the
+    worker gather, the model-axis gather of the tensor-parallel layers) and
+    the two-axis all_to_all give the gloo forms' bits; the gathers went
+    through ``all_gather_single``."""
+    cases = _nccl_ops(world, False)
+    assert len(cases) == 5 * MESH[0] * MESH[1]
+    for rank, key, (nccl, gloo) in cases:
+        np.testing.assert_array_equal(nccl, gloo, err_msg=f"{key} {rank}")
+    assert world[1][0]["nccl"]["calls"]["all_gather_single"] > 0
+
+
+def test_nccl_reduce_scatter_equals_all_reduce_then_cut(world):
+    """``reduce_scatter_to_model`` over the model axis (dims 0 and 1) and
+    over both axes (dim 2): one ``reduce_scatter_single`` an axis under the
+    NCCL forms against the gloo forms' f32 all_reduce and cut, within rtol
+    1e-6 in f32 and one bf16 ulp in bf16 (both sum in f32 and round
+    once)."""
+    cases = _nccl_ops(world, True)
+    assert len(cases) == 6 * MESH[0] * MESH[1]
+    for rank, key, (nccl, gloo) in cases:
+        assert nccl.shape == gloo.shape, key
+        if "bfloat16" in key:
+            assert (np.abs(nccl - gloo) <= _bf16_ulp(gloo)).all(), key
+        else:
+            np.testing.assert_allclose(nccl, gloo, rtol=1e-6, atol=0,
+                                       err_msg=f"{key} {rank}")
+    assert world[1][0]["nccl"]["calls"]["reduce_scatter_single"] > 0
+
+
+def test_nccl_forms_seq_shard_run_matches_gloo_and_the_reference(world):
+    """gemma2-2b-reduced's three ``SEQ_SHARD`` steps on the NCCL-form
+    (2, 2) mesh (reduce-scatters out of every mixer and FFN) against the
+    gloo forms' run (losses rtol 1e-5; params rtol 1e-5, atol 1e-7) and
+    the reference's trajectory at the tolerances above."""
+    want, ranks = world
+    got = ranks[0]["nccl"]["train"]
+    gloo = ranks[0]["train"][NCCL_TRAIN]["seq"]
+    np.testing.assert_allclose(got["losses"], gloo["losses"], rtol=1e-5)
+    np.testing.assert_allclose(got["params"], gloo["params"], rtol=1e-5,
+                               atol=1e-7)
+    losses, params, _, _ = want[NCCL_TRAIN]
+    np.testing.assert_allclose(got["losses"], losses, rtol=1e-4)
+    np.testing.assert_allclose(got["params"], params, rtol=1e-4,
+                               atol=PARAM_ATOL[NCCL_TRAIN])
+
+
+def test_nccl_forms_fsdp_streaming_step_matches_gloo_and_the_reference(
+        world):
+    """The MLP's FSDP streaming steps on the NCCL-form (4, 1) mesh (its
+    gradient reduce-scattered over the data axis) against the gloo forms'
+    (losses rtol 1e-5; params rtol 1e-5, atol 1e-7) and the one-process
+    streaming step at ``test_mesh_streaming_matches_the_single_process``'s
+    tolerances."""
+    want, ranks = world
+    got = ranks[0]["nccl"]["stream"]
+    gloo = ranks[0]["stream"][NCCL_STREAM]
+    ref = want["stream", NCCL_STREAM]
+    for a, b, r in zip(got["params"], gloo["params"], ref["params"]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(a, r, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(np.stack(got["losses"]),
+                               np.stack(gloo["losses"]), rtol=1e-5)
+    np.testing.assert_allclose(np.stack(got["losses"]),
+                               np.stack(ref["losses"]), rtol=1e-4)

@@ -6,7 +6,9 @@ process computes the reference's values and hands the rank numpy inputs
 (parameters, prompts, batches, spec JSON).  The body runs as one rank of a
 (data, model) = (2, 2) mesh under ``repro_torch.dist.launch.spawn``, then
 of a (1, 4) mesh (attention on heads that 4 model ranks do not split) and
-of the FSDP streaming step's (4, 1) and (2, 2) meshes, over the same world.
+of the FSDP streaming step's (4, 1) and (2, 2) meshes, over the same world;
+last, of (2, 2) and (4, 1) meshes whose axes take the NCCL collective forms
+(``make_mesh(..., forms="nccl")``) on this gloo world.
 """
 from __future__ import annotations
 
@@ -387,7 +389,93 @@ def tp_rank(rank: int, world: int, serve_cases: dict, train_cases: dict,
     res = _stream_spec(**stream_spec)
     if rank == 0:
         out["spec"] = res
+    out["nccl"] = _nccl_forms(rank, mesh, train_cases[NCCL_TRAIN],
+                              stream_cases[NCCL_STREAM])
     return out
+
+
+# The training case and the streaming case run again under the NCCL forms.
+NCCL_TRAIN = "gemma2-2b-reduced"
+NCCL_STREAM = "mlp phocas signflip"
+
+
+def _nccl_forms(rank, gloo, train_case, stream_case) -> dict:
+    """The collectives, a ``SEQ_SHARD`` training run and an FSDP streaming
+    run under the NCCL forms (a (2, 2) and a (4, 1) mesh made with
+    ``forms="nccl"``), beside the same collectives under ``gloo``'s (the
+    (2, 2) mesh of the other cases): each op's two outputs on this rank,
+    the runs' values (rank 0), and the tensor-form calls each made."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.mesh import make_host_mesh, make_mesh
+    nccl = make_host_mesh(*MESH, forms="nccl")
+    calls = {"all_gather_single": 0, "reduce_scatter_single": 0}
+    real = C._all_gather_single, C._reduce_scatter_single
+
+    def gather(*a, **kw):
+        calls["all_gather_single"] += 1
+        return real[0](*a, **kw)
+
+    def scatter(*a, **kw):
+        calls["reduce_scatter_single"] += 1
+        return real[1](*a, **kw)
+
+    C._all_gather_single, C._reduce_scatter_single = gather, scatter
+    g = torch.Generator().manual_seed(100 + rank)
+    x = torch.randn((4, 6, 8), generator=g)
+    both = ("data", "model")
+    ops = {}
+    try:
+        for name, fn in {
+                "all_gather dim 0": lambda m: C.all_gather_axes(
+                    x, m.axes(both), 0),
+                "all_gather dim 1": lambda m: C.all_gather_axes(
+                    x, m.axes(both), 1),
+                "gather_workers": lambda m: C.gather_workers(
+                    x.reshape(-1), m.axes(both)),
+                "all_to_all_scatter": lambda m: C.all_to_all_scatter(
+                    x.reshape(-1), m.axes(both)),
+                "gather_from_model": lambda m: C.gather_from_model(
+                    x, m.axes(("model",)), 2)}.items():
+            ops[name] = (_np(fn(nccl)), _np(fn(gloo)))
+        for dt in (torch.float32, torch.bfloat16):
+            for names, dim in ((("model",), 0), (("model",), 1),
+                               (both, 2)):
+                fn = (lambda m: C.reduce_scatter_to_model(
+                    x.to(dt), m.axes(names), dim).float())
+                key = f"reduce_scatter {str(dt)[6:]} {'+'.join(names)} {dim}"
+                ops[key] = (_np(fn(nccl)), _np(fn(gloo)))
+        train = _train_nccl(nccl, **train_case)
+        kind, rule, attack, shape, steps = stream_case
+        stream = _stream(make_mesh(shape, ("data", "model"), forms="nccl"),
+                         kind, rule, attack, steps)
+    finally:
+        C._all_gather_single, C._reduce_scatter_single = real
+    out = {"ops": ops, "calls": calls}
+    if rank == 0:
+        out["train"], out["stream"] = train, stream
+    return out
+
+
+def _train_nccl(mesh, spec_json, init, batches, **_) -> dict:
+    """The ``SEQ_SHARD`` run of :func:`_train` on ``mesh``."""
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.experiment import ScenarioSpec, resolve
+    from repro_torch.experiment.topologies import SyncPS
+    from repro_torch.models import stack
+    from repro_torch.optim.optimizers import init_opt_state
+    plan = resolve(ScenarioSpec.from_json(spec_json), device="cpu")
+    plan.mesh = mesh
+    feed = [{k: torch.tensor(v) for k, v in b.items()} for b in batches]
+    plan.batch_fn = lambda s: feed[s]
+    params = lm_params_from_numpy(init)
+    stack.SEQ_SHARD = True
+    try:
+        res = SyncPS().run(plan, init_state=(
+            params, init_opt_state(plan.opt_cfg, params)))
+    finally:
+        stack.SEQ_SHARD = False
+    return {"losses": [r["loss"] for r in res.history],
+            "params": _flat(res.params)}
 
 
 def _stream_spec(spec_json, init, batches) -> dict:

@@ -7,9 +7,10 @@ Reads the JSON records ``python -m repro_torch.launch.dryrun --all [--multi-pod]
 [--mode streaming] --out DIR`` wrote into each directory and prints a
 Markdown table: per pair and directory, a rank's argument and peak GiB
 (whether the peak fits 80 GiB), dot TFLOP, collective GB by kind
-(all-gather / all-reduce / all-to-all) and the trace's seconds; with
-``--brief`` (first), the peak, whether it fits and the dot TFLOP alone, so
-that four directories (both modes on both meshes) fit one table:
+(all-gather / all-reduce / reduce-scatter / all-to-all) and the trace's
+seconds; with ``--brief`` (first), the peak, whether it fits and the dot
+TFLOP alone, so that four directories (both modes on both meshes) fit one
+table:
 
     python3 tools/dryrun_table.py --brief vmap16 vmap32 stream16 stream32
 
@@ -24,7 +25,8 @@ import os
 import sys
 
 GIB = 2 ** 30
-KINDS = (("all-gather", "AG"), ("all-reduce", "AR"), ("all-to-all", "A2A"))
+KINDS = (("all-gather", "AG"), ("all-reduce", "AR"),
+         ("reduce-scatter", "RS"), ("all-to-all", "A2A"))
 
 
 def _records(directory: str) -> dict:
@@ -47,7 +49,7 @@ def _cell(rec, brief: bool = False) -> str:
                 f"{rec['dot_flops'] / 1e12:.2f}")
     coll = rec["collectives"]["bytes"]
     fits = "yes" if rec["peak_bytes"] <= 80 * GIB else "no"
-    gb = " / ".join(f"{coll[k] / 1e9:.2f}" for k, _ in KINDS)
+    gb = " / ".join(f"{coll.get(k, 0) / 1e9:.2f}" for k, _ in KINDS)
     return (f"{rec['argument_size_in_bytes'] / GIB:.2f} | "
             f"{rec['peak_bytes'] / GIB:.2f} | {fits} | "
             f"{rec['dot_flops'] / 1e12:.2f} | {gb} | {rec['trace_s']:.1f}")

@@ -3,12 +3,15 @@
 
     python3 tools/gloo_dtypes.py      # on a machine with a GPU
 
-Two gloo ranks on the one card (the port's meshes run every rank on one
-GPU over gloo: NCCL refuses two ranks a device) try ``all_reduce``, the
-list form of ``all_gather``, ``all_to_all_single`` and ``broadcast`` on
-f32, bf16 and f16 tensors, and check the values; rank 0 prints one line a
-(collective, dtype): "ok", "wrong values" or the error.  The card's name
-and power limit come first.
+Two gloo ranks on the one card (the port's meshes with more ranks than
+cards run every rank on one GPU over gloo: NCCL refuses two ranks a
+device) try ``all_reduce``, the list form of ``all_gather``,
+``all_to_all_single`` and ``broadcast`` (the gloo forms'), and the tensor
+forms ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` (the NCCL
+forms', under the installed torch's name for them) on f32, bf16 and f16
+tensors, and check the values; rank 0 prints one line a (collective,
+dtype): "ok", "wrong values" or the error.  The card's name and power
+limit come first.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ def _try(fn) -> str:
 
 def probe_rank(rank: int, world: int) -> list:
     import torch.distributed as dist
+
+    from repro_torch.dist import collectives as C
     lines = []
     for dt in DTYPES:
         def reduce():
@@ -60,9 +65,25 @@ def probe_rank(rank: int, world: int) -> list:
             dist.broadcast(x, src=0)
             return bool((x == 3).all())
 
+        def gather_tensor():
+            x = torch.full((1024,), float(rank), dtype=dt, device="cuda")
+            out = x.new_empty(world * 1024)
+            C._all_gather_single(out, x)
+            return all(bool((out[r * 1024:(r + 1) * 1024] == r).all())
+                       for r in range(world))
+
+        def scatter_tensor():
+            x = torch.full((world * 1024,), 1.5 + rank, dtype=dt,
+                           device="cuda")
+            out = x.new_empty(1024)
+            C._reduce_scatter_single(out, x)
+            return bool((out == sum(1.5 + r for r in range(world))).all())
+
         for name, fn in (("all_reduce", reduce), ("all_gather", gather),
-                         ("all_to_all_single", a2a), ("broadcast", bcast)):
-            lines.append(f"{name:18s} {str(dt)[6:]:9s} {_try(fn)}")
+                         ("all_to_all_single", a2a), ("broadcast", bcast),
+                         ("all_gather_tensor", gather_tensor),
+                         ("reduce_scatter_tensor", scatter_tensor)):
+            lines.append(f"{name:21s} {str(dt)[6:]:9s} {_try(fn)}")
     return lines
 
 
